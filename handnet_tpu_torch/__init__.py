@@ -1,0 +1,16 @@
+"""handnet_tpu_torch — the PyTorch/CUDA port of ``handnet_tpu``.
+
+The JAX package ``handnet_tpu`` is the reference; this package mirrors its
+layout (``config``, ``nn/``, ``ops/``, ``models/``, ``convert/``) so each
+module's counterpart is found by path. It imports torch and numpy only.
+
+The serving forward ``models.pipeline.HandNetPipeline`` runs the fused
+frame -> joints path. The two kernels the JAX package wrote in Pallas for the
+TPU are hand-written CUDA C++ for Hopper (``csrc/*.cu``), built with ``nvcc``
+at first use by ``kernels.build`` and wrapped in ``ops.cuda_gn`` (GroupNorm
+statistics) and ``ops.cuda_a2j`` (A2J anchor decode). A wrapper given a CPU
+tensor runs its plain PyTorch version; given a CUDA tensor it launches the
+kernel or raises.
+"""
+
+__version__ = "0.1.0"

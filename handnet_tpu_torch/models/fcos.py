@@ -1,0 +1,245 @@
+"""FCOS hand detector, serving forward.
+
+Counterpart of ``handnet_tpu/models/fcos.py`` (``ConvTower``, ``FCOSHead``,
+``FCOS``, ``preprocess``, ``decode_detections``, ``FCOSSystem.detect``).
+Parameter names follow the reference's torch state dict
+(``backbone.body.*``, ``backbone.fpn.*``,
+``head.{classification,regression}_head.*``), so the JAX package's
+``convert_fcos`` reads them.
+
+Not ported yet: the 100DOH extension heads (``ext=True``), the grouped-conv
+``fused_towers`` head, the int8 convs (ROADMAP item 7) and the resize branch
+of ``preprocess`` (ROADMAP item 8); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from handnet_tpu_torch.config import FCOSConfig
+from handnet_tpu_torch.nn.fpn import FPN
+from handnet_tpu_torch.nn.resnet import init_conv_weights_, resnet34
+from handnet_tpu_torch.ops.anchors import fcos_anchor_pyramid
+from handnet_tpu_torch.ops.boxes import linear_decode
+from handnet_tpu_torch.ops.cuda_gn import group_norm
+from handnet_tpu_torch.ops.nms import batched_nms_fixed
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm of an NCHW (channels_last) tensor with its statistics from
+    kernel K2 (``ops/cuda_gn.py``); ``use_kernel=False`` takes K2's plain
+    version instead. Parameters are named like ``torch.nn.GroupNorm``'s."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 use_kernel: bool = True):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.use_kernel = use_kernel
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # NHWC view of the channels_last bytes: what the kernel reads
+        nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        y = group_norm(nhwc, self.weight, self.bias, self.num_groups, self.eps,
+                       use_kernel=self.use_kernel)
+        return y.permute(0, 3, 1, 2)
+
+
+class ConvTower(nn.Sequential):
+    """num_convs x (conv3x3 + GroupNorm(32) + ReLU), shared across FPN levels
+    (reference fcos.py:235-240,355-360). Children are numbered like the
+    reference's [Conv, GN, ReLU] triplets: ``0, 1, 2, 3, ...``."""
+
+    def __init__(self, channels: int, num_convs: int = 4, use_kernel: bool = True):
+        layers = []
+        for _ in range(num_convs):
+            layers += [nn.Conv2d(channels, channels, 3, padding=1),
+                       GroupNorm(32, channels, use_kernel=use_kernel),
+                       nn.ReLU(inplace=True)]
+        super().__init__(*layers)
+
+
+def _flat(t: torch.Tensor, k: int) -> torch.Tensor:
+    """NCHW head output -> ``[B, H*W, k]`` in the JAX (h, w) anchor order."""
+    return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, k)
+
+
+class FCOSHead(nn.Module):
+    """Both towers and the output convs, shared across levels; returns flat
+    ``[B, N, .]`` outputs concatenated over levels (``ext=False`` heads)."""
+
+    def __init__(self, cfg: FCOSConfig, use_kernels: bool = True):
+        super().__init__()
+        if cfg.ext:
+            raise NotImplementedError(
+                "FCOSHead: the 100DOH extension heads (ext=True) are not ported yet")
+        c = cfg.fpn_channels
+        self.num_classes = cfg.num_classes
+        self.classification_head = nn.ModuleDict({
+            "conv": ConvTower(c, cfg.num_convs, use_kernels),
+            "cls_logits": nn.Conv2d(c, cfg.num_classes, 3, padding=1),
+            "hand_lr_layer": nn.Conv2d(c, 2, 3, padding=1),
+        })
+        self.regression_head = nn.ModuleDict({
+            "conv": ConvTower(c, cfg.num_convs, use_kernels),
+            "bbox_reg": nn.Conv2d(c, 4, 3, padding=1),
+            "bbox_ctrness": nn.Conv2d(c, 1, 3, padding=1),
+        })
+        self.prior_bias = -math.log((1.0 - cfg.prior_prob) / cfg.prior_prob)
+
+    def forward(self, features: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        cls_h, reg_h = self.classification_head, self.regression_head
+        outs: Dict[str, list] = {k: [] for k in (
+            "cls_logits", "hand_lr", "bbox_regression", "bbox_ctrness")}
+        for f in features:
+            cls_t = cls_h["conv"](f)
+            reg_t = reg_h["conv"](f)
+            outs["cls_logits"].append(_flat(cls_h["cls_logits"](cls_t), self.num_classes))
+            outs["hand_lr"].append(_flat(cls_h["hand_lr_layer"](cls_t), 2))
+            # relu on box regression (reference fcos.py:379)
+            outs["bbox_regression"].append(_flat(F.relu(reg_h["bbox_reg"](reg_t)), 4))
+            outs["bbox_ctrness"].append(_flat(reg_h["bbox_ctrness"](reg_t), 1))
+        return {k: torch.cat(v, dim=1) for k, v in outs.items()}
+
+
+class FCOS(nn.Module):
+    """ResNet-34 (frozen BN) + FPN + head. ``forward`` takes preprocessed
+    NHWC frames and returns the raw flat head outputs."""
+
+    def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
+        super().__init__()
+        cfg = cfg or FCOSConfig()
+        if cfg.quant:
+            raise NotImplementedError("FCOS: int8 convs are ROADMAP item 7")
+        if cfg.s2d_stem:
+            raise NotImplementedError("FCOS: the space-to-depth stem is ROADMAP item 8")
+        if cfg.backbone != "resnet34":
+            raise NotImplementedError(f"FCOS: backbone {cfg.backbone!r}")
+        self.cfg = cfg
+        self.backbone = nn.ModuleDict({
+            "body": resnet34(),
+            "fpn": FPN((128, 256, 512), cfg.fpn_channels),
+        })
+        self.head = FCOSHead(cfg, use_kernels)
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """Seeded random init (conv kernels LeCun-normal, cls prior bias)."""
+        init_conv_weights_(self, generator)
+        with torch.no_grad():
+            self.head.classification_head["cls_logits"].bias.fill_(self.head.prior_bias)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images: ``[B, H, W, 3]`` already normalized (see :func:`preprocess`)."""
+        body = self.backbone["body"]
+        x = images.permute(0, 3, 1, 2).to(body.conv1.weight.dtype)
+        feats = body(x.contiguous(memory_format=torch.channels_last))
+        pyramid = self.backbone["fpn"]([feats["c3"], feats["c4"], feats["c5"]])
+        return self.head(pyramid)
+
+
+def preprocess(images: torch.Tensor, cfg: FCOSConfig
+               ) -> Tuple[torch.Tensor, Tuple[float, float]]:
+    """Normalize RGB ``[B, H, W, 3]`` frames (0-1 float, or uint8) for the
+    detector and pad them bottom/right to ``image_h x image_w``.
+
+    Only the native branch is ported: frames that need no resample. Returns
+    the network input and the (scale_y, scale_x) from frame to network pixels.
+    """
+    if images.dtype == torch.uint8:
+        images = images.float() / 255.0
+    _, h, w, _ = images.shape
+    scale = min(cfg.image_h / h, cfg.image_w / w)
+    new_h, new_w = int(round(h * scale)), int(round(w * scale))
+    if (new_h, new_w) != (h, w):
+        raise NotImplementedError(
+            f"preprocess: {h}x{w} frames need a resample to {cfg.image_h}x"
+            f"{cfg.image_w}; the resize branch is ROADMAP item 8")
+    mean = torch.tensor(cfg.image_mean, dtype=images.dtype, device=images.device)
+    std = torch.tensor(cfg.image_std, dtype=images.dtype, device=images.device)
+    normalized = (images - mean) / std
+    if (h, w) != (cfg.image_h, cfg.image_w):
+        normalized = F.pad(normalized, (0, 0, 0, cfg.image_w - w, 0, cfg.image_h - h))
+    return normalized, (new_h / h, new_w / w)
+
+
+def anchors_for(cfg: FCOSConfig):
+    """``(anchors [N, 4], anchor_sizes [N], level_slices)`` as numpy."""
+    return fcos_anchor_pyramid(cfg.image_h, cfg.image_w, cfg.strides)
+
+
+def decode_detections(head: Dict[str, torch.Tensor], anchors: torch.Tensor,
+                      cfg: FCOSConfig, scale_to_original=None
+                      ) -> Dict[str, torch.Tensor]:
+    """Fixed-shape detection decode (reference fcos.py:572-659).
+
+    Returns ``[B, K]`` tensors (K = cfg.max_detections): boxes ``[B, K, 4]``,
+    scores, labels, sides, valid. Invalid slots have score 0 and valid False.
+    Candidates are ranked by a stable descending sort, so equal scores keep
+    index order as ``jax.lax.top_k`` does.
+    """
+    k = cfg.max_detections
+    cls_logits = head["cls_logits"].float()
+    ctrness = head["bbox_ctrness"].float()
+    reg = head["bbox_regression"].float()
+
+    # score = sqrt(sigmoid(cls) * sigmoid(ctr)) (fcos.py:598)
+    scores = torch.sqrt(torch.sigmoid(cls_logits) * torch.sigmoid(ctrness))
+    scores_max = scores.amax(dim=-1)                       # [B, N]
+    labels_max = scores.argmax(dim=-1)                     # [B, N]
+    mask = scores_max > cfg.score_thresh                   # hard 0.7 (fcos.py:600)
+
+    boxes = linear_decode(reg, anchors[None])              # [B, N, 4]
+
+    masked = torch.where(mask, scores_max, torch.zeros_like(scores_max))
+    ranked = torch.sort(masked, dim=1, descending=True, stable=True)
+    top_scores = ranked.values[:, :k]                      # [B, K]
+    top_idx = ranked.indices[:, :k]
+    top_boxes = boxes.gather(1, top_idx[..., None].expand(-1, -1, 4))
+    top_labels = labels_max.gather(1, top_idx)
+    valid = top_scores > cfg.score_thresh
+
+    keep = batched_nms_fixed(top_boxes, top_scores, top_labels, valid,
+                             cfg.post_nms_thresh)
+    sides = torch.sigmoid(head["hand_lr"].float()).argmax(dim=-1)
+    out = {
+        "boxes": top_boxes,
+        "scores": torch.where(keep, top_scores, torch.zeros_like(top_scores)),
+        "labels": top_labels,
+        "sides": sides.gather(1, top_idx),
+        "valid": keep,
+    }
+    if scale_to_original is not None:
+        sy, sx = scale_to_original
+        out["boxes"] = out["boxes"] * torch.tensor(
+            [1 / sx, 1 / sy, 1 / sx, 1 / sy], dtype=torch.float32,
+            device=top_boxes.device)
+    return out
+
+
+class FCOSSystem(FCOS):
+    """The FCOS module plus its anchor table and the ``detect`` entry.
+
+    (The JAX package pairs a flax module with its anchors in a plain class;
+    here the anchors are a non-persistent buffer, so the state dict is
+    FCOS's own.)
+    """
+
+    def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
+        super().__init__(cfg, use_kernels)
+        anchors, _, self.level_slices = anchors_for(self.cfg)
+        self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+
+    def detect(self, images_01: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """0-1 RGB frames ``[B, H, W, 3]`` -> padded detections in frame
+        pixel coordinates."""
+        net_in, scale = preprocess(images_01, self.cfg)
+        head = self(net_in)
+        return decode_detections(head, self.anchors, self.cfg,
+                                 scale_to_original=scale)

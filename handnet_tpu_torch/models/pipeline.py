@@ -1,0 +1,137 @@
+"""HandNetPipeline — the fused frame -> joints forward.
+
+Counterpart of ``handnet_tpu/models/pipeline.py:32-196``: normalize ->
+ResNet-34+FPN+GN towers (kernel K2) -> fixed-shape decode + NMS -> masked
+argmax hand selection -> 40% pad -> nearest crop -> dilated ResNet-50 + A2J
+heads -> anchor decode (kernel K1) -> optional XYZ unprojection. Frames
+without a hand flow through as masked zeros instead of control flow
+(reference handnet_pipeline.py:81-83,107-108).
+
+Not ported yet: the Pose2Mesh mesh head (``pipeline.with_mesh``, ROADMAP
+item 10) and static-int8 calibration (ROADMAP item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn as nn
+
+from handnet_tpu_torch.config import HandNetConfig
+from handnet_tpu_torch.models.a2j import A2JSystem
+from handnet_tpu_torch.models.fcos import FCOSSystem
+from handnet_tpu_torch.ops.crop_resize import crop_resize_nearest, pad_box
+from handnet_tpu_torch.ops.geometry import convert_joints, crop_uvd_to_image_uvd
+
+
+class HandNetPipeline(nn.Module):
+    """RGB(+D) frames in, UVD (and XYZ) joints out.
+
+    Args:
+      cfg: the config tree (``config.load_config(overrides=config.FAST)``
+        is the fast operating point).
+      dtype: compute dtype of the convolutions (float32 or bfloat16); norm
+        parameters and the decode stay float32, as in the JAX package.
+      device: where the weights live; inputs must be on the same device.
+      use_kernels: True (the default) runs kernels K1 and K2 on CUDA
+        tensors. False runs their plain PyTorch versions instead; it is never
+        chosen automatically and exists to price the kernels.
+      seed: seed of the ``torch.Generator`` for the random init (weights
+        usually come from ``load_state_dict`` afterwards, see
+        ``convert/from_flax.py``).
+
+    The state dict is ``detector.*`` (FCOS) and ``a2j.*`` (A2J), in the
+    reference's torch names.
+    """
+
+    def __init__(self, cfg: Optional[HandNetConfig] = None,
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cpu",
+                 use_kernels: bool = True, seed: int = 0):
+        super().__init__()
+        self.cfg = cfg or HandNetConfig()
+        if self.cfg.pipeline.with_mesh:
+            raise NotImplementedError("HandNetPipeline: the mesh head is ROADMAP item 10")
+        self.detector = FCOSSystem(self.cfg.fcos, use_kernels)
+        self.a2j = A2JSystem(self.cfg.a2j, use_kernels)
+        hand_label = self.cfg.pipeline.hand_label
+        self.hand_label = (self.cfg.fcos.num_classes - 1
+                           if hand_label is None else hand_label)
+        generator = torch.Generator().manual_seed(seed)
+        self.detector.init_weights_(generator)
+        self.a2j.init_weights_(generator)
+        self.to(device)
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(dtype=dtype, memory_format=torch.channels_last)
+
+    def _detect_and_crop(self, images: torch.Tensor,
+                         depth_images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Detector -> best hand box -> padded crop (reference
+        handnet_pipeline.py:63-102)."""
+        cfg = self.cfg
+        img_h, img_w = images.shape[1], images.shape[2]
+        if depth_images.dim() == 3:
+            depth_images = depth_images[..., None]
+        if cfg.pipeline.rgbd and depth_images.shape[-1] == 4:
+            # reference feeds BGR+D and swaps to RGB+D after the crop (:102)
+            depth_images = depth_images[..., [2, 1, 0, 3]]
+
+        det = self.detector.detect(images)
+
+        # best hand box per image: masked argmax (first maximum on ties)
+        is_hand = (det["labels"] == self.hand_label) & det["valid"]
+        hand_scores = torch.where(is_hand, det["scores"], torch.zeros_like(det["scores"]))
+        best = hand_scores.argmax(dim=1, keepdim=True)              # [B, 1]
+        found = is_hand.gather(1, best)[:, 0]
+        score = hand_scores.gather(1, best)[:, 0]
+        box = det["boxes"].gather(1, best[..., None].expand(-1, -1, 4))[:, 0]
+        side = det["sides"].gather(1, best)[:, 0]
+
+        # pad by 40% and clip (reference :88-97, int truncation first)
+        crop_box = pad_box(box, cfg.pipeline.pad_percent, img_h, img_w)
+        # degenerate box for not-found frames keeps the gather in bounds
+        fallback = torch.tensor([0, 0, 175, 175], dtype=torch.int32,
+                                device=crop_box.device)
+        crop_box = torch.where(found[:, None], crop_box, fallback)
+        size = cfg.pipeline.crop_size
+        crops = crop_resize_nearest(depth_images, crop_box, size, size)
+        return {"found": found, "scores": score, "sides": side,
+                "crop_box": crop_box, "crops": crops}
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor, depth_images: torch.Tensor,
+                paras: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Args:
+          images: ``[B, H, W, 3]`` RGB in 0-1, or uint8.
+          depth_images: ``[B, H, W]`` depth in meters (or ``[B, H, W, C]``).
+          paras: optional ``[B, 4]`` intrinsics (fx, fy, cx, cy); when
+            given, ``joints_xyz`` in mm is returned too.
+
+        Returns a dict: joints_uvd ``[B, P, 3]`` (crop frame), boxes
+        ``[B, 4]`` padded crop boxes, crops ``[B, S, S, C]``, found ``[B]``,
+        scores ``[B]``, sides ``[B]``, joints_uvd_full ``[B, P, 3]``
+        (frame UV + depth), and joints_xyz ``[B, P, 3]`` when paras is
+        given. Frames without a hand have found False and zeroed joints.
+        """
+        cfg = self.cfg
+        stage = self._detect_and_crop(images, depth_images)
+        found = stage["found"]
+        keep = found[:, None, None]
+        boxes = stage["crop_box"].float()
+        size = cfg.pipeline.crop_size
+
+        joints_uvd = self.a2j.predict(stage["crops"]) * keep
+        out = {
+            "joints_uvd": joints_uvd,
+            "boxes": boxes,
+            "crops": stage["crops"],
+            "found": found,
+            "scores": stage["scores"],
+            "sides": stage["sides"],
+            "joints_uvd_full": crop_uvd_to_image_uvd(joints_uvd, boxes, size, size) * keep,
+        }
+        if paras is not None:
+            out["joints_xyz"] = convert_joints(joints_uvd, boxes, paras, size, size) * keep
+        return out

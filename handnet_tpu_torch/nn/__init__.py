@@ -1,0 +1,1 @@
+"""Network building blocks of the port (``resnet``, ``fpn``)."""

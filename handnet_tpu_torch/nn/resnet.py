@@ -1,0 +1,158 @@
+"""ResNet backbones for the port, serving forward only.
+
+Counterpart of ``handnet_tpu/nn/resnet.py``: FCOS's ResNet-34 with frozen BN
+and A2J's ResNet-50 whose layer4 has stride 1 and dilation 2. Parameter
+names follow torchvision (``conv1``, ``bn1``, ``layer{L}.{B}.conv{N}``,
+``...downsample.{0,1}``), the names the JAX package's converters read.
+
+Tensors are NCHW in ``torch.channels_last`` memory: the same bytes as the JAX
+package's NHWC, and the layout in which cuDNN runs bf16 convolutions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm with fixed statistics: ``x * mul + add`` per channel.
+
+    Serves both the FCOS backbone's frozen BN and A2J's BatchNorm in eval mode
+    (the port has no training path yet). ``mul``/``add`` are formed in
+    float32 and cast to the activation dtype, as ``handnet_tpu`` does
+    (nn/resnet.py:52-54). eps is 1e-5.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        std = torch.sqrt(self.running_var.float() + self.eps)
+        scale = self.weight.float()
+        mul = scale / std
+        add = self.bias.float() - self.running_mean.float() * scale / std
+        return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
+
+
+def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
+                         FrozenBatchNorm2d(cout))
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, planes, 3, stride=stride, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.downsample = (_downsample(cin, planes, stride)
+                           if stride != 1 or cin != planes else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    """Stride on the 3x3 (a2j/resnet.py:40-52, torchvision v1.5)."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=dilation,
+                               dilation=dilation, bias=False)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.downsample = (_downsample(cin, planes * 4, stride)
+                           if stride != 1 or cin != planes * 4 else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """ResNet trunk returning the pyramid ``{"c1": ..., "c5": ...}`` (NCHW).
+
+    ``stage_strides``/``stage_dilations`` give A2J's layer4 stride 1 and
+    dilation 2. The first block of a dilated stage keeps the previous stage's
+    dilation (a2j/resnet.py:133-145; ``handnet_tpu/nn/resnet.py:216-221``).
+    """
+
+    def __init__(self, block, stage_sizes: Sequence[int], width: int = 64,
+                 stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
+                 stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
+                 in_channels: int = 3):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3, bias=False)
+        self.bn1 = FrozenBatchNorm2d(width)
+        cin = width
+        for i, num_blocks in enumerate(stage_sizes):
+            planes = width * 2 ** i
+            blocks = []
+            for j in range(num_blocks):
+                dilation = (stage_dilations[i] if j > 0
+                            else stage_dilations[i - 1] if i > 0 else 1)
+                stride = stage_strides[i] if j == 0 else 1
+                blocks.append(block(cin, planes, stride, dilation))
+                cin = planes * block.expansion
+            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        self.num_stages = len(stage_sizes)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = F.relu(self.bn1(self.conv1(x)))
+        feats = {"c1": x}
+        # padding of a torch max-pool is -inf, as flax max_pool's is
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for i in range(self.num_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+            feats[f"c{i + 2}"] = x
+        return feats
+
+
+def resnet34(**kw) -> ResNet:
+    return ResNet(BasicBlock, (3, 4, 6, 3), **kw)
+
+
+def resnet50_dilated(**kw) -> ResNet:
+    """A2J's backbone: layer4 stride 1, dilation 2 (a2j/resnet.py:112)."""
+    return ResNet(Bottleneck, (3, 4, 6, 3), stage_strides=(1, 2, 2, 1),
+                  stage_dilations=(1, 1, 1, 2), **kw)
+
+
+def init_conv_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded conv init in the JAX package's defaults: kernels LeCun-normal
+    (std 1/sqrt(fan_in)), biases zero. Norm layers are built as the identity
+    already."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.in_channels // m.groups * math.prod(m.kernel_size)
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                               / math.sqrt(fan_in))
+                if m.bias is not None:
+                    m.bias.zero_()

@@ -1,0 +1,155 @@
+"""The whole slice: ``handnet_tpu_torch`` ``HandNetPipeline`` against
+``handnet_tpu`` ``HandNetPipeline.__call__`` on the same frames and weights.
+
+The weights start from the port's seeded init, get random norm statistics,
+and reach the JAX side through the JAX package's own converters
+(``convert_fcos``/``convert_a2j``), so every output is held against the
+reference with one set of weights. Frames are exactly ``image_h x image_w``,
+so ``preprocess`` takes its native branch on both sides.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from handnet_tpu import config as jconfig
+from handnet_tpu.convert.torch_weights import convert_a2j, convert_fcos
+from handnet_tpu.models.pipeline import HandNetPipeline as JaxPipeline
+from handnet_tpu_torch import config as pconfig
+from handnet_tpu_torch.convert.from_flax import pipeline_state_dict_from_flax
+from handnet_tpu_torch.models.pipeline import HandNetPipeline
+from torch_port_fixtures import assert_close, randomize_norms
+
+REPO = Path(__file__).resolve().parent.parent
+H, W, CROP = 64, 96, 48
+
+
+def _cfg(module, score_thresh):
+    return module.HandNetConfig(
+        a2j=module.A2JConfig(crop_h=CROP, crop_w=CROP),
+        fcos=module.FCOSConfig(image_h=H, image_w=W, max_detections=8, num_classes=3,
+                               ext=False, score_thresh=score_thresh),
+        pipeline=module.PipelineConfig(crop_size=CROP))
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """Port state dict with random norms, and the same weights as JAX variables."""
+    sd = {k: v.numpy() for k, v in HandNetPipeline(_cfg(pconfig, 0.0), seed=3)
+          .state_dict().items()}
+    flax_vars = {
+        "detector": randomize_norms(convert_fcos(
+            {k[len("detector."):]: v for k, v in sd.items() if k.startswith("detector.")}),
+            seed=4),
+        "a2j": randomize_norms(convert_a2j(
+            {k[len("a2j."):]: v for k, v in sd.items() if k.startswith("a2j.")}), seed=5),
+    }
+    return pipeline_state_dict_from_flax(flax_vars), flax_vars
+
+
+def _frames(seed, batch=2):
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(size=(batch, H, W, 3)).astype(np.float32)
+    depth = rng.uniform(0.3, 1.0, size=(batch, H, W)).astype(np.float32)
+    paras = np.tile([600.0, 600.0, W / 2, H / 2], (batch, 1)).astype(np.float32)
+    return images, depth, paras
+
+
+def _run_both(weights, score_thresh, frames):
+    state_dict, flax_vars = weights
+    port = HandNetPipeline(_cfg(pconfig, score_thresh))
+    port.load_state_dict(state_dict, strict=True)
+    got = port(*(torch.from_numpy(a) for a in frames))
+    jax_pipe = JaxPipeline(_cfg(jconfig, score_thresh))
+    want = jax.jit(lambda v, im, d, p: jax_pipe(v, im, d, p))(
+        jax.tree_util.tree_map(jnp.asarray, flax_vars), *(jnp.asarray(a) for a in frames))
+    return ({k: v.numpy() for k, v in got.items()},
+            {k: np.asarray(v) for k, v in want.items()})
+
+
+def test_slice_matches_jax_found_path(weights):
+    """score_thresh 0 makes random weights take the found path; every output
+    key is compared. Exact: found, sides, boxes (integer crop boxes) and
+    crops (a gather). Scores to 1e-5 (sigmoid/sqrt of float32 head outputs
+    that differ at ~1e-6). Joints to 1e-3 px / 1e-2 mm: the A2J heads differ
+    at ~1e-6 relative and the decode averages over 144 anchors."""
+    got, want = _run_both(weights, 0.0, _frames(0))
+    assert sorted(got) == sorted(want) == sorted([
+        "joints_uvd", "joints_uvd_full", "joints_xyz", "boxes", "crops", "found",
+        "scores", "sides"])
+    assert want["found"].all()
+    for key in ("found", "sides", "boxes", "crops"):
+        assert got[key].shape == want[key].shape, key
+        assert np.array_equal(got[key], want[key]), key
+    assert_close(got["scores"], want["scores"], rtol=1e-5, atol=1e-6)
+    for key in ("joints_uvd", "joints_uvd_full"):
+        assert_close(got[key], want[key], rtol=1e-4, atol=1e-3, err_msg=key)
+    assert_close(got["joints_xyz"], want["joints_xyz"], rtol=1e-4, atol=1e-2)
+
+
+def test_slice_no_hand_path_zeros(weights):
+    """At the default 0.7 threshold random weights find no hand: both sides
+    return found False, zero scores and joints, and the degenerate
+    [0, 0, 175, 175] crop box. (sides is left out: for a not-found frame it
+    is whichever candidate sorts first, an arbitrary choice.)"""
+    got, want = _run_both(weights, 0.7, _frames(1))
+    assert not want["found"].any() and not got["found"].any()
+    for key in ("boxes", "crops", "scores", "joints_uvd", "joints_uvd_full",
+                "joints_xyz"):
+        assert np.array_equal(got[key], want[key]), key
+    assert (got["boxes"] == np.array([0, 0, 175, 175], np.float32)).all()
+    assert not got["joints_uvd"].any() and not got["joints_xyz"].any()
+
+
+def test_fast_profile_without_yaml():
+    """The port's config tree is the JAX package's, field for field, and the
+    FAST dict builds the same config as configs/fast.yaml."""
+    assert dataclasses.asdict(pconfig.HandNetConfig()) == dataclasses.asdict(
+        jconfig.HandNetConfig())
+    fast = pconfig.load_config(overrides=pconfig.FAST)
+    assert dataclasses.asdict(fast) == dataclasses.asdict(
+        jconfig.load_config(yaml_path=str(REPO / "configs" / "fast.yaml")))
+    assert (fast.fcos.image_h, fast.fcos.image_w, fast.pipeline.crop_size) == (480, 640, 176)
+
+
+_NO_JAX_SCRIPT = """
+import sys
+import numpy as np
+import torch
+from handnet_tpu_torch import config as C
+from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+cfg = C.HandNetConfig(
+    a2j=C.A2JConfig(crop_h=48, crop_w=48),
+    fcos=C.FCOSConfig(image_h=64, image_w=96, max_detections=8, num_classes=3,
+                      ext=False, score_thresh=0.0),
+    pipeline=C.PipelineConfig(crop_size=48))
+rng = np.random.default_rng(0)
+out = HandNetPipeline(cfg)(
+    torch.from_numpy(rng.uniform(size=(2, 64, 96, 3)).astype(np.float32)),
+    torch.from_numpy(rng.uniform(0.3, 1.0, size=(2, 64, 96)).astype(np.float32)))
+assert tuple(out["joints_uvd"].shape) == (2, 21, 3)
+assert bool(torch.isfinite(out["joints_uvd"]).all())
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "handnet_tpu"))
+print("LOADED", loaded)
+"""
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter runs the slice through the port and has loaded
+    neither jax nor the JAX package (a subprocess: tests/conftest.py imports
+    jax into this one)."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []", proc.stdout
