@@ -2,9 +2,9 @@
 
 The classes are copied field for field rather than imported, so that a run of
 the port loads nothing of the JAX package; ``tests/test_torch_port_pipeline.py``
-asserts the two trees are equal. Operating points are Python dicts (``FAST``)
-because the machines that serve the port may lack ``pyyaml``; ``load_config``
-still reads a YAML file when asked to.
+asserts the two trees are equal. Operating points are Python dicts (``FAST``,
+``QUANT``, ``QUANT_STATIC``) because the machines that serve the port may lack
+``pyyaml``; ``load_config`` still reads a YAML file when asked to.
 
 ``FCOSConfig.gn_fast_variance`` is kept for equality with the YAML profiles,
 but the port ignores it: its tower GroupNorm always takes the exact two-pass
@@ -37,7 +37,9 @@ class A2JConfig:
     # True pairs regression channel 0 with the row grid, as converted
     # reference checkpoints need (reference a2j/a2j.py:86-89)
     transposed_anchors: bool = False
-    quant: Any = False             # int8 serving: not ported yet (ROADMAP item 7)
+    # int8 tower and backbone convs (nn/quant.py): False, True/"dynamic"
+    # or "static" (calibrated per-layer activation scales)
+    quant: Any = False
 
     @property
     def num_anchors(self) -> int:
@@ -73,7 +75,7 @@ class FCOSConfig:
     post_nms_thresh: float = 0.3   # reference fcos.py:635
     max_detections: int = 64       # static detection budget (pad + validity mask)
     s2d_stem: bool = False
-    quant: Any = False             # int8 serving: not ported yet (ROADMAP item 7)
+    quant: Any = False             # int8 backbone/FPN/tower convs (nn/quant.py)
     gn_fast_variance: bool = False  # ignored by the port (module docstring)
 
 
@@ -148,6 +150,15 @@ FAST: Dict[str, Any] = {
     "pipeline": {"pad_percent": 0.4, "crop_size": 176},
     "train": {"batch_size": 128, "bf16": True},
 }
+
+# configs/quant.yaml and configs/quant_static.yaml: the fast geometry with
+# int8 convs, per-sample dynamic activation scales (QUANT) or calibrated
+# static ones (QUANT_STATIC, the JAX package's benchmark default; serve it
+# after HandNetPipeline.calibrate or nn.quant.load_calibration).
+QUANT: Dict[str, Any] = {**FAST, "fcos": {**FAST["fcos"], "quant": True},
+                         "a2j": {"quant": True}}
+QUANT_STATIC: Dict[str, Any] = {**FAST, "fcos": {**FAST["fcos"], "quant": "static"},
+                                "a2j": {"quant": "static"}}
 
 
 def _replace_recursive(cfg: Any, overrides: Dict[str, Any]) -> Any:

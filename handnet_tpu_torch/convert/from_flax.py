@@ -4,13 +4,19 @@ The inverse of ``handnet_tpu/convert/torch_weights.py`` ``convert_fcos``
 (:122) and ``convert_a2j`` (:89): a ``{"params", "batch_stats"}`` tree of
 numpy (or jax) arrays becomes a state dict in the reference's torch names,
 which the port's modules load with ``load_state_dict(strict=True)``.
-``convert_fcos(fcos_state_dict_from_flax(v))`` gives back ``v`` leaf for
-leaf, and likewise for A2J.
+``convert_fcos(fcos_state_dict_from_flax(v))`` gives back ``v``'s params and
+batch_stats leaf for leaf, and likewise for A2J.
 
 Layout rules (reversed from the JAX package's converter):
   flax conv kernel [kh, kw, I, O] -> torch weight [O, I, kh, kw]
   norm params scale/bias          -> weight/bias
   batch_stats mean/var            -> running_mean/running_var
+  quant_stats act_amax            -> act_amax (a static QuantConv's buffer)
+
+:func:`flax_calibration_key` and :func:`port_calibration_name` map between a
+pipeline buffer name (``detector.backbone.body.layer1.0.conv1.act_amax``) and
+the key of the JAX package's calibration npz
+(``detector/quant_stats/backbone/layer1_0/conv1/act_amax``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,11 @@ import torch
 
 _LEAF = {("params", "kernel"): "weight", ("params", "scale"): "weight",
          ("params", "bias"): "bias", ("batch_stats", "mean"): "running_mean",
-         ("batch_stats", "var"): "running_var"}
+         ("batch_stats", "var"): "running_var",
+         ("quant_stats", "act_amax"): "act_amax"}
+_RESNET_SUB = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+_A2J_HEADS = {"classification": "classificationModel", "regression": "regressionModel",
+              "depth": "DepthRegressionModel"}
 
 
 def _leaves(tree, prefix=()):
@@ -41,8 +51,7 @@ def _resnet_name(path: Tuple[str, ...]) -> str:
     m = re.fullmatch(r"layer(\d)_(\d+)", head)
     if not m:
         return ".".join(path)
-    sub = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
-    return ".".join([f"layer{m.group(1)}", m.group(2)] + [sub.get(p, p) for p in rest])
+    return ".".join([f"layer{m.group(1)}", m.group(2)] + [_RESNET_SUB.get(p, p) for p in rest])
 
 
 def _fcos_name(path: Tuple[str, ...]) -> str:
@@ -72,17 +81,15 @@ def _a2j_name(path: Tuple[str, ...]) -> str:
     top, *rest = path
     if top == "backbone":
         return "Backbone.model." + _resnet_name(tuple(rest))
-    heads = {"classification": "classificationModel", "regression": "regressionModel",
-             "depth": "DepthRegressionModel"}
-    if top in heads:
-        return f"{heads[top]}." + ".".join(rest)
+    if top in _A2J_HEADS:
+        return f"{_A2J_HEADS[top]}." + ".".join(rest)
     raise KeyError(f"unmapped a2j path: {'/'.join(path)}")
 
 
 def _state_dict(variables, module_name: Callable[[Tuple[str, ...]], str]
                 ) -> Dict[str, torch.Tensor]:
     out = {}
-    for collection in ("params", "batch_stats"):
+    for collection in ("params", "batch_stats", "quant_stats"):
         for path, value in _leaves(variables.get(collection, {})):
             value = np.asarray(value)
             if path[-1] == "kernel" and value.ndim == 4:
@@ -90,6 +97,66 @@ def _state_dict(variables, module_name: Callable[[Tuple[str, ...]], str]
             key = f"{module_name(path[:-1])}.{_LEAF[(collection, path[-1])]}"
             out[key] = torch.from_numpy(np.array(value, order="C"))
     return out
+
+
+def _resnet_path(name: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_resnet_name`."""
+    m = re.fullmatch(r"layer(\d)\.(\d+)\.(.+)", name)
+    if not m:
+        return tuple(name.split("."))
+    rest = m.group(3)
+    for flax_name, torch_name in _RESNET_SUB.items():
+        if rest == torch_name:
+            rest = flax_name
+    return (f"layer{m.group(1)}_{m.group(2)}", *rest.split("."))
+
+
+def _fcos_path(name: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_fcos_name` for the int8 convs (backbone, FPN,
+    tower convs): port module name -> flax path."""
+    if name.startswith("backbone.body."):
+        return ("backbone",) + _resnet_path(name[len("backbone.body."):])
+    m = re.fullmatch(r"backbone\.fpn\.(inner|layer)_blocks\.(\d+)", name)
+    if m:
+        return ("fpn", f"{'lateral' if m.group(1) == 'inner' else 'output'}_{m.group(2)}")
+    m = re.fullmatch(r"head\.(classification|regression)_head\.conv\.(\d+)", name)
+    if m and int(m.group(2)) % 3 == 0:  # [Conv, GN, ReLU] triplets
+        tower = "cls_tower" if m.group(1) == "classification" else "reg_tower"
+        return ("head", tower, f"conv{int(m.group(2)) // 3}")
+    raise KeyError(f"unmapped fcos module: {name}")
+
+
+def _a2j_path(name: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_a2j_name` for the int8 convs."""
+    if name.startswith("Backbone.model."):
+        return ("backbone",) + _resnet_path(name[len("Backbone.model."):])
+    top, _, rest = name.partition(".")
+    for flax_name, torch_name in _A2J_HEADS.items():
+        if top == torch_name:
+            return (flax_name, *rest.split("."))
+    raise KeyError(f"unmapped a2j module: {name}")
+
+
+_MODELS = {"detector": (_fcos_name, _fcos_path), "a2j": (_a2j_name, _a2j_path)}
+
+
+def flax_calibration_key(buffer_name: str) -> str:
+    """Pipeline buffer ``<model>.<module>.act_amax`` -> JAX npz key
+    ``<model>/quant_stats/<flax path>/act_amax``."""
+    model, _, rest = buffer_name.partition(".")
+    module, _, leaf = rest.rpartition(".")
+    if model not in _MODELS or leaf != "act_amax":
+        raise KeyError(f"not a pipeline act_amax buffer: {buffer_name}")
+    return "/".join((model, "quant_stats", *_MODELS[model][1](module), leaf))
+
+
+def port_calibration_name(key: str) -> str:
+    """JAX npz key ``<model>/quant_stats/<flax path>/act_amax`` -> pipeline
+    buffer name ``<model>.<module>.act_amax``."""
+    model, collection, *path = key.split("/")
+    if model not in _MODELS or collection != "quant_stats" or path[-1:] != ["act_amax"]:
+        raise KeyError(f"not a calibration key: {key}")
+    return f"{model}.{_MODELS[model][0](tuple(path[:-1]))}.act_amax"
 
 
 def fcos_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:

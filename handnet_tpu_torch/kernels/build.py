@@ -46,6 +46,10 @@ ENTRY_POINTS = {
     "hn_a2j_decode": (_P, _P, _P, _P, _P, _I64, _I64, _I64,
                       _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                       _I64, _I64, _I64, _INT, _P),
+    # x, wq, sx, sx stride, sw, bias (or null), out, batch, h, w, cin, cout,
+    # ho, wo, kh, kw, stride (h, w), padding (h, w), dilation (h, w),
+    # dtype code, stream
+    "hn_int8_conv": (_P, _P, _P, _I64, _P, _P, _P, *(_I64,) * 15, _INT, _P),
 }
 
 

@@ -7,12 +7,14 @@ follow the reference's A2JModel state dict (``Backbone.model.*``,
 so the JAX package's ``convert_a2j`` reads them.
 
 The heads' NCHW outputs go to NHWC *before* the ``[B, N, P]`` reshape: the
-anchor table is in (h, w, a) order (``ops/anchors.py``).
+anchor table is in (h, w, a) order (``ops/anchors.py``). ``cfg.quant`` makes
+the backbone's residual blocks and the heads' ``conv1..4`` int8
+(``nn/quant.py``); the stem and each head's ``output`` conv stay float.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -20,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from handnet_tpu_torch.config import A2JConfig
+from handnet_tpu_torch.nn.quant import conv_layer
 from handnet_tpu_torch.nn.resnet import FrozenBatchNorm2d, init_conv_weights_, resnet50_dilated
 from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
 from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_reference
@@ -29,11 +32,12 @@ class A2JHead(nn.Module):
     """4 x (conv3x3 + BN + ReLU) + output conv3x3 (a2j/a2j.py:44-181); BN in
     eval mode."""
 
-    def __init__(self, in_channels: int, out_channels: int, features: int = 256):
+    def __init__(self, in_channels: int, out_channels: int, features: int = 256,
+                 quant: Any = False):
         super().__init__()
         for i in range(1, 5):
-            setattr(self, f"conv{i}", nn.Conv2d(in_channels if i == 1 else features,
-                                                features, 3, padding=1))
+            setattr(self, f"conv{i}", conv_layer(quant, in_channels if i == 1 else features,
+                                                 features, 3, padding=1))
             setattr(self, f"bn{i}", FrozenBatchNorm2d(features))
         self.output = nn.Conv2d(features, out_channels, 3, padding=1)
 
@@ -50,19 +54,18 @@ class A2J(nn.Module):
     def __init__(self, cfg: Optional[A2JConfig] = None):
         super().__init__()
         cfg = cfg or A2JConfig()
-        if cfg.quant:
-            raise NotImplementedError("A2J: int8 convs are ROADMAP item 7")
         if cfg.backbone != "resnet50" or not cfg.is_3d:
             raise NotImplementedError(
                 f"A2J: backbone {cfg.backbone!r}, is_3d={cfg.is_3d} (only the 3D "
                 "ResNet-50 model is ported)")
         self.cfg = cfg
         stem_in = 3 if cfg.in_channels == 1 else cfg.in_channels
-        self.Backbone = nn.ModuleDict({"model": resnet50_dilated(in_channels=stem_in)})
+        body = resnet50_dilated(in_channels=stem_in, quant=cfg.quant)
+        self.Backbone = nn.ModuleDict({"model": body})
         a, p, f = cfg.num_anchors, cfg.num_joints, cfg.head_features
-        self.classificationModel = A2JHead(1024, a * p, f)
-        self.regressionModel = A2JHead(2048, a * p * 2, f)
-        self.DepthRegressionModel = A2JHead(2048, a * p, f)
+        self.classificationModel = A2JHead(1024, a * p, f, cfg.quant)
+        self.regressionModel = A2JHead(2048, a * p * 2, f, cfg.quant)
+        self.DepthRegressionModel = A2JHead(2048, a * p, f, cfg.quant)
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """Seeded random init (conv kernels LeCun-normal)."""

@@ -7,15 +7,19 @@ Parameter names follow the reference's torch state dict
 ``head.{classification,regression}_head.*``), so the JAX package's
 ``convert_fcos`` reads them.
 
+``cfg.quant`` makes the backbone's residual blocks, the FPN and the tower
+convs int8 (``nn/quant.py``); the stem and the prediction convs stay float,
+as in the JAX package.
+
 Not ported yet: the 100DOH extension heads (``ext=True``), the grouped-conv
-``fused_towers`` head, the int8 convs (ROADMAP item 7) and the resize branch
-of ``preprocess`` (ROADMAP item 8); each raises ``NotImplementedError``.
+``fused_towers`` head and the resize branch of ``preprocess`` (ROADMAP
+item 8); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,6 +27,7 @@ import torch.nn.functional as F
 
 from handnet_tpu_torch.config import FCOSConfig
 from handnet_tpu_torch.nn.fpn import FPN
+from handnet_tpu_torch.nn.quant import conv_layer
 from handnet_tpu_torch.nn.resnet import init_conv_weights_, resnet34
 from handnet_tpu_torch.ops.anchors import fcos_anchor_pyramid
 from handnet_tpu_torch.ops.boxes import linear_decode
@@ -57,10 +62,11 @@ class ConvTower(nn.Sequential):
     (reference fcos.py:235-240,355-360). Children are numbered like the
     reference's [Conv, GN, ReLU] triplets: ``0, 1, 2, 3, ...``."""
 
-    def __init__(self, channels: int, num_convs: int = 4, use_kernel: bool = True):
+    def __init__(self, channels: int, num_convs: int = 4, use_kernel: bool = True,
+                 quant: Any = False):
         layers = []
         for _ in range(num_convs):
-            layers += [nn.Conv2d(channels, channels, 3, padding=1),
+            layers += [conv_layer(quant, channels, channels, 3, padding=1),
                        GroupNorm(32, channels, use_kernel=use_kernel),
                        nn.ReLU(inplace=True)]
         super().__init__(*layers)
@@ -83,12 +89,12 @@ class FCOSHead(nn.Module):
         c = cfg.fpn_channels
         self.num_classes = cfg.num_classes
         self.classification_head = nn.ModuleDict({
-            "conv": ConvTower(c, cfg.num_convs, use_kernels),
+            "conv": ConvTower(c, cfg.num_convs, use_kernels, cfg.quant),
             "cls_logits": nn.Conv2d(c, cfg.num_classes, 3, padding=1),
             "hand_lr_layer": nn.Conv2d(c, 2, 3, padding=1),
         })
         self.regression_head = nn.ModuleDict({
-            "conv": ConvTower(c, cfg.num_convs, use_kernels),
+            "conv": ConvTower(c, cfg.num_convs, use_kernels, cfg.quant),
             "bbox_reg": nn.Conv2d(c, 4, 3, padding=1),
             "bbox_ctrness": nn.Conv2d(c, 1, 3, padding=1),
         })
@@ -116,16 +122,14 @@ class FCOS(nn.Module):
     def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
         super().__init__()
         cfg = cfg or FCOSConfig()
-        if cfg.quant:
-            raise NotImplementedError("FCOS: int8 convs are ROADMAP item 7")
         if cfg.s2d_stem:
             raise NotImplementedError("FCOS: the space-to-depth stem is ROADMAP item 8")
         if cfg.backbone != "resnet34":
             raise NotImplementedError(f"FCOS: backbone {cfg.backbone!r}")
         self.cfg = cfg
         self.backbone = nn.ModuleDict({
-            "body": resnet34(),
-            "fpn": FPN((128, 256, 512), cfg.fpn_channels),
+            "body": resnet34(quant=cfg.quant),
+            "fpn": FPN((128, 256, 512), cfg.fpn_channels, quant=cfg.quant),
         })
         self.head = FCOSHead(cfg, use_kernels)
 

@@ -7,20 +7,26 @@ heads -> anchor decode (kernel K1) -> optional XYZ unprojection. Frames
 without a hand flow through as masked zeros instead of control flow
 (reference handnet_pipeline.py:81-83,107-108).
 
+With ``quant`` configs the backbones, FPN and towers run int8 convolutions
+(kernel K3, ``nn/quant.py``); a ``quant="static"`` pipeline is calibrated by
+:meth:`HandNetPipeline.calibrate` (or ``nn.quant.load_calibration``) before it
+serves.
+
 Not ported yet: the Pose2Mesh mesh head (``pipeline.with_mesh``, ROADMAP
-item 10) and static-int8 calibration (ROADMAP item 7).
+item 10).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 
 from handnet_tpu_torch.config import HandNetConfig
 from handnet_tpu_torch.models.a2j import A2JSystem
-from handnet_tpu_torch.models.fcos import FCOSSystem
+from handnet_tpu_torch.models.fcos import FCOSSystem, preprocess
+from handnet_tpu_torch.nn.quant import QuantConv, apply_margin, set_calibrating
 from handnet_tpu_torch.ops.crop_resize import crop_resize_nearest, pad_box
 from handnet_tpu_torch.ops.geometry import convert_joints, crop_uvd_to_image_uvd
 
@@ -32,11 +38,13 @@ class HandNetPipeline(nn.Module):
       cfg: the config tree (``config.load_config(overrides=config.FAST)``
         is the fast operating point).
       dtype: compute dtype of the convolutions (float32 or bfloat16); norm
-        parameters and the decode stay float32, as in the JAX package.
+        parameters, int8 layers' master weights and the decode stay
+        float32, as in the JAX package.
       device: where the weights live; inputs must be on the same device.
-      use_kernels: True (the default) runs kernels K1 and K2 on CUDA
-        tensors. False runs their plain PyTorch versions instead; it is never
-        chosen automatically and exists to price the kernels.
+      use_kernels: True (the default) runs kernels K1, K2 and (int8
+        configs) K3 on CUDA tensors. False runs their plain PyTorch
+        versions instead; it is never chosen automatically and exists to
+        price the kernels.
       seed: seed of the ``torch.Generator`` for the random init (weights
         usually come from ``load_state_dict`` afterwards, see
         ``convert/from_flax.py``).
@@ -63,8 +71,17 @@ class HandNetPipeline(nn.Module):
         self.a2j.init_weights_(generator)
         self.to(device)
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, QuantConv):
+                # JAX quantizes the float32 kernel: a bf16 master weight
+                # would change the int8 weights and their scales
+                m.use_kernel = use_kernels
+            elif isinstance(m, nn.Conv2d):
                 m.to(dtype=dtype, memory_format=torch.channels_last)
+
+    def needs_calibration(self) -> bool:
+        """True when this config serves static int8 (``quant="static"``):
+        :meth:`calibrate` or ``nn.quant.load_calibration`` must run first."""
+        return "static" in (self.cfg.fcos.quant, self.cfg.a2j.quant)
 
     def _detect_and_crop(self, images: torch.Tensor,
                          depth_images: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -135,3 +152,39 @@ class HandNetPipeline(nn.Module):
         if paras is not None:
             out["joints_xyz"] = convert_joints(joints_uvd, boxes, paras, size, size) * keep
         return out
+
+    @torch.no_grad()
+    def calibrate(self, images: Union[torch.Tensor, Sequence[torch.Tensor]],
+                  depth_images: Union[torch.Tensor, Sequence[torch.Tensor]],
+                  margin: Optional[float] = None) -> None:
+        """One-pass activation-scale calibration of the static int8 layers,
+        in place (``handnet_tpu/models/pipeline.py:198-261``).
+
+        Each static layer's ``act_amax`` folds in the global amax of every
+        batch it sees, in serving order: the detector over all batches
+        first, then A2J over the crops of the now calibrated, static
+        detector. ``images``/``depth_images`` are one batch or sequences of
+        batches. At the end every amax is widened by ``1 + margin`` (default
+        ``cfg.pipeline.quant_margin``): pass all batches in one call, since
+        repeated calls compound it. A no-op for float and dynamic configs.
+        """
+        if not self.needs_calibration():
+            return
+        if isinstance(images, torch.Tensor):
+            batches = [(images, depth_images)]
+        else:
+            batches = list(zip(images, depth_images))
+        try:
+            set_calibrating(self.detector, True)
+            for im, _ in batches:
+                self.detector(preprocess(im, self.cfg.fcos)[0])
+            set_calibrating(self.detector, False)
+            set_calibrating(self.a2j, True)
+            for im, d in batches:
+                self.a2j(self._detect_and_crop(im, d)["crops"])
+        finally:
+            set_calibrating(self, False)
+        if margin is None:
+            margin = self.cfg.pipeline.quant_margin
+        if margin:
+            apply_margin(self, margin)

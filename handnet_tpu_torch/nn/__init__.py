@@ -1,1 +1,1 @@
-"""Network building blocks of the port (``resnet``, ``fpn``)."""
+"""Network building blocks of the port (``resnet``, ``fpn``, ``quant``)."""

@@ -3,15 +3,18 @@
 Counterpart of ``handnet_tpu/nn/fpn.py:20-55``: lateral 1x1 convs, a
 top-down pathway with nearest upsampling to the exact target size, and 3x3
 output convs; no extra level. Parameter names follow torchvision
-(``inner_blocks.{i}``, ``layer_blocks.{i}``).
+(``inner_blocks.{i}``, ``layer_blocks.{i}``). ``quant`` makes both kinds of
+conv int8 (``nn/quant.py``), as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, List, Sequence
 
 import torch
 import torch.nn as nn
+
+from handnet_tpu_torch.nn.quant import conv_layer
 
 
 def upsample_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
@@ -27,12 +30,13 @@ def upsample_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (128, 256, 512),
-                 out_channels: int = 256):
+                 out_channels: int = 256, quant: Any = False):
         super().__init__()
         self.inner_blocks = nn.ModuleList(
-            [nn.Conv2d(c, out_channels, 1) for c in in_channels])
+            [conv_layer(quant, c, out_channels, 1) for c in in_channels])
         self.layer_blocks = nn.ModuleList(
-            [nn.Conv2d(out_channels, out_channels, 3, padding=1) for _ in in_channels])
+            [conv_layer(quant, out_channels, out_channels, 3, padding=1)
+             for _ in in_channels])
 
     def forward(self, features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """features: bottom-up NCHW maps ordered fine -> coarse (c3, c4, c5)."""

@@ -7,16 +7,22 @@ names follow torchvision (``conv1``, ``bn1``, ``layer{L}.{B}.conv{N}``,
 
 Tensors are NCHW in ``torch.channels_last`` memory: the same bytes as the JAX
 package's NHWC, and the layout in which cuDNN runs bf16 convolutions.
+
+``quant`` (False, True/"dynamic" or "static") makes every residual-block
+conv, downsample included, an int8 ``QuantConv`` (``nn/quant.py``); the stem
+stays float, as in the JAX package (``handnet_tpu/nn/resnet.py:198-201``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from handnet_tpu_torch.nn.quant import conv_layer
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -44,23 +50,24 @@ class FrozenBatchNorm2d(nn.Module):
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
 
 
-def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
+def _downsample(cin: int, cout: int, stride: int, quant: Any) -> nn.Sequential:
+    return nn.Sequential(conv_layer(quant, cin, cout, 1, stride=stride, bias=False),
                          FrozenBatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
+                 quant: Any = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 3, stride=stride, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv1 = conv_layer(quant, cin, planes, 3, stride=stride, padding=dilation,
+                                dilation=dilation, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv2 = conv_layer(quant, planes, planes, 3, padding=dilation,
+                                dilation=dilation, bias=False)
         self.bn2 = FrozenBatchNorm2d(planes)
-        self.downsample = (_downsample(cin, planes, stride)
+        self.downsample = (_downsample(cin, planes, stride, quant)
                            if stride != 1 or cin != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -75,16 +82,17 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1):
+    def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
+                 quant: Any = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = conv_layer(quant, cin, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv2 = conv_layer(quant, planes, planes, 3, stride=stride, padding=dilation,
+                                dilation=dilation, bias=False)
         self.bn2 = FrozenBatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = conv_layer(quant, planes, planes * 4, 1, bias=False)
         self.bn3 = FrozenBatchNorm2d(planes * 4)
-        self.downsample = (_downsample(cin, planes * 4, stride)
+        self.downsample = (_downsample(cin, planes * 4, stride, quant)
                            if stride != 1 or cin != planes * 4 else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,7 +114,7 @@ class ResNet(nn.Module):
     def __init__(self, block, stage_sizes: Sequence[int], width: int = 64,
                  stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
                  stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
-                 in_channels: int = 3):
+                 in_channels: int = 3, quant: Any = False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm2d(width)
@@ -118,7 +126,7 @@ class ResNet(nn.Module):
                 dilation = (stage_dilations[i] if j > 0
                             else stage_dilations[i - 1] if i > 0 else 1)
                 stride = stage_strides[i] if j == 0 else 1
-                blocks.append(block(cin, planes, stride, dilation))
+                blocks.append(block(cin, planes, stride, dilation, quant))
                 cin = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)

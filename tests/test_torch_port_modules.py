@@ -290,18 +290,20 @@ def test_geometry_matches():
 
 
 def test_port_tree_hygiene():
-    """The port never imports jax, and each CUDA source names the Pallas
-    function it replaces."""
+    """The port never imports jax, and each CUDA source names the JAX
+    function it replaces (a Pallas kernel, or for K3 the XLA int8 conv)."""
     pkg = REPO / "handnet_tpu_torch"
     jax_import = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     offenders = [p.name for p in pkg.rglob("*.py") if jax_import.search(p.read_text())]
     assert offenders == []
     sources = sorted((pkg / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_stats.cu"]
+    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_stats.cu", "int8_conv.cu"]
     replaces = {"a2j_decode.cu": ("_decode_kernel", "a2j_decode_pallas",
                                   "handnet_tpu/ops/pallas_a2j.py"),
                 "gn_stats.cu": ("_stats_kernel", "gn_group_stats",
-                                "handnet_tpu/ops/pallas_gn.py")}
+                                "handnet_tpu/ops/pallas_gn.py"),
+                "int8_conv.cu": ("QuantConv", "conv_general_dilated",
+                                 "handnet_tpu/nn/quant.py")}
     for src in sources:
         text = src.read_text()
         for name in replaces[src.name]:

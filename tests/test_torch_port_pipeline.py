@@ -138,6 +138,17 @@ out = HandNetPipeline(cfg)(
     torch.from_numpy(rng.uniform(0.3, 1.0, size=(2, 64, 96)).astype(np.float32)))
 assert tuple(out["joints_uvd"].shape) == (2, 21, 3)
 assert bool(torch.isfinite(out["joints_uvd"]).all())
+static = C.HandNetConfig(
+    a2j=C.A2JConfig(crop_h=48, crop_w=48, quant="static"),
+    fcos=C.FCOSConfig(image_h=64, image_w=96, max_detections=8, num_classes=3,
+                      ext=False, score_thresh=0.0, quant="static"),
+    pipeline=C.PipelineConfig(crop_size=48))
+frames = (torch.from_numpy(rng.uniform(size=(2, 64, 96, 3)).astype(np.float32)),
+          torch.from_numpy(rng.uniform(0.3, 1.0, size=(2, 64, 96)).astype(np.float32)))
+pipe = HandNetPipeline(static)
+pipe.calibrate(*frames)
+assert bool(torch.isfinite(pipe(*frames)["joints_uvd"]).all())
+HandNetPipeline(C.load_config(overrides=C.QUANT_STATIC))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "handnet_tpu"))
 print("LOADED", loaded)
@@ -145,8 +156,9 @@ print("LOADED", loaded)
 
 
 def test_port_imports_no_jax():
-    """A fresh interpreter runs the slice through the port and has loaded
-    neither jax nor the JAX package (a subprocess: tests/conftest.py imports
+    """A fresh interpreter runs the slice through the port, float and
+    calibrated static int8, builds the full-width QUANT_STATIC pipeline,
+    and has loaded neither jax nor the JAX package (a subprocess: tests/conftest.py imports
     jax into this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
