@@ -10,11 +10,19 @@ the next starts:
 2. build: compiles ``handnet_tpu_torch/csrc/*.cu`` for sm_90a (first use).
 3. kernels: K1 (A2J decode) and K2 (GroupNorm statistics) against their
    plain PyTorch versions at the fast profile's shapes, in float32 and
-   bfloat16, with their times and the plain versions' (CUDA events). K3
-   (int8 conv) bit for bit against its plain version on every distinct
-   conv geometry of the quant_static path at 480x640 / 176^2 crops: at
-   B=8 in float32 and bfloat16 with a per-layer and a per-sample scale, and
-   at B=128 in bfloat16, where both are timed.
+   bfloat16, with their times and the plain versions' (CUDA events), and
+   for K2 the one PyTorch call that computes the same (``torch.var_mean``).
+   K3q (activation quantize pass) bit for bit against its plain version in
+   float32 and bfloat16, per-layer and per-sample scales, near-tie and ReLU
+   inputs. K3 (int8 conv: K3q, then K3g, the TMA-fed wgmma GEMM) bit for
+   bit against its plain version on every distinct conv geometry of the
+   quant_static path at 480x640 / 176^2 crops: at B=8 in float32 and
+   bfloat16 with a per-layer and a per-sample scale, and at B=128 in
+   bfloat16, where K3q, K3g, both together and the plain version are
+   timed, per geometry and summed by class. Then K3g's two yardsticks at
+   the P3 tower shape (``torch._int_mm`` on the ready GEMM operands,
+   ``F.conv2d`` in bf16), which the port never calls, and the host time of
+   a call's 129 tensor-map encodings.
 4. slice: ``HandNetPipeline`` at the fast operating point (480x640, full
    widths, seeded random weights, score threshold 0) answers three batches
    of 8 and one of 128 in bf16 through the kernels; the launch counts must
@@ -22,12 +30,18 @@ the next starts:
    held against the plain path on the card and against the port's own CPU
    run. Then the same for the quant_static profile (int8 convs, JAX
    package's benchmark default), calibrated on seeded frames first, with
-   K3 129 times per call (113 int8 layers, the 8 tower convs at 3 levels);
-   in the pipeline K3 is also held bit for bit against its plain version;
-   and one batch of 8 of the dynamic quant profile.
+   K3q and K3g 129 times each per call (113 int8 layers, the 8 tower convs
+   at 3 levels); in the pipeline K3 is also held bit for bit against its
+   plain version; and one batch of 8 of the dynamic quant profile.
 5. throughput: frames/s at batch 128 in bf16: fast with kernels and plain
    versions, quant_static with K3 and with K3's plain version, in turns;
-   then a per-stage split of fast and quant_static (CUDA events).
+   then a per-stage split of fast and quant_static (CUDA events), the
+   latency of a batch of 8, and a profile of quant_static by kernel.
+
+Every kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations over the card's peak for
+their type (1,979 TOP/s int8 in the tensor cores, 67 TFLOP/s float32
+outside them): the H100 SXM data sheet's rates at 700 W.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
@@ -58,6 +72,11 @@ CALIBRATION_SEEDS = (500, 501)    # two seeded batches of 8 frames
 # difference at a rounding tie into a whole quantization step, so the
 # joints agree to a few hundredths of a pixel, not to 1e-4 as in float.
 INT8_JOINT_TOL = 5e-2
+# H100 SXM data sheet, dense, at 700 W
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+P3_TOWER = (60, 80, 256, 256, 3, 1, 1, 1, True)   # the towers' 3x3 at FPN level P3
 
 
 def log(phase: str, msg: str) -> None:
@@ -79,6 +98,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over their peak rate, whichever is larger (ms)."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def check(name: str, got, want, tol: float) -> float:
@@ -132,7 +163,15 @@ def phase_kernels(dev):
                       1e-4 * max(1.0, want.abs().max().item())))
     log("kernels", f"K1 strided inputs float32: max|err| {errs[-1]:.3e}")
     ms, plain_ms = times[torch.bfloat16]
-    results["a2j_decode"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+    # bound at the timed shape (bf16): every input once, the output once; per
+    # (image, anchor, joint) a max, a subtraction, an exp and 4 multiply-adds,
+    # counted as 12 float32 operations. No single PyTorch call computes it.
+    moved = 4 * b * n * p * 2 + nbytes(anchors) + b * p * 3 * 4
+    results["a2j_decode"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                             **bound(moved, 12 * b * n * p, F32_FLOPS_PER_S),
+                             "library_ms": None}
+    log("kernels", f"K1 bound {results['a2j_decode']['bound_ms']:.4f} ms "
+        f"({moved} bytes / 3.35 TB/s; by {results['a2j_decode']['bound_by']}); no library call")
 
     # K2: B=128, C=256, G=32 at the three FPN levels. Statistics of N(2, 3)
     # data; tolerance 1e-4 of their scale (float32 reductions of up to 38,400
@@ -145,11 +184,21 @@ def phase_kernels(dev):
             want = gn_group_stats_reference(xd, 32)
             tol = 1e-4 * max(1.0, want.abs().max().item())
             errs.append(check(f"K2 {h}x{w} {dtype}", gn_group_stats(xd, 32), want, tol))
-            times[(h, w, dtype)] = (cuda_ms(lambda: gn_group_stats(xd, 32)),
-                                    cuda_ms(lambda: gn_group_stats_reference(xd, 32)))
-            kt, pt = times[(h, w, dtype)]
+            grouped = xd.view(128, h * w, 32, 8)
+            times[(h, w, dtype)] = (
+                cuda_ms(lambda: gn_group_stats(xd, 32)),
+                cuda_ms(lambda: gn_group_stats_reference(xd, 32)),
+                cuda_ms(lambda: torch.var_mean(grouped, dim=(1, 3), correction=0)))
+            kt, pt, lt = times[(h, w, dtype)]
+            # x once, [B, 2, G] float32 out; a subtraction and 2 multiply-adds
+            # per element over two passes, counted as 6 float32 operations
+            k2_bound = bound(nbytes(xd) + 128 * 2 * 32 * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
             log("kernels", f"K2 gn_group_stats B=128 {h}x{w}x256 G=32 {dtype}: max|err| "
-                f"{errs[-1]:.3e} (tol {tol:.1e}); kernel {kt:.4f} ms, plain {pt:.4f} ms")
+                f"{errs[-1]:.3e} (tol {tol:.1e}); kernel {kt:.4f} ms, plain {pt:.4f} ms, "
+                f"torch.var_mean {lt:.4f} ms, bound {k2_bound['bound_ms']:.4f} ms "
+                f"(by {k2_bound['bound_by']})")
+            if (h, w, dtype) == (60, 80, torch.bfloat16):
+                p3_bound = k2_bound
     # mean >> std: E[x^2]-E[x]^2 would lose the variance entirely in float32
     x = 1000.0 + 0.1 * torch.randn(8, 60, 80, 256, device=dev, generator=gen)
     got, want = gn_group_stats(x, 32), gn_group_stats_reference(x, 32)
@@ -159,8 +208,9 @@ def phase_kernels(dev):
         raise AssertionError(f"K2 mean>>std: variance rel err {rel:.3e} > 1e-2")
     log("kernels", f"K2 mean>>std (1000 + 0.1 N(0,1)) float32: mean max|err| {errs[-1]:.3e} "
         f"(tol 2e-3), variance max rel err {rel:.3e} (tol 1e-2)")
-    ms, plain_ms = times[(60, 80, torch.bfloat16)]
-    results["gn_group_stats"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
+    ms, plain_ms, library_ms = times[(60, 80, torch.bfloat16)]
+    results["gn_group_stats"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                                 **p3_bound, "library_ms": library_ms}
     return results
 
 
@@ -221,16 +271,49 @@ def k3_inputs(geo, batch: int, dtype, per_sample: bool, gen, dev, kind: str = "s
     return x, wq, scale_from_amax(amax), sw, bias, (s, s), (p, p), (d, d)
 
 
-def phase_int8_kernel(dev, geos):
-    """K3 bit for bit against its plain version on every geometry; returns
-    the JSON numbers (times at the P3 tower shape, B=128 bf16, post-ReLU
-    input, per-layer scale)."""
+def conv_class(geo) -> str:
+    _, _, _, _, k, s, _, d, _ = geo
+    return f"{k}x{k} " + (f"dilation {d}" if d > 1 else f"stride {s}")
+
+
+def phase_quantize_kernel(dev) -> None:
+    """K3q bit for bit against its plain version."""
     import torch
 
-    from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv, int8_conv_reference
+    from handnet_tpu_torch.ops.cuda_int8_conv import int8_quantize, quantize_activation
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    checked, err = 0, 0.0
+    checked = 0
+    for geo in (P3_TOWER, (11, 11, 512, 512, 3, 1, 2, 2, False), (15, 20, 64, 64, 1, 1, 0, 1, False)):
+        cases = [(kind, dtype, per_sample) for kind in ("signed", "relu")
+                 for dtype in (torch.float32, torch.bfloat16) for per_sample in (False, True)]
+        cases.append(("ties", torch.float32, False))
+        for kind, dtype, per_sample in cases:
+            x, _, sx = k3_inputs(geo, 8, dtype, per_sample, gen, dev, kind=kind)[:3]
+            got, want = int8_quantize(x, sx), quantize_activation(x, sx)
+            if got.dtype != torch.int8 or not torch.equal(got, want):
+                raise AssertionError(f"K3q {geo[:3]} {kind} {dtype} per_sample={per_sample}: "
+                                     f"{int((got != want).sum())} elements differ from the "
+                                     "plain version")
+            checked += 1
+    log("kernels", f"K3q int8_quantize: {checked} comparisons bit-equal to quantize_activation "
+        "(B=8; f32/bf16 x per-layer/per-sample sx x signed/ReLU inputs, f32 near ties; "
+        "60x80x256, 11x11x512, 15x20x64)")
+
+
+def phase_int8_kernel(dev, geos):
+    """K3 (K3q then K3g) bit for bit against its plain version on every
+    geometry, and the times of K3q, K3g, both and the plain version at
+    B=128; returns the JSON numbers of K3q and K3g (times at the P3 tower
+    shape, B=128 bf16, post-ReLU input, per-layer scale)."""
+    import torch
+
+    from handnet_tpu_torch.ops.cuda_int8_conv import (
+        dequantize, int8_conv, int8_conv_gemm, int8_conv_int32_reference,
+        int8_conv_reference, int8_quantize, quantize_activation)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    checked, alone, err = 0, 0, 0.0
 
     def bitwise(name, args):
         nonlocal checked, err
@@ -243,8 +326,9 @@ def phase_int8_kernel(dev, geos):
         checked += 1
         err = max(err, (got.double() - want.double()).abs().max().item())
 
-    p3_tower = (60, 80, 256, 256, 3, 1, 1, 1, True)
-    totals = {"kernel": 0.0, "plain": 0.0}
+    keys = ("launches", "tops", "gbytes_q", "k3q", "k3g", "k3", "plain", "k3q_bound",
+            "k3g_bound")
+    classes, p3 = {}, {}
     for geo, names in sorted(geos.items(), key=lambda kv: kv[1][0]):
         h, w, cin, cout, k, s, p, d, has_bias = geo
         label = (f"{names[0]} x{len(names)}: {h}x{w}x{cin}->{cout} {k}x{k} s{s} p{p} d{d}"
@@ -257,28 +341,127 @@ def phase_int8_kernel(dev, geos):
                 k3_inputs(geo, 8, torch.float32, False, gen, dev, kind="ties"))
         args = k3_inputs(geo, 128, torch.bfloat16, False, gen, dev, kind="relu")
         bitwise(f"{label} B=128 bf16 relu", args)
-        if geo == p3_tower:
+        if geo == P3_TOWER:
             for dtype, per_sample in ((torch.bfloat16, True), (torch.float32, False),
                                       (torch.float32, True)):
                 bitwise(f"{label} B=128 {dtype} per_sample={per_sample}",
                         k3_inputs(geo, 128, dtype, per_sample, gen, dev))
-        kt = cuda_ms(lambda: int8_conv(*args), iters=10, warmup=2)
-        pt = cuda_ms(lambda: int8_conv_reference(*args), iters=10, warmup=2)
-        del args
-        ho, wo = (h + 2 * p - d * (k - 1) - 1) // s + 1, (w + 2 * p - d * (k - 1) - 1) // s + 1
-        tops = 2 * 128 * ho * wo * cout * k * k * cin / (kt * 1e-3) / 1e12
-        totals["kernel"] += kt * len(names)
-        totals["plain"] += pt * len(names)
-        if geo == p3_tower:
-            p3 = (kt, pt)
+        x, wq, sx, sw, bias, stride, padding, dilation = args
+        q = int8_quantize(x, sx)
+        gemm = (q, wq, sx, sw, bias, stride, padding, dilation, x.dtype)
+        out = int8_conv_gemm(*gemm)
+        # each kernel alone against its own plain version, so that a fault in
+        # the composition above is attributed
+        if not torch.equal(q, quantize_activation(x, sx)):
+            raise AssertionError(f"K3q {label} B=128 bf16 relu: not bit-equal to "
+                                 "quantize_activation")
+        want = dequantize(int8_conv_int32_reference(q, wq, stride, padding, dilation),
+                          sx, sw, bias).to(x.dtype)
+        if not torch.equal(out, want):
+            raise AssertionError(f"K3g {label} B=128 bf16 relu: not bit-equal to the plain "
+                                 "int32 conv and dequantize of the same q")
+        del want
+        alone += 1
+        t = {"k3q": cuda_ms(lambda: int8_quantize(x, sx), iters=10, warmup=2),
+             "k3g": cuda_ms(lambda: int8_conv_gemm(*gemm), iters=10, warmup=2),
+             "k3": cuda_ms(lambda: int8_conv(*args), iters=10, warmup=2),
+             "plain": cuda_ms(lambda: int8_conv_reference(*args), iters=10, warmup=2)}
+        ops = 2 * out[..., 0].numel() * cout * k * k * cin
+        # K3q: x in, q out, 6 float32 operations per element; K3g: q, the
+        # weights and the vectors in, the output out, int8 tensor-core ops
+        q_bound = bound(nbytes(x, q, sx), 6 * x.numel(), F32_FLOPS_PER_S)
+        g_bound = bound(nbytes(q, wq, sx, sw, bias, out), ops, INT8_OPS_PER_S)
+        if geo == P3_TOWER:
+            p3 = {"k3q": {"ms": t["k3q"], **q_bound,
+                          "plain_ms": cuda_ms(lambda: quantize_activation(x, sx), 10, 2)},
+                  "k3g": {"ms": t["k3g"], **g_bound,
+                          "plain_ms": cuda_ms(lambda: dequantize(int8_conv_int32_reference(
+                              q, wq, stride, padding, dilation), sx, sw, bias).to(x.dtype),
+                              10, 2)}}
+            p3["k3g"].update(k3g_yardsticks(x, q, wq))
+        row = classes.setdefault(conv_class(geo), dict.fromkeys(keys, 0.0))
+        for key, value in (("launches", 1), ("tops", ops / 1e12),
+                           ("gbytes_q", nbytes(x, q) / 1e9), ("k3q_bound", q_bound["bound_ms"]),
+                           ("k3g_bound", g_bound["bound_ms"]), *t.items()):
+            row[key] += value * len(names)
+        del args, x, q, out, gemm
         log("kernels", f"K3 int8_conv {label}: B=8 f32/bf16 x per-layer/per-sample sx, "
             f"B=8 f32 near ties and B=128 bf16 bit-equal; B=128 bf16 post-ReLU input, "
-            f"per-layer sx: kernel {kt:.4f} ms ({tops:.1f} TOP/s), plain {pt:.4f} ms")
-    log("kernels", f"K3: {len(geos)} geometries, {checked} bit-equal comparisons; per "
-        f"B=128 call ({sum(map(len, geos.values()))} launches): kernel "
-        f"{totals['kernel']:.2f} ms, plain {totals['plain']:.2f} ms (sum of the "
-        "per-geometry times)")
-    return {"max_abs_err": err, "ms": p3[0], "plain_ms": p3[1]}
+            f"per-layer sx: K3q {t['k3q']:.4f} ms (bound {q_bound['bound_ms']:.4f}), K3g "
+            f"{t['k3g']:.4f} ms ({ops / t['k3g'] / 1e9:.1f} TOP/s, bound "
+            f"{g_bound['bound_ms']:.4f} by {g_bound['bound_by']}), K3 {t['k3']:.4f} ms, "
+            f"plain {t['plain']:.4f} ms")
+    total = dict.fromkeys(keys, 0.0)
+    for name, row in [*sorted(classes.items()), ("all", total)]:
+        if name != "all":
+            for key in keys:
+                total[key] += row[key]
+        log("kernels", f"K3 class {name}: {row['launches']:.0f} launches, {row['tops']:.3f} TOP, "
+            f"K3q moves {row['gbytes_q']:.3f} GB; per B=128 call K3q {row['k3q']:.3f} ms "
+            f"(bound {row['k3q_bound']:.3f}), K3g {row['k3g']:.3f} ms "
+            f"({row['tops'] / row['k3g'] * 1e3:.0f} TOP/s, bound {row['k3g_bound']:.3f}), "
+            f"K3q+K3g {row['k3q'] + row['k3g']:.3f} ms, K3 in one call {row['k3']:.3f} ms, "
+            f"plain {row['plain']:.3f} ms")
+    log("kernels", f"K3: {len(geos)} geometries, {checked} bit-equal comparisons "
+        f"(sums of the per-geometry times above); K3q and K3g each alone bit-equal to "
+        f"its plain version at B=128 on {alone} geometries")
+    for part in p3.values():
+        part["max_abs_err"] = err
+    p3["k3q"]["library_ms"] = p3["k3g"]["library_ms"] = None
+    return p3
+
+
+def k3g_yardsticks(x, q, wq) -> dict:
+    """Two PyTorch calls beside K3g at the P3 tower shape, neither of which
+    computes K3g's function and neither of which the port calls:
+    ``torch._int_mm`` on ready int8 ``[M, K] x [K, N]`` operands (the GEMM
+    alone: no im2col, no epilogue), and ``F.conv2d`` in bf16 channels_last
+    (what the fast profile pays for the layer)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, c = q.shape
+    o, kh, kw, _ = wq.shape
+    a = torch.randint(-127, 128, (b * h * w, kh * kw * c), device=q.device, dtype=torch.int8)
+    bt = wq.reshape(o, -1).t()
+    int_mm = cuda_ms(lambda: torch._int_mm(a, bt), iters=10, warmup=2)
+    del a
+    xc = x.permute(0, 3, 1, 2)   # NCHW view of NHWC bytes: channels_last
+    wf = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    conv = cuda_ms(lambda: F.conv2d(xc, wf, padding=1), iters=10, warmup=2)
+    log("kernels", f"K3g yardsticks at {h}x{w}x{c}->{o} 3x3 B={b}: torch._int_mm "
+        f"[{b * h * w}, {kh * kw * c}] x [{kh * kw * c}, {o}] int8 {int_mm:.4f} ms (GEMM only); "
+        f"F.conv2d bf16 channels_last {conv:.4f} ms (the fast profile's layer)")
+    return {"yardstick_int_mm_ms": int_mm, "yardstick_conv2d_bf16_ms": conv}
+
+
+def phase_encode_host_time(dev, geos) -> None:
+    """Host time of the tensor-map encodings of one call's 129 launches at
+    B=8 (two maps per launch), through the same encoder the launches use."""
+    import torch
+
+    from handnet_tpu_torch.kernels import build
+    from handnet_tpu_torch.ops.cuda_int8_conv import im2col_geometry
+
+    lib = build.load_library()
+    calls = []
+    for (h, w, cin, cout, k, s, p, d, _), names in geos.items():
+        geo = im2col_geometry(k, k, (s, s), (p, p), (d, d))
+        q = torch.empty((8, h, w, cin), dtype=torch.int8, device=dev)
+        wq = torch.empty((cout, k, k, cin), dtype=torch.int8, device=dev)
+        calls += [(q, wq, (q.data_ptr(), wq.data_ptr(), 8, h, w, cin, cout, k, k, s, s,
+                           *geo.lower, *geo.upper))] * len(names)
+    runs = []
+    for _ in range(5):
+        start = time.perf_counter()
+        for _, _, args in calls:
+            code = lib.hn_int8_conv_encode_maps(*args)
+            if code:
+                build.check_launch("hn_int8_conv_encode_maps", code)
+        runs.append((time.perf_counter() - start) * 1e3)
+    log("kernels", f"K3g tensor maps: {len(calls)} launches' encodings (2 maps each, B=8), "
+        f"host clock, ctypes call included: " + ", ".join(f"{r:.3f}" for r in runs)
+        + f" ms per call's worth (min {min(runs):.3f})")
 
 
 def make_frames(batch: int, dev, seed: int):
@@ -345,7 +528,7 @@ def phase_slice(dev, cfg):
         check_outputs(out, bsz, crop, joints)
     calls = len(SLICE_REQUESTS)
     if launches != {"gn_group_stats": GN_LAYERS_PER_CALL * calls, "a2j_decode": calls,
-                    "int8_conv": 0}:
+                    "int8_quantize": 0, "int8_conv_gemm": 0}:
         raise AssertionError(f"launch counts {launches} for {calls} calls: expected "
                              f"K2 {GN_LAYERS_PER_CALL} and K1 1 per call, no K3")
     log("slice", f"fast bf16 calls of batch {list(SLICE_REQUESTS)} in {seconds:.3f} s (first "
@@ -377,21 +560,23 @@ def phase_slice(dev, cfg):
     return launches
 
 
-def launch_counts():
+def counted_wrappers() -> dict:
+    """Every kernel's wrapper, by the kernel's name in the JSON line."""
     from handnet_tpu_torch.ops.cuda_a2j import a2j_decode
     from handnet_tpu_torch.ops.cuda_gn import gn_group_stats
-    from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv
+    from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv_gemm, int8_quantize
 
-    return {"a2j_decode": a2j_decode.launches, "gn_group_stats": gn_group_stats.launches,
-            "int8_conv": int8_conv.launches}
+    return {"a2j_decode": a2j_decode, "gn_group_stats": gn_group_stats,
+            "int8_quantize": int8_quantize, "int8_conv_gemm": int8_conv_gemm}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in counted_wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from handnet_tpu_torch.ops.cuda_a2j import a2j_decode
-    from handnet_tpu_torch.ops.cuda_gn import gn_group_stats
-    from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv
-
-    a2j_decode.launches = gn_group_stats.launches = int8_conv.launches = 0
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
 def set_int8_kernel(pipe, on: bool) -> None:
@@ -417,7 +602,7 @@ def calibrated_pipeline(dev, cfg, dtype):
 
 
 def phase_quant_slice(dev, cfg, cfg_dynamic):
-    """The quant_static slice through K1, K2 and K3; returns the launch
+    """The quant_static slice through K1, K2, K3q and K3g; returns the launch
     counts of its requests (the main path's run)."""
     import torch
 
@@ -443,7 +628,8 @@ def phase_quant_slice(dev, cfg, cfg_dynamic):
         check_outputs(out, bsz, crop, joints)
     calls = len(SLICE_REQUESTS)
     expected = {"a2j_decode": calls, "gn_group_stats": GN_LAYERS_PER_CALL * calls,
-                "int8_conv": INT8_LAUNCHES_PER_CALL * calls}
+                "int8_quantize": INT8_LAUNCHES_PER_CALL * calls,
+                "int8_conv_gemm": INT8_LAUNCHES_PER_CALL * calls}
     if launches != expected:
         raise AssertionError(f"quant_static launch counts {launches}, expected {expected}")
     log("slice", f"quant_static bf16 calls of batch {list(SLICE_REQUESTS)} in {seconds:.3f} s "
@@ -503,7 +689,7 @@ def phase_quant_slice(dev, cfg, cfg_dynamic):
     torch.cuda.synchronize()
     check_outputs(out, len(frames[0]), crop, joints)
     counts = launch_counts()
-    if counts["int8_conv"] != INT8_LAUNCHES_PER_CALL:
+    if (counts["int8_quantize"], counts["int8_conv_gemm"]) != (INT8_LAUNCHES_PER_CALL,) * 2:
         raise AssertionError(f"quant (dynamic): launch counts {counts}")
     log("slice", f"quant (dynamic) bf16 batch 8: all frames found, outputs finite; "
         f"launches {counts}")
@@ -545,6 +731,18 @@ def phase_throughput(dev, cfg, cfg_quant) -> None:
             "host clock around synchronize)")
     log("throughput", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     stage_split(fast["fast kernels"], quant, images, depth)
+    small = make_frames(8, dev, seed=301)
+    for name, pipe in (("fast", fast["fast kernels"]), ("quant_static", quant)):
+        for _ in range(3):
+            pipe(*small)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(10):
+            pipe(*small)
+        torch.cuda.synchronize()
+        log("throughput", f"bf16 batch 8, {name} kernels: "
+            f"{(time.perf_counter() - start) * 100:.3f} ms per call (host clock, 10 calls)")
+    profile_by_kernel("quant_static", quant, images, depth)
 
 
 def stage_split(fast, quant, images, depth) -> None:
@@ -570,6 +768,37 @@ def stage_split(fast, quant, images, depth) -> None:
         }
         log("throughput", f"stage split, {name} kernels, bf16 B=128 (ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+
+def profile_by_kernel(name: str, pipe, images, depth, calls: int = 3) -> None:
+    """Device time of ``calls`` B=128 forwards by kernel (torch.profiler),
+    and the share of the wall time in which no kernel ran. The table is
+    informative (where the profiler records no device time, it says so); a
+    failure of the forwards under it is a failure of the script."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe(images, depth)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            pipe(images, depth)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    rows = [(e.key, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+             / 1e3, e.count) for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        log("throughput", f"profile of {name}: the profiler recorded no device time")
+        return
+    log("throughput", f"profile of {name}, bf16 B=128, {calls} calls under the profiler: wall "
+        f"{wall_ms:.2f} ms, kernels {busy:.2f} ms, no kernel running "
+        f"{max(0.0, 1 - busy / wall_ms) * 100:.1f}% of the wall time")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
+        log("throughput", f"  {ms / calls:8.3f} ms/call {count // calls:5d} launches/call  "
+            f"{key[:110]}")
 
 
 def main() -> int:
@@ -608,7 +837,10 @@ def main() -> int:
     if (sum(map(len, geos.values())) != INT8_LAUNCHES_PER_CALL
             or len({n for names in geos.values() for n in names}) != INT8_LAYERS):
         raise AssertionError(f"int8 path: {len(geos)} geometries, unexpected layer counts")
-    results["int8_conv"] = phase_int8_kernel(dev, geos)
+    phase_quantize_kernel(dev)
+    k3 = phase_int8_kernel(dev, geos)
+    results["int8_quantize"], results["int8_conv_gemm"] = k3["k3q"], k3["k3g"]
+    phase_encode_host_time(dev, geos)
 
     phase_slice(dev, cfg)
     # the main path of this script: every kernel runs in the quant_static slice
@@ -619,8 +851,10 @@ def main() -> int:
                               "handnet_tpu/ops/pallas_a2j.py:55"),
                "gn_group_stats": ("handnet_tpu_torch/csrc/gn_stats.cu",
                                   "handnet_tpu/ops/pallas_gn.py:138"),
-               "int8_conv": ("handnet_tpu_torch/csrc/int8_conv.cu",
-                             "handnet_tpu/nn/quant.py:139")}
+               "int8_quantize": ("handnet_tpu_torch/csrc/int8_quantize.cu",
+                                 "handnet_tpu/nn/quant.py:135"),
+               "int8_conv_gemm": ("handnet_tpu_torch/csrc/int8_conv.cu",
+                                  "handnet_tpu/nn/quant.py:139")}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name], **results[name]}
                for name, (src, replaces) in sources.items()]

@@ -1,11 +1,12 @@
 """Compile ``handnet_tpu_torch/csrc/*.cu`` with ``nvcc`` and load it with ctypes.
 
 All CUDA sources build into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds): ``nvcc -gencode
-arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC``. The
-library goes to ``build/handnet_tpu_torch/<hash>/`` beside the package, keyed
-by a hash of the sources and flags, and is built at first use. Nothing here
-runs at import time.
+(no PyTorch headers, so a build takes seconds): one ``nvcc -gencode
+arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c`` per
+``.cu`` file, all started together, then one link. The library goes to
+``build/handnet_tpu_torch/<hash>/`` beside the package, keyed by a hash of
+the sources, headers and flags, and is built at first use. Nothing here runs
+at import time.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises
 :class:`KernelBuildError`; the callers (``ops/cuda_*.py``) never swap in the
@@ -30,7 +31,11 @@ BUILD_ROOT = PACKAGE_DIR.parent / "build" / "handnet_tpu_torch"
 LIB_NAME = "libhandnet_tpu_torch_kernels.so"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared", "-ldl")  # dlsym finds libcuda's tensor-map encoders
+# an entry point's return code from here up is this plus the CUresult of a
+# failed cuTensorMapEncode* (kEncodeFailed in csrc/int8_conv.cu)
+ENCODE_FAILED = 10000
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -46,10 +51,15 @@ ENTRY_POINTS = {
     "hn_a2j_decode": (_P, _P, _P, _P, _P, _I64, _I64, _I64,
                       _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                       _I64, _I64, _I64, _INT, _P),
-    # x, wq, sx, sx stride, sw, bias (or null), out, batch, h, w, cin, cout,
-    # ho, wo, kh, kw, stride (h, w), padding (h, w), dilation (h, w),
-    # dtype code, stream
-    "hn_int8_conv": (_P, _P, _P, _I64, _P, _P, _P, *(_I64,) * 15, _INT, _P),
+    # x, sx, sx stride, q, batch, elements per sample, dtype code, stream
+    "hn_int8_quantize": (_P, _P, _I64, _P, _I64, _I64, _INT, _P),
+    # q, wq, sx, sx stride, sw, bias (or null), out, batch, h, w, cin, cout,
+    # ho, wo, kh, kw, stride (h, w), dilation (h, w), im2col box lower (h, w)
+    # and upper (h, w) corners, dtype code, stream
+    "hn_int8_conv_gemm": (_P, _P, _P, _I64, _P, _P, _P, *(_I64,) * 17, _INT, _P),
+    # q, wq, batch, h, w, cin, cout, kh, kw, stride (h, w), lower (h, w),
+    # upper (h, w)
+    "hn_int8_conv_encode_maps": (_P, _P, *(_I64,) * 13),
 }
 
 
@@ -91,8 +101,8 @@ def _sources():
 
 
 def _build_dir(sources) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]
@@ -110,15 +120,33 @@ def build_library() -> BuildResult:
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp_path = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_path), *map(str, sources)]
+    objects = [out_dir / f".{src.stem}.{os.getpid()}.o" for src in sources]
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = ""
+    try:
+        # one compiler per source, all at once: the slowest file sets the time
+        compiles = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
+                    for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                                for src, obj in zip(sources, objects))]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in compiles]
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp_path), *map(str, objects)]
+        for cmd, out, code in results:
+            log += out
+            if code != 0:
+                raise KernelBuildError(f"nvcc failed ({code}): {' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n{log}")
+    except BaseException:
         tmp_path.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        raise
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    seconds = time.perf_counter() - start
     log_path.write_text(log)
     os.replace(tmp_path, lib_path)  # atomic: a reader never sees half a file
     return BuildResult(lib_path, seconds, log)
@@ -141,6 +169,8 @@ def load_library() -> ctypes.CDLL:
 def check_launch(name: str, code: int) -> None:
     """Raise if a C entry point reported a CUDA error for its launch (a
     refused launch never runs, and a later synchronize would not say so)."""
+    if code >= ENCODE_FAILED:
+        raise RuntimeError(f"{name}: cuTensorMapEncode failed: CUresult {code - ENCODE_FAILED}")
     if code != 0:
         what = load_library().hn_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: cudaError_t {code} ({what})")

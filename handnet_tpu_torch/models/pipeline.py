@@ -8,7 +8,7 @@ without a hand flow through as masked zeros instead of control flow
 (reference handnet_pipeline.py:81-83,107-108).
 
 With ``quant`` configs the backbones, FPN and towers run int8 convolutions
-(kernel K3, ``nn/quant.py``); a ``quant="static"`` pipeline is calibrated by
+(kernels K3q and K3g, ``nn/quant.py``); a ``quant="static"`` pipeline is calibrated by
 :meth:`HandNetPipeline.calibrate` (or ``nn.quant.load_calibration``) before it
 serves.
 
@@ -41,6 +41,9 @@ class HandNetPipeline(nn.Module):
         parameters, int8 layers' master weights and the decode stay
         float32, as in the JAX package.
       device: where the weights live; inputs must be on the same device.
+        None (the default) is the card, ``"cuda"``, and raises where there
+        is no CUDA device: the pipeline never moves to the CPU by itself.
+        Pass ``"cpu"`` to run there.
       use_kernels: True (the default) runs kernels K1, K2 and (int8
         configs) K3 on CUDA tensors. False runs their plain PyTorch
         versions instead; it is never chosen automatically and exists to
@@ -55,9 +58,16 @@ class HandNetPipeline(nn.Module):
 
     def __init__(self, cfg: Optional[HandNetConfig] = None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu",
+                 device: Optional[torch.device | str] = None,
                  use_kernels: bool = True, seed: int = 0):
         super().__init__()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "HandNetPipeline: no CUDA device (torch.cuda.is_available() is False). "
+                    "The pipeline serves on the card by default; pass device=\"cpu\" to "
+                    "run on the CPU.")
+            device = "cuda"
         self.cfg = cfg or HandNetConfig()
         if self.cfg.pipeline.with_mesh:
             raise NotImplementedError("HandNetPipeline: the mesh head is ROADMAP item 10")

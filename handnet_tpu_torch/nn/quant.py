@@ -14,8 +14,9 @@ float checkpoint serves int8 unchanged:
 * activations: ``dynamic`` takes one scale per sample from its amax;
   ``static`` takes one per layer from the calibrated ``act_amax`` buffer;
 * the conv accumulates int8 x int8 in int32 and dequantizes by
-  ``sx[b] * sw[o]`` in its epilogue: kernel K3 on a CUDA tensor
-  (``ops/cuda_int8_conv.py``), its plain version on a CPU tensor.
+  ``sx[b] * sw[o]`` in its epilogue: kernels K3q (quantize) and K3g (int8
+  GEMM) on a CUDA tensor (``ops/cuda_int8_conv.py``), their plain versions
+  on a CPU tensor.
 
 Calibration (:meth:`HandNetPipeline.calibrate
 <handnet_tpu_torch.models.pipeline.HandNetPipeline.calibrate>`) sets

@@ -290,21 +290,31 @@ def test_geometry_matches():
 
 
 def test_port_tree_hygiene():
-    """The port never imports jax, and each CUDA source names the JAX
-    function it replaces (a Pallas kernel, or for K3 the XLA int8 conv)."""
+    """The port never imports jax, each CUDA source names the JAX function
+    it replaces (a Pallas kernel, or for K3q and K3g the XLA int8 conv), and
+    every header under csrc/ is included by a source."""
     pkg = REPO / "handnet_tpu_torch"
     jax_import = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     offenders = [p.name for p in pkg.rglob("*.py") if jax_import.search(p.read_text())]
     assert offenders == []
     sources = sorted((pkg / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_stats.cu", "int8_conv.cu"]
+    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_stats.cu", "int8_conv.cu",
+                                         "int8_quantize.cu"]
     replaces = {"a2j_decode.cu": ("_decode_kernel", "a2j_decode_pallas",
                                   "handnet_tpu/ops/pallas_a2j.py"),
                 "gn_stats.cu": ("_stats_kernel", "gn_group_stats",
                                 "handnet_tpu/ops/pallas_gn.py"),
-                "int8_conv.cu": ("QuantConv", "conv_general_dilated",
-                                 "handnet_tpu/nn/quant.py")}
+                "int8_conv.cu": ("QuantConv", "conv_general_dilated", "wgmma",
+                                 "handnet_tpu/nn/quant.py:122-151"),
+                "int8_quantize.cu": ("QuantConv", "quantize_symmetric",
+                                     "handnet_tpu/nn/quant.py:122-151")}
     for src in sources:
         text = src.read_text()
         for name in replaces[src.name]:
             assert name in text, (src.name, name)
+        assert "mma.sync" not in text, src.name   # the pre-Hopper K3 is gone
+    headers = sorted(p.name for p in (pkg / "csrc").glob("*.cuh"))
+    assert headers == ["round_to_byte.cuh", "wgmma_s8.cuh"]
+    included = "".join(src.read_text() for src in sources)
+    for header in headers:
+        assert f'#include "{header}"' in included, header

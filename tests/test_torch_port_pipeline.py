@@ -43,7 +43,7 @@ def _cfg(module, score_thresh):
 @pytest.fixture(scope="module")
 def weights():
     """Port state dict with random norms, and the same weights as JAX variables."""
-    sd = {k: v.numpy() for k, v in HandNetPipeline(_cfg(pconfig, 0.0), seed=3)
+    sd = {k: v.numpy() for k, v in HandNetPipeline(_cfg(pconfig, 0.0), seed=3, device="cpu")
           .state_dict().items()}
     flax_vars = {
         "detector": randomize_norms(convert_fcos(
@@ -65,7 +65,7 @@ def _frames(seed, batch=2):
 
 def _run_both(weights, score_thresh, frames):
     state_dict, flax_vars = weights
-    port = HandNetPipeline(_cfg(pconfig, score_thresh))
+    port = HandNetPipeline(_cfg(pconfig, score_thresh), device="cpu")
     port.load_state_dict(state_dict, strict=True)
     got = port(*(torch.from_numpy(a) for a in frames))
     jax_pipe = JaxPipeline(_cfg(jconfig, score_thresh))
@@ -133,7 +133,7 @@ cfg = C.HandNetConfig(
                       ext=False, score_thresh=0.0),
     pipeline=C.PipelineConfig(crop_size=48))
 rng = np.random.default_rng(0)
-out = HandNetPipeline(cfg)(
+out = HandNetPipeline(cfg, device="cpu")(
     torch.from_numpy(rng.uniform(size=(2, 64, 96, 3)).astype(np.float32)),
     torch.from_numpy(rng.uniform(0.3, 1.0, size=(2, 64, 96)).astype(np.float32)))
 assert tuple(out["joints_uvd"].shape) == (2, 21, 3)
@@ -145,10 +145,10 @@ static = C.HandNetConfig(
     pipeline=C.PipelineConfig(crop_size=48))
 frames = (torch.from_numpy(rng.uniform(size=(2, 64, 96, 3)).astype(np.float32)),
           torch.from_numpy(rng.uniform(0.3, 1.0, size=(2, 64, 96)).astype(np.float32)))
-pipe = HandNetPipeline(static)
+pipe = HandNetPipeline(static, device="cpu")
 pipe.calibrate(*frames)
 assert bool(torch.isfinite(pipe(*frames)["joints_uvd"]).all())
-HandNetPipeline(C.load_config(overrides=C.QUANT_STATIC))
+HandNetPipeline(C.load_config(overrides=C.QUANT_STATIC), device="cpu")
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "handnet_tpu"))
 print("LOADED", loaded)
@@ -165,3 +165,20 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "LOADED []", proc.stdout
+
+
+def test_pipeline_defaults_to_the_card(monkeypatch):
+    """Without a device the pipeline serves on the card: where there is no
+    CUDA device it raises instead of carrying on on the CPU, and where there
+    is one it asks for "cuda"; ``device="cpu"`` builds on the CPU."""
+    cfg = _cfg(pconfig, 0.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HandNetPipeline(cfg)
+    pipe = HandNetPipeline(cfg, device="cpu")
+    assert {p.device.type for p in pipe.parameters()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    moved = []
+    monkeypatch.setattr(HandNetPipeline, "to", lambda self, device: moved.append(device) or self)
+    HandNetPipeline(cfg)
+    assert moved == ["cuda"]

@@ -172,7 +172,7 @@ def test_int8_conv_wrapper_on_cpu_takes_plain_version():
     conv = _port_conv("3x3_s2_p1", 64, 64, True, "dynamic")
     conv.weight.data.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()))
     wq, sw = conv.quantized_weight()
-    before = k3.int8_conv.launches
+    before = (k3.int8_quantize.launches, k3.int8_conv_gemm.launches)
     for dtype in (torch.float32, torch.bfloat16):
         xt = torch.from_numpy(x).to(dtype)
         for sx in (torch.tensor([0.05, 0.02]), torch.tensor(0.04)):
@@ -180,7 +180,7 @@ def test_int8_conv_wrapper_on_cpu_takes_plain_version():
             got = k3.int8_conv(*args)
             assert got.dtype == dtype and got.shape == (2, 5, 6, 64)
             assert torch.equal(got, k3.int8_conv_reference(*args))
-    assert k3.int8_conv.launches == before
+    assert (k3.int8_quantize.launches, k3.int8_conv_gemm.launches) == before
     with pytest.raises(ValueError, match="unsupported device"):
         k3.int8_conv(torch.from_numpy(x).to("meta"), wq, sx, sw, None, (1, 1), (1, 1), (1, 1))
 

@@ -53,7 +53,7 @@ def _strip_amax(state_dict, prefix):
 def weights():
     """Port state dict (act_amax zero) and the same weights as JAX variables
     (params and batch_stats; calibration adds quant_stats)."""
-    sd = {k: v.numpy() for k, v in HandNetPipeline(_cfg(pconfig), seed=0)
+    sd = {k: v.numpy() for k, v in HandNetPipeline(_cfg(pconfig), seed=0, device="cpu")
           .state_dict().items()}
     flax_vars = {
         # convert_fcos/convert_a2j read reference checkpoints, which hold no
@@ -75,7 +75,7 @@ def _frames(seed, batch=2):
 
 
 def _port(weights, quant="static", score_thresh=0.0):
-    pipe = HandNetPipeline(_cfg(pconfig, quant, score_thresh))
+    pipe = HandNetPipeline(_cfg(pconfig, quant, score_thresh), device="cpu")
     pipe.load_state_dict(weights[0], strict=True)
     return pipe
 
@@ -260,7 +260,7 @@ def test_quant_dynamic_slice_matches_jax(weights):
     is its input's own amax, so a last-bit difference in an activation can
     move the scale and with it every quantized value of the sample."""
     frames = _frames(4)
-    port = HandNetPipeline(_cfg(pconfig, quant=True))
+    port = HandNetPipeline(_cfg(pconfig, quant=True), device="cpu")
     port.load_state_dict({k: v for k, v in weights[0].items()
                           if not k.endswith(".act_amax")}, strict=True)
     assert not port.needs_calibration()
@@ -299,7 +299,7 @@ def test_state_dict_carries_quant_stats(calibrated):
     state = pipeline_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, jax_variables))
     amaxes = {k: float(v) for k, v in state.items() if k.endswith(".act_amax")}
     assert amaxes == _jax_amaxes(jax_variables) and len(amaxes) == N_QUANT_LAYERS
-    other = HandNetPipeline(_cfg(pconfig))
+    other = HandNetPipeline(_cfg(pconfig), device="cpu")
     other.load_state_dict(state, strict=True)
     assert _amaxes(other) == _amaxes(port)
 
@@ -316,7 +316,7 @@ def test_calibration_guards(weights, tmp_path):
     np.savez(path, **{"detector/quant_stats/fpn/lateral_9/act_amax": np.float32(1.0)})
     with pytest.raises(KeyError):
         pquant.load_calibration(path, fresh)
-    floaty = HandNetPipeline(_cfg(pconfig, quant=False))
+    floaty = HandNetPipeline(_cfg(pconfig, quant=False), device="cpu")
     before = {k: v.clone() for k, v in floaty.state_dict().items()}
     floaty.calibrate(*(torch.from_numpy(a) for a in _frames(0)[:2]))
     assert all(torch.equal(before[k], v) for k, v in floaty.state_dict().items())
@@ -329,7 +329,7 @@ def test_bench_calib_loads_into_full_width_quant_static():
     """configs/bench_calib.npz (written by the JAX package) sets all 113
     buffers of a full-width QUANT_STATIC pipeline (construction only)."""
     cfg = pconfig.load_config(overrides=pconfig.QUANT_STATIC)
-    pipe = HandNetPipeline(cfg)
+    pipe = HandNetPipeline(cfg, device="cpu")
     assert pquant.load_calibration(str(REPO / "configs" / "bench_calib"), pipe) == N_QUANT_LAYERS
     data = np.load(REPO / "configs" / "bench_calib.npz")
     amaxes = _amaxes(pipe)
@@ -348,7 +348,7 @@ def test_quant_profiles_without_yaml():
 def test_bf16_pipeline_keeps_int8_master_weights_float32():
     """The bf16 cast leaves every QuantConv's weight and bias float32 (JAX
     quantizes the float32 kernel) and casts the float convs."""
-    pipe = HandNetPipeline(_cfg(pconfig), dtype=torch.bfloat16)
+    pipe = HandNetPipeline(_cfg(pconfig), dtype=torch.bfloat16, device="cpu")
     convs = [m for m in pipe.modules() if isinstance(m, torch.nn.Conv2d)]
     quant = [m for m in convs if isinstance(m, pquant.QuantConv)]
     assert len(quant) == N_QUANT_LAYERS
