@@ -8,10 +8,19 @@ the next starts:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. build: compiles ``handnet_tpu_torch/csrc/*.cu`` for sm_90a (first use).
-3. kernels: K1 (A2J decode) and K2 (GroupNorm statistics) against their
-   plain PyTorch versions at the fast profile's shapes, in float32 and
-   bfloat16, with their times and the plain versions' (CUDA events), and
-   for K2 the one PyTorch call that computes the same (``torch.var_mean``).
+3. kernels: every kernel against its plain PyTorch version, and its time
+   twice: by a loop of wrapper calls between two CUDA events (``cuda_ms``,
+   which the host bounds when the kernel is short) and by the kernel's own
+   duration on the device (``device_ms``, torch.profiler).
+   K1 (A2J decode) at B = 1, 8 and 128 in float32 and bfloat16, two runs
+   bit-equal, an unaligned shape, strided views refused. K2s (GroupNorm
+   statistics) and K2a (normalize, affine, ReLU) at the three FPN levels, B =
+   1, 8 and 128, float32 and bfloat16: K2s to 1e-4 of scale with two runs
+   bit-equal and the mean >> std case, K2a bit for bit with and without the
+   ReLU; beside them ``torch.var_mean`` (K2s's function in one call) and
+   ``F.group_norm`` (+ ``F.relu``) on the same channels_last bytes (K2s +
+   K2a's), which the port never calls; and a profile of one ``group_norm``
+   call, which must show those two kernels and nothing else.
    K3q (activation quantize pass) bit for bit against its plain version in
    float32 and bfloat16, per-layer and per-sample scales, near-tie and ReLU
    inputs. K3 (int8 conv: K3q, then K3g, the TMA-fed wgmma GEMM) bit for
@@ -26,17 +35,21 @@ the next starts:
 4. slice: ``HandNetPipeline`` at the fast operating point (480x640, full
    widths, seeded random weights, score threshold 0) answers three batches
    of 8 and one of 128 in bf16 through the kernels; the launch counts must
-   be K1 once and K2 24 times per call. Then the float32 kernel path is
-   held against the plain path on the card and against the port's own CPU
-   run. Then the same for the quant_static profile (int8 convs, JAX
-   package's benchmark default), calibrated on seeded frames first, with
-   K3q and K3g 129 times each per call (113 int8 layers, the 8 tower convs
-   at 3 levels); in the pipeline K3 is also held bit for bit against its
-   plain version; and one batch of 8 of the dynamic quant profile.
+   be K1 once and K2s and K2a 24 times each per call. Then the float32
+   kernel path is held against the plain path on the card and against the
+   port's own CPU run. Then the same for the quant_static profile (int8
+   convs, JAX package's benchmark default), calibrated on seeded frames
+   first, with K3q and K3g 129 times each per call (113 int8 layers, the 8
+   tower convs at 3 levels); in the pipeline K3 is also held bit for bit
+   against its plain version; and one batch of 8 of the dynamic quant
+   profile.
 5. throughput: frames/s at batch 128 in bf16: fast with kernels and plain
    versions, quant_static with K3 and with K3's plain version, in turns;
    then a per-stage split of fast and quant_static (CUDA events), the
    latency of a batch of 8, and a profile of quant_static by kernel.
+
+In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
+are times on the device; ``loop_ms`` is the wrapper loop's.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
@@ -100,6 +113,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_rows(prof) -> list:
+    """``(kernel name, ms on the device, launches)`` of a torch.profiler run."""
+    return [(e.key, getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time that the card spends in the kernels of one call of ``fn``:
+    the kernels' own durations from torch.profiler, summed over ``iters``
+    calls. Unlike :func:`cuda_ms` it leaves out whatever the host takes
+    between launches, which bounds a loop of short kernels. ``fn`` may be a
+    sequence of callables, taken in turn (inputs that together exceed the
+    50 MB L2, so that every launch reads from device memory). Should the
+    profiler record nothing, the event loop's time stands in, and a line
+    says so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
+    for i in range(max(warmup, len(fns))):
+        fns[i % len(fns)]()
+    for _ in range(3):   # a profiler session now and then comes back empty
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        total = sum(ms for _, ms, _ in device_rows(prof))
+        if total > 0:
+            return total / iters
+    log("kernels", "device_ms: the profiler recorded no device time in three sessions; this "
+        "time is the event loop's instead")
+    return cuda_ms(fns[0], iters, warmup)
+
+
 def bound(n_bytes: float, ops: float, ops_per_s: float) -> dict:
     """The least time the card could take: bytes over the memory rate or
     operations over their peak rate, whichever is larger (ms)."""
@@ -125,93 +175,219 @@ def check(name: str, got, want, tol: float) -> float:
     return err
 
 
-def phase_kernels(dev):
-    """K1 and K2 against their plain versions on the card; returns the
-    numbers of the JSON line (everything but the launch counts)."""
+def timed(fn) -> dict:
+    """``fn``'s time by a loop of calls between two events (which the host
+    bounds when the kernels are short) and by the kernels' own durations."""
+    return {"loop_ms": cuda_ms(fn), "ms": device_ms(fn)}
+
+
+def same_bits_twice(name: str, fn):
+    """``fn()`` twice: the result, after checking that the runs agree bit for
+    bit (the split reductions fold their partials in a fixed order)."""
+    import torch
+
+    first, second = fn(), fn()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{name}: two runs on the same input differ")
+    return first
+
+
+def phase_a2j_kernel(dev) -> dict:
+    """K1 against its plain version at B = 1, 8 and 128; returns the numbers
+    of its JSON entry (everything but the launch count)."""
     import torch
 
     from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
     from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_reference
-    from handnet_tpu_torch.ops.cuda_gn import gn_group_stats, gn_group_stats_reference
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    results = {}
-
-    # K1: B=128, N=11*11*16, P=21. Outputs are pixel positions (|x| up to
-    # ~200 with these offsets); tolerance 1e-4 of that scale: float32
-    # accumulations in another order, the same inputs on both sides.
-    b, n, p = 128, 1936, 21
-    cls = torch.randn(b, n, p, device=dev, generator=gen) * 2
-    reg = torch.randn(b, n, p, 2, device=dev, generator=gen) * 5
-    depth = torch.randn(b, n, p, device=dev, generator=gen)
+    # N=11*11*16, P=21. Outputs are pixel positions (|x| up to ~200 with these
+    # offsets); tolerance 1e-4 of that scale: float32 accumulations in another
+    # order, the same inputs on both sides.
+    n, p = 1936, 21
     anchors = torch.from_numpy(a2j_anchor_grid(11, 11, 16)).to(dev)
-    errs, times = [], {}
-    for dtype in (torch.float32, torch.bfloat16):
-        c, r, d = (t.to(dtype) for t in (cls, reg, depth))
-        want = a2j_decode_reference(c, r, d, anchors)
-        tol = 1e-4 * max(1.0, want.abs().max().item())
-        errs.append(check(f"K1 {dtype}", a2j_decode(c, r, d, anchors), want, tol))
-        times[dtype] = (cuda_ms(lambda: a2j_decode(c, r, d, anchors)),
-                        cuda_ms(lambda: a2j_decode_reference(c, r, d, anchors)))
-        log("kernels", f"K1 a2j_decode B={b} N={n} P={p} {dtype}: max|err| {errs[-1]:.3e} "
-            f"(tol {tol:.1e}); kernel {times[dtype][0]:.4f} ms, plain {times[dtype][1]:.4f} ms")
-    # strided views: cls with N innermost, reg with every other channel pair
-    c = torch.randn(b, p, n, device=dev, generator=gen).transpose(1, 2)
-    r = torch.randn(b, n, p, 4, device=dev, generator=gen)[..., ::2]
-    want = a2j_decode_reference(c, r, depth, anchors)
-    errs.append(check("K1 strided", a2j_decode(c, r, depth, anchors), want,
-                      1e-4 * max(1.0, want.abs().max().item())))
-    log("kernels", f"K1 strided inputs float32: max|err| {errs[-1]:.3e}")
-    ms, plain_ms = times[torch.bfloat16]
-    # bound at the timed shape (bf16): every input once, the output once; per
-    # (image, anchor, joint) a max, a subtraction, an exp and 4 multiply-adds,
-    # counted as 12 float32 operations. No single PyTorch call computes it.
-    moved = 4 * b * n * p * 2 + nbytes(anchors) + b * p * 3 * 4
-    results["a2j_decode"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                             **bound(moved, 12 * b * n * p, F32_FLOPS_PER_S),
-                             "library_ms": None}
-    log("kernels", f"K1 bound {results['a2j_decode']['bound_ms']:.4f} ms "
-        f"({moved} bytes / 3.35 TB/s; by {results['a2j_decode']['bound_by']}); no library call")
 
-    # K2: B=128, C=256, G=32 at the three FPN levels. Statistics of N(2, 3)
-    # data; tolerance 1e-4 of their scale (float32 reductions of up to 38,400
-    # values in another order).
+    def inputs(b, dtype, n=n, p=p):
+        return ((torch.randn(b, n, p, device=dev, generator=gen) * 2).to(dtype),
+                (torch.randn(b, n, p, 2, device=dev, generator=gen) * 5).to(dtype),
+                torch.randn(b, n, p, device=dev, generator=gen).to(dtype))
+
+    def compare(name, args):
+        want = a2j_decode_reference(*args)
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        got = same_bits_twice(name, lambda: a2j_decode(*args))
+        return check(name, got, want, tol), tol
+
     errs, times = [], {}
-    for h, w in GN_LEVELS:
-        x = torch.randn(128, h, w, 256, device=dev, generator=gen) * 3 + 2
+    for b in (1, 8, 128):
         for dtype in (torch.float32, torch.bfloat16):
-            xd = x.to(dtype)
-            want = gn_group_stats_reference(xd, 32)
-            tol = 1e-4 * max(1.0, want.abs().max().item())
-            errs.append(check(f"K2 {h}x{w} {dtype}", gn_group_stats(xd, 32), want, tol))
-            grouped = xd.view(128, h * w, 32, 8)
-            times[(h, w, dtype)] = (
-                cuda_ms(lambda: gn_group_stats(xd, 32)),
-                cuda_ms(lambda: gn_group_stats_reference(xd, 32)),
-                cuda_ms(lambda: torch.var_mean(grouped, dim=(1, 3), correction=0)))
-            kt, pt, lt = times[(h, w, dtype)]
-            # x once, [B, 2, G] float32 out; a subtraction and 2 multiply-adds
-            # per element over two passes, counted as 6 float32 operations
-            k2_bound = bound(nbytes(xd) + 128 * 2 * 32 * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
-            log("kernels", f"K2 gn_group_stats B=128 {h}x{w}x256 G=32 {dtype}: max|err| "
-                f"{errs[-1]:.3e} (tol {tol:.1e}); kernel {kt:.4f} ms, plain {pt:.4f} ms, "
-                f"torch.var_mean {lt:.4f} ms, bound {k2_bound['bound_ms']:.4f} ms "
-                f"(by {k2_bound['bound_by']})")
-            if (h, w, dtype) == (60, 80, torch.bfloat16):
-                p3_bound = k2_bound
+            c, r, d = inputs(b, dtype)
+            err, tol = compare(f"K1 B={b} {dtype}", (c, r, d, anchors))
+            errs.append(err)
+            kernel = timed(lambda: a2j_decode(c, r, d, anchors))
+            line = (f"K1 a2j_decode B={b} N={n} P={p} {dtype}: max|err| {err:.3e} (tol "
+                    f"{tol:.1e}), two runs bit-equal; kernel on the device "
+                    f"{kernel['ms']:.4f} ms, wrapper loop {kernel['loop_ms']:.4f} ms")
+            if b == 128:
+                plain = timed(lambda: a2j_decode_reference(c, r, d, anchors))
+                times[dtype] = (kernel, plain)
+                line += (f"; plain on the device {plain['ms']:.4f} ms, loop "
+                         f"{plain['loop_ms']:.4f} ms")
+            log("kernels", line)
+    # four input sets in turn: 167 MB, so no launch finds its inputs in the L2
+    sets = [inputs(128, torch.bfloat16) for _ in range(4)]
+    cold_ms = device_ms([lambda s=s: a2j_decode(*s, anchors) for s in sets])
+    del sets
+    # a flat run that is no whole number of 16-byte words: the element-wise copy
+    odd_anchors = torch.randn(50, 2, device=dev, generator=gen) * 40
+    for dtype in (torch.float32, torch.bfloat16):
+        errs.append(compare(f"K1 N=50 P=7 {dtype}", (*inputs(3, dtype, 50, 7), odd_anchors))[0])
+    log("kernels", f"K1 N=50 P=7 B=3 (unaligned runs, element-wise staging) f32 and bf16: "
+        f"max|err| {max(errs[-2:]):.3e}")
+    # strided views are refused, never copied silently: cls with N innermost,
+    # reg with every other channel pair
+    c, r, d = inputs(8, torch.float32)
+    refused = 0
+    for args in ((torch.randn(8, p, n, device=dev, generator=gen).transpose(1, 2), r, d),
+                 (c, torch.randn(8, n, p, 4, device=dev, generator=gen)[..., ::2], d)):
+        try:
+            a2j_decode(*args, anchors)
+        except ValueError as exc:
+            refused += "must be contiguous" in str(exc)
+    if refused != 2:
+        raise AssertionError("K1: a strided cls or reg view was not refused")
+    log("kernels", "K1 strided cls and reg views: refused with ValueError (no silent copy)")
+    kernel, plain = times[torch.bfloat16]
+    # bound at the timed shape (B=128, bf16): every input once, the output
+    # once; per (image, anchor, joint) a max, a subtraction, an exp and 4
+    # multiply-adds, counted as 12 float32 operations. No single PyTorch call
+    # computes it.
+    b = 128
+    moved = 4 * b * n * p * 2 + nbytes(anchors) + b * p * 3 * 4
+    result = {"max_abs_err": max(errs), **kernel, "plain_ms": plain["ms"],
+              "plain_loop_ms": plain["loop_ms"], "cold_l2_ms": cold_ms,
+              **bound(moved, 12 * b * n * p, F32_FLOPS_PER_S), "library_ms": None}
+    log("kernels", f"K1 B=128 bf16: bound {result['bound_ms']:.4f} ms ({moved} bytes / 3.35 "
+        f"TB/s; by {result['bound_by']}), {result['bound_ms'] / kernel['ms'] * 100:.0f}% of "
+        f"it reached on the device; over 4 input sets in turn (cold L2) {cold_ms:.4f} ms; no "
+        "library call")
+    return result
+
+
+def phase_gn_kernels(dev) -> dict:
+    """K2s and K2a against their plain versions at the three FPN levels, B =
+    1, 8 and 128, float32 and bfloat16; returns the numbers of their JSON
+    entries (times at P3, B=128, bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from handnet_tpu_torch.ops.cuda_gn import (
+        gn_apply, gn_apply_reference, gn_group_stats, gn_group_stats_reference, group_norm)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    eps = 1e-5
+    scale = torch.rand(256, device=dev, generator=gen) + 0.5
+    bias = torch.randn(256, device=dev, generator=gen)
+    stats_errs, applied, p3 = [], 0, {}
+    for b in (1, 8, 128):
+        for h, w in GN_LEVELS:
+            # statistics of N(2, 3) data; tolerance 1e-4 of their scale (float32
+            # reductions of up to 38,400 values in another order)
+            x = torch.randn(b, h, w, 256, device=dev, generator=gen) * 3 + 2
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                name = f"B={b} {h}x{w}x256 G=32 {dtype}"
+                want = gn_group_stats_reference(xd, 32)
+                tol = 1e-4 * max(1.0, want.abs().max().item())
+                stats = same_bits_twice(f"K2s {name}", lambda: gn_group_stats(xd, 32))
+                stats_errs.append(check(f"K2s {name}", stats, want, tol))
+                # K2a bit for bit: parameters in x's type (as the pipeline holds
+                # them) and in float32, with and without the ReLU
+                for params in {dtype, torch.float32}:
+                    sc, bi = scale.to(params), bias.to(params)
+                    for relu in (False, True):
+                        got = gn_apply(xd, stats, sc, bi, eps, relu)
+                        ref = gn_apply_reference(xd, stats, sc, bi, eps, relu)
+                        if got.dtype != xd.dtype or not torch.equal(got, ref):
+                            diff = (got.double() - ref.double()).abs()
+                            raise AssertionError(
+                                f"K2a {name} params {params} relu={relu}: not bit-equal to its "
+                                f"plain version ({int((diff > 0).sum())} elements differ, max "
+                                f"{diff.max().item():.3e})")
+                        applied += 1
+                sc, bi = scale.to(dtype), bias.to(dtype)
+                s_t = timed(lambda: gn_group_stats(xd, 32))
+                a_t = timed(lambda: gn_apply(xd, stats, sc, bi, eps, True))
+                # K2s: x once, [B, 2, G] float32 out; a subtraction and 2
+                # multiply-adds per element over two passes, counted as 6 float32
+                # operations. K2a: x in, y out; 4 operations per element.
+                s_bound = bound(nbytes(xd) + b * 2 * 32 * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
+                a_bound = bound(2 * nbytes(xd) + nbytes(stats, sc, bi), 4 * xd.numel(),
+                                F32_FLOPS_PER_S)
+                line = (f"K2 {name}: K2s max|err| {stats_errs[-1]:.3e} (tol {tol:.1e}), two runs "
+                        f"bit-equal; K2a bit-equal to its plain version; on the device K2s "
+                        f"{s_t['ms']:.4f} ms (bound {s_bound['bound_ms']:.4f}), K2a+ReLU "
+                        f"{a_t['ms']:.4f} ms (bound {a_bound['bound_ms']:.4f}); wrapper loops "
+                        f"{s_t['loop_ms']:.4f}, {a_t['loop_ms']:.4f} ms")
+                if b == 128:
+                    grouped = xd.view(b, h * w, 32, 8)
+                    xc = xd.permute(0, 3, 1, 2)   # NCHW view of NHWC bytes: channels_last
+                    rest = {
+                        "K2s plain": timed(lambda: gn_group_stats_reference(xd, 32)),
+                        "K2a plain": timed(lambda: gn_apply_reference(xd, stats, sc, bi, eps,
+                                                                      True)),
+                        "torch.var_mean": timed(lambda: torch.var_mean(grouped, dim=(1, 3),
+                                                                       correction=0)),
+                        "K2s+K2a": timed(lambda: group_norm(xd, sc, bi, 32, eps)),
+                        "F.group_norm": timed(lambda: F.group_norm(xc, 32, sc, bi, eps)),
+                        "K2s+K2a+ReLU": timed(lambda: group_norm(xd, sc, bi, 32, eps, relu=True)),
+                        "F.relu(F.group_norm)": timed(
+                            lambda: F.relu(F.group_norm(xc, 32, sc, bi, eps))),
+                    }
+                    line += "; " + ", ".join(f"{k} {v['ms']:.4f} (loop {v['loop_ms']:.4f})"
+                                             for k, v in rest.items())
+                    if (h, w, dtype) == (60, 80, torch.bfloat16):
+                        p3 = {"K2s": s_t, "K2a": a_t, "s_bound": s_bound, "a_bound": a_bound,
+                              **rest}
+                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                            group_norm(xd, sc, bi, 32, eps, relu=True)
+                            torch.cuda.synchronize()
+                        launched = sorted((key, count) for key, _, count in device_rows(prof))
+                        if ([c for _, c in launched] != [1, 1]
+                                or "gn_apply_kernel" not in launched[0][0]
+                                or "gn_stats_kernel" not in launched[1][0]):
+                            raise AssertionError(f"group_norm on the card launched {launched}: "
+                                                 "expected K2s and K2a once each, nothing else")
+                log("kernels", line)
+    log("kernels", f"group_norm(relu=True) at P3 B=128 bf16 under the profiler: two kernels, "
+        f"{launched[1][0][:60]} and {launched[0][0][:60]}, no other pass over the activation")
     # mean >> std: E[x^2]-E[x]^2 would lose the variance entirely in float32
     x = 1000.0 + 0.1 * torch.randn(8, 60, 80, 256, device=dev, generator=gen)
     got, want = gn_group_stats(x, 32), gn_group_stats_reference(x, 32)
-    errs.append(check("K2 mean>>std mean", got[:, 0], want[:, 0], 2e-3))
+    stats_errs.append(check("K2s mean>>std mean", got[:, 0], want[:, 0], 2e-3))
     rel = ((got[:, 1] - want[:, 1]).abs() / want[:, 1]).max().item()
     if not rel <= 1e-2 or not bool((got[:, 1] > 0).all()):
-        raise AssertionError(f"K2 mean>>std: variance rel err {rel:.3e} > 1e-2")
-    log("kernels", f"K2 mean>>std (1000 + 0.1 N(0,1)) float32: mean max|err| {errs[-1]:.3e} "
-        f"(tol 2e-3), variance max rel err {rel:.3e} (tol 1e-2)")
-    ms, plain_ms, library_ms = times[(60, 80, torch.bfloat16)]
-    results["gn_group_stats"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                                 **p3_bound, "library_ms": library_ms}
-    return results
+        raise AssertionError(f"K2s mean>>std: variance rel err {rel:.3e} > 1e-2")
+    log("kernels", f"K2s mean>>std (1000 + 0.1 N(0,1)) float32: mean max|err| "
+        f"{stats_errs[-1]:.3e} (tol 2e-3), variance max rel err {rel:.3e} (tol 1e-2)")
+    log("kernels", f"K2a: {applied} comparisons bit-equal to gn_apply_reference (B=1/8/128 x "
+        "P3/P4/P5 x f32/bf16 x parameter type x ReLU on/off)")
+    pair = {"pair_ms": p3["K2s+K2a"]["ms"], "pair_library_ms": p3["F.group_norm"]["ms"],
+            "pair_relu_ms": p3["K2s+K2a+ReLU"]["ms"],
+            "pair_relu_library_ms": p3["F.relu(F.group_norm)"]["ms"]}
+    return {
+        # the one PyTorch call that computes K2s's function: torch.var_mean
+        "gn_group_stats": {"max_abs_err": max(stats_errs), **p3["K2s"],
+                           "plain_ms": p3["K2s plain"]["ms"],
+                           "plain_loop_ms": p3["K2s plain"]["loop_ms"], **p3["s_bound"],
+                           "library_ms": p3["torch.var_mean"]["ms"], **pair},
+        # no one call applies given statistics; F.group_norm computes K2s + K2a
+        # (the pair_* keys, on the same channels_last bytes)
+        "gn_apply": {"max_abs_err": 0.0, **p3["K2a"], "plain_ms": p3["K2a plain"]["ms"],
+                     "plain_loop_ms": p3["K2a plain"]["loop_ms"], **p3["a_bound"],
+                     "library_ms": None, **pair},
+    }
 
 
 def int8_geometries(dev, cfg):
@@ -326,8 +502,8 @@ def phase_int8_kernel(dev, geos):
         checked += 1
         err = max(err, (got.double() - want.double()).abs().max().item())
 
-    keys = ("launches", "tops", "gbytes_q", "k3q", "k3g", "k3", "plain", "k3q_bound",
-            "k3g_bound")
+    keys = ("launches", "tops", "gbytes_q", "k3q", "k3g", "k3q_dev", "k3g_dev", "k3", "plain",
+            "k3q_bound", "k3g_bound")
     classes, p3 = {}, {}
     for geo, names in sorted(geos.items(), key=lambda kv: kv[1][0]):
         h, w, cin, cout, k, s, p, d, has_bias = geo
@@ -364,6 +540,8 @@ def phase_int8_kernel(dev, geos):
         alone += 1
         t = {"k3q": cuda_ms(lambda: int8_quantize(x, sx), iters=10, warmup=2),
              "k3g": cuda_ms(lambda: int8_conv_gemm(*gemm), iters=10, warmup=2),
+             "k3q_dev": device_ms(lambda: int8_quantize(x, sx), iters=10, warmup=1),
+             "k3g_dev": device_ms(lambda: int8_conv_gemm(*gemm), iters=10, warmup=1),
              "k3": cuda_ms(lambda: int8_conv(*args), iters=10, warmup=2),
              "plain": cuda_ms(lambda: int8_conv_reference(*args), iters=10, warmup=2)}
         ops = 2 * out[..., 0].numel() * cout * k * k * cin
@@ -372,10 +550,10 @@ def phase_int8_kernel(dev, geos):
         q_bound = bound(nbytes(x, q, sx), 6 * x.numel(), F32_FLOPS_PER_S)
         g_bound = bound(nbytes(q, wq, sx, sw, bias, out), ops, INT8_OPS_PER_S)
         if geo == P3_TOWER:
-            p3 = {"k3q": {"ms": t["k3q"], **q_bound,
-                          "plain_ms": cuda_ms(lambda: quantize_activation(x, sx), 10, 2)},
-                  "k3g": {"ms": t["k3g"], **g_bound,
-                          "plain_ms": cuda_ms(lambda: dequantize(int8_conv_int32_reference(
+            p3 = {"k3q": {"ms": t["k3q_dev"], "loop_ms": t["k3q"], **q_bound,
+                          "plain_ms": device_ms(lambda: quantize_activation(x, sx), 10, 2)},
+                  "k3g": {"ms": t["k3g_dev"], "loop_ms": t["k3g"], **g_bound,
+                          "plain_ms": device_ms(lambda: dequantize(int8_conv_int32_reference(
                               q, wq, stride, padding, dilation), sx, sw, bias).to(x.dtype),
                               10, 2)}}
             p3["k3g"].update(k3g_yardsticks(x, q, wq))
@@ -387,9 +565,10 @@ def phase_int8_kernel(dev, geos):
         del args, x, q, out, gemm
         log("kernels", f"K3 int8_conv {label}: B=8 f32/bf16 x per-layer/per-sample sx, "
             f"B=8 f32 near ties and B=128 bf16 bit-equal; B=128 bf16 post-ReLU input, "
-            f"per-layer sx: K3q {t['k3q']:.4f} ms (bound {q_bound['bound_ms']:.4f}), K3g "
-            f"{t['k3g']:.4f} ms ({ops / t['k3g'] / 1e9:.1f} TOP/s, bound "
-            f"{g_bound['bound_ms']:.4f} by {g_bound['bound_by']}), K3 {t['k3']:.4f} ms, "
+            f"per-layer sx, on the device (wrapper loop): K3q {t['k3q_dev']:.4f} "
+            f"({t['k3q']:.4f}) ms (bound {q_bound['bound_ms']:.4f}), K3g {t['k3g_dev']:.4f} "
+            f"({t['k3g']:.4f}) ms ({ops / t['k3g_dev'] / 1e9:.1f} TOP/s, bound "
+            f"{g_bound['bound_ms']:.4f} by {g_bound['bound_by']}); loops: K3 {t['k3']:.4f} ms, "
             f"plain {t['plain']:.4f} ms")
     total = dict.fromkeys(keys, 0.0)
     for name, row in [*sorted(classes.items()), ("all", total)]:
@@ -397,13 +576,15 @@ def phase_int8_kernel(dev, geos):
             for key in keys:
                 total[key] += row[key]
         log("kernels", f"K3 class {name}: {row['launches']:.0f} launches, {row['tops']:.3f} TOP, "
-            f"K3q moves {row['gbytes_q']:.3f} GB; per B=128 call K3q {row['k3q']:.3f} ms "
-            f"(bound {row['k3q_bound']:.3f}), K3g {row['k3g']:.3f} ms "
-            f"({row['tops'] / row['k3g'] * 1e3:.0f} TOP/s, bound {row['k3g_bound']:.3f}), "
-            f"K3q+K3g {row['k3q'] + row['k3g']:.3f} ms, K3 in one call {row['k3']:.3f} ms, "
-            f"plain {row['plain']:.3f} ms")
+            f"K3q moves {row['gbytes_q']:.3f} GB; per B=128 call, on the device (wrapper "
+            f"loops): K3q {row['k3q_dev']:.3f} ({row['k3q']:.3f}) ms (bound "
+            f"{row['k3q_bound']:.3f}), K3g {row['k3g_dev']:.3f} ({row['k3g']:.3f}) ms "
+            f"({row['tops'] / row['k3g_dev'] * 1e3:.0f} TOP/s, bound {row['k3g_bound']:.3f}), "
+            f"K3q+K3g {row['k3q_dev'] + row['k3g_dev']:.3f} ({row['k3q'] + row['k3g']:.3f}) ms; "
+            f"loops: K3 in one call {row['k3']:.3f} ms, plain {row['plain']:.3f} ms")
     log("kernels", f"K3: {len(geos)} geometries, {checked} bit-equal comparisons "
-        f"(sums of the per-geometry times above); K3q and K3g each alone bit-equal to "
+        f"(sums of the per-geometry times above; device = the kernels' own durations, "
+        f"loop = 10 wrapper calls between two events); K3q and K3g each alone bit-equal to "
         f"its plain version at B=128 on {alone} geometries")
     for part in p3.values():
         part["max_abs_err"] = err
@@ -424,12 +605,12 @@ def k3g_yardsticks(x, q, wq) -> dict:
     o, kh, kw, _ = wq.shape
     a = torch.randint(-127, 128, (b * h * w, kh * kw * c), device=q.device, dtype=torch.int8)
     bt = wq.reshape(o, -1).t()
-    int_mm = cuda_ms(lambda: torch._int_mm(a, bt), iters=10, warmup=2)
+    int_mm = device_ms(lambda: torch._int_mm(a, bt), iters=10, warmup=2)
     del a
     xc = x.permute(0, 3, 1, 2)   # NCHW view of NHWC bytes: channels_last
     wf = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    conv = cuda_ms(lambda: F.conv2d(xc, wf, padding=1), iters=10, warmup=2)
-    log("kernels", f"K3g yardsticks at {h}x{w}x{c}->{o} 3x3 B={b}: torch._int_mm "
+    conv = device_ms(lambda: F.conv2d(xc, wf, padding=1), iters=10, warmup=2)
+    log("kernels", f"K3g yardsticks at {h}x{w}x{c}->{o} 3x3 B={b}, on the device: torch._int_mm "
         f"[{b * h * w}, {kh * kw * c}] x [{kh * kw * c}, {o}] int8 {int_mm:.4f} ms (GEMM only); "
         f"F.conv2d bf16 channels_last {conv:.4f} ms (the fast profile's layer)")
     return {"yardstick_int_mm_ms": int_mm, "yardstick_conv2d_bf16_ms": conv}
@@ -527,10 +708,11 @@ def phase_slice(dev, cfg):
     for out, bsz in zip(outs, SLICE_REQUESTS):
         check_outputs(out, bsz, crop, joints)
     calls = len(SLICE_REQUESTS)
-    if launches != {"gn_group_stats": GN_LAYERS_PER_CALL * calls, "a2j_decode": calls,
+    if launches != {"gn_group_stats": GN_LAYERS_PER_CALL * calls,
+                    "gn_apply": GN_LAYERS_PER_CALL * calls, "a2j_decode": calls,
                     "int8_quantize": 0, "int8_conv_gemm": 0}:
-        raise AssertionError(f"launch counts {launches} for {calls} calls: expected "
-                             f"K2 {GN_LAYERS_PER_CALL} and K1 1 per call, no K3")
+        raise AssertionError(f"launch counts {launches} for {calls} calls: expected K2s and "
+                             f"K2a {GN_LAYERS_PER_CALL} each and K1 1 per call, no K3")
     log("slice", f"fast bf16 calls of batch {list(SLICE_REQUESTS)} in {seconds:.3f} s (first "
         f"calls, cuDNN set-up included): all frames found, outputs finite; launches {launches}")
     del pipe, outs, requests
@@ -563,10 +745,10 @@ def phase_slice(dev, cfg):
 def counted_wrappers() -> dict:
     """Every kernel's wrapper, by the kernel's name in the JSON line."""
     from handnet_tpu_torch.ops.cuda_a2j import a2j_decode
-    from handnet_tpu_torch.ops.cuda_gn import gn_group_stats
+    from handnet_tpu_torch.ops.cuda_gn import gn_apply, gn_group_stats
     from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv_gemm, int8_quantize
 
-    return {"a2j_decode": a2j_decode, "gn_group_stats": gn_group_stats,
+    return {"a2j_decode": a2j_decode, "gn_group_stats": gn_group_stats, "gn_apply": gn_apply,
             "int8_quantize": int8_quantize, "int8_conv_gemm": int8_conv_gemm}
 
 
@@ -581,7 +763,7 @@ def reset_launch_counts() -> None:
 
 def set_int8_kernel(pipe, on: bool) -> None:
     """Route every QuantConv of ``pipe`` through K3 (True) or its plain
-    version (False); K1 and K2 are left as they are."""
+    version (False); K1, K2s and K2a are left as they are."""
     from handnet_tpu_torch.nn.quant import QuantConv
 
     for m in pipe.modules():
@@ -602,7 +784,7 @@ def calibrated_pipeline(dev, cfg, dtype):
 
 
 def phase_quant_slice(dev, cfg, cfg_dynamic):
-    """The quant_static slice through K1, K2, K3q and K3g; returns the launch
+    """The quant_static slice through K1, K2s, K2a, K3q and K3g; returns the launch
     counts of its requests (the main path's run)."""
     import torch
 
@@ -628,6 +810,7 @@ def phase_quant_slice(dev, cfg, cfg_dynamic):
         check_outputs(out, bsz, crop, joints)
     calls = len(SLICE_REQUESTS)
     expected = {"a2j_decode": calls, "gn_group_stats": GN_LAYERS_PER_CALL * calls,
+                "gn_apply": GN_LAYERS_PER_CALL * calls,
                 "int8_quantize": INT8_LAUNCHES_PER_CALL * calls,
                 "int8_conv_gemm": INT8_LAUNCHES_PER_CALL * calls}
     if launches != expected:
@@ -786,9 +969,7 @@ def profile_by_kernel(name: str, pipe, images, depth, calls: int = 3) -> None:
             pipe(images, depth)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    rows = [(e.key, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-             / 1e3, e.count) for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    rows = device_rows(prof)
     busy = sum(ms for _, ms, _ in rows)
     if busy <= 0:
         log("throughput", f"profile of {name}: the profiler recorded no device time")
@@ -804,6 +985,7 @@ def profile_by_kernel(name: str, pipe, images, depth, calls: int = 3) -> None:
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -832,7 +1014,7 @@ def main() -> int:
 
     cfg, cfg_quant, cfg_dynamic = profile(FAST), profile(QUANT_STATIC), profile(QUANT)
 
-    results = phase_kernels(dev)
+    results = {"a2j_decode": phase_a2j_kernel(dev), **phase_gn_kernels(dev)}
     geos = int8_geometries(dev, cfg_dynamic)
     if (sum(map(len, geos.values())) != INT8_LAUNCHES_PER_CALL
             or len({n for names in geos.values() for n in names}) != INT8_LAYERS):
@@ -851,6 +1033,8 @@ def main() -> int:
                               "handnet_tpu/ops/pallas_a2j.py:55"),
                "gn_group_stats": ("handnet_tpu_torch/csrc/gn_stats.cu",
                                   "handnet_tpu/ops/pallas_gn.py:138"),
+               "gn_apply": ("handnet_tpu_torch/csrc/gn_apply.cu",
+                            "handnet_tpu/ops/pallas_gn.py:167"),
                "int8_quantize": ("handnet_tpu_torch/csrc/int8_quantize.cu",
                                  "handnet_tpu/nn/quant.py:135"),
                "int8_conv_gemm": ("handnet_tpu_torch/csrc/int8_conv.cu",
@@ -858,6 +1042,8 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name], **results[name]}
                for name, (src, replaces) in sources.items()]
+    log("card", f"every phase passed in {time.perf_counter() - started:.1f} s, the kernels' "
+        "build included")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

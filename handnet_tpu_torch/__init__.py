@@ -8,8 +8,9 @@ The serving forward ``models.pipeline.HandNetPipeline`` runs the fused
 frame -> joints path, in float or int8 (``nn.quant``). The two kernels the JAX
 package wrote in Pallas for the TPU are hand-written CUDA C++ for Hopper
 (``csrc/*.cu``), built with ``nvcc`` at first use by ``kernels.build`` and
-wrapped in ``ops.cuda_gn`` (GroupNorm statistics) and ``ops.cuda_a2j`` (A2J
-anchor decode); a third, ``ops.cuda_int8_conv``, computes the int8
+wrapped in ``ops.cuda_gn`` (GroupNorm: the statistics kernel, and the
+normalize, affine and ReLU pass that XLA fuses for the JAX package) and
+``ops.cuda_a2j`` (A2J anchor decode); ``ops.cuda_int8_conv`` computes the int8
 convolutions that XLA computes for the JAX package. A wrapper given a CPU
 tensor runs its plain PyTorch version; given a CUDA tensor it launches the
 kernel or raises.

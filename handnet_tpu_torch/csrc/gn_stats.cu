@@ -1,7 +1,9 @@
-// GroupNorm statistics of an NHWC activation in one read — kernel K2.
+// GroupNorm statistics of an NHWC activation in one read — kernel K2s.
 //
 // Replaces the TPU kernel `_stats_kernel`, launched by `gn_group_stats`
-// (handnet_tpu/ops/pallas_gn.py:58-149, pallas_call at :138).
+// (handnet_tpu/ops/pallas_gn.py:58-149, pallas_call at :138). Its result
+// feeds K2a (gn_apply.cu); the two together are `pallas_group_norm`
+// (pallas_gn.py:152-169), whose normalize and affine the TPU left to XLA.
 //
 // Computes, for x [B, HW, C] (NHWC flattened) and G groups of K = C/G
 // channels, out [B, 2, G] float32: the group mean and the biased group
@@ -12,158 +14,279 @@
 // fast profile's P3 level (B=128, 60x80, C=256, bf16) one call reads 315 MB.
 //
 // Design:
+// * Whole pixel rows are read. A pixel's C channels are `cp` chunks of 16
+//   bytes; thread t of a block owns chunk column t % cp and pixel row
+//   t / cp, so the block's threads read consecutive 16-byte chunks of
+//   consecutive pixels (bf16, C=256: a warp's 32 lanes take the 32 chunks of
+//   one pixel, lane = group) and every 32-byte sector is used whole.
 // * The TPU kernel walks HW tiles in grid order and carries a running mean
 //   and M2 in VMEM scratch from one grid step to the next. Hopper blocks run
-//   in no order and carry nothing, so here one block owns one (b, g) pair
-//   and loops over HW itself; B*G = 4096 blocks at B=128 fill 132 SMs (at
-//   B=1 only 32 blocks run: a split-HW variant is later work).
-// * A group's K channels are contiguous in NHWC: for C=256, G=32 in bf16 they
-//   are 16 bytes, read with one 16-byte vector load per pixel.
+//   in no order and carry nothing, so HW is cut into gridDim.x splits per
+//   image (grid = splits x B, chosen by the wrapper so that the blocks fill
+//   the SMs at B=1 as at B=128). Each block leaves one partial
+//   (count, mean, M2) per group in a workspace; the block of an image that
+//   finishes last folds the partials in split order (split_done.cuh), so two
+//   runs give the same bits.
+// * A thread keeps kUnroll 16-byte loads in flight before it folds them.
 // * Numerics: never sum and sum-of-squares (the E[x^2]-E[x]^2 cancellation
-//   the JAX kernel exists to avoid). Each pixel's K values take an exact
-//   two-pass mean and M2; each thread folds pixels into its running
-//   (count, mean, M2) with Chan's parallel-variance combine
+//   the JAX kernel exists to avoid). The kUnroll x W values of one group
+//   that a thread holds take an exact two-pass mean and M2; the thread folds
+//   them into its running (count, mean, M2) with Chan's combine
 //       delta = mean_b - mean_a;  n = n_a + n_b
 //       mean  = mean_a + delta * n_b / n
 //       M2    = M2_a + M2_b + delta^2 * n_a * n_b / n
-//   and threads combine the same way: warp shuffles, then one partial per
-//   warp through shared memory. The TPU kernel's channel->group fold (iota
-//   matmuls) disappears: a block already covers exactly one group.
+//   and pixel rows, chunk columns of one group, and splits combine the same
+//   way, each in a fixed tree or order. The TPU kernel's channel->group fold
+//   (iota matmuls) becomes: a chunk holds S whole groups (K <= chunk), or J
+//   neighbouring chunk columns make one group (K > chunk).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chunk16.cuh"
+#include "split_done.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
+constexpr int kUnroll = 8;  // 16-byte loads a thread has in flight
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+struct Stat {
+  float n, mean, m2;
+};
 
-// Fold partial b = (nb, mb, m2b) into a = (n, mean, m2).
-__device__ __forceinline__ void chan_combine(float& n, float& mean, float& m2,
-                                             float nb, float mb, float m2b) {
-  if (nb == 0.f) return;
-  if (n == 0.f) {
-    n = nb; mean = mb; m2 = m2b;
+// Fold partial b into a.
+__device__ __forceinline__ void chan_combine(Stat& a, const Stat b) {
+  if (b.n == 0.f) return;
+  if (a.n == 0.f) {
+    a = b;
     return;
   }
-  const float total = n + nb;
-  const float delta = mb - mean;
-  const float frac = nb / total;
-  mean += delta * frac;
-  m2 += m2b + delta * delta * n * frac;
-  n = total;
+  const float total = a.n + b.n;
+  const float delta = b.mean - a.mean;
+  const float frac = b.n / total;
+  a.mean += delta * frac;
+  a.m2 += b.m2 + delta * delta * a.n * frac;
+  a.n = total;
 }
 
-// Load one pixel's K channels of a group into floats: 16-byte vector loads
-// when the group spans whole 16-byte words (the wrapper checks alignment).
-template <typename T, int K>
-__device__ __forceinline__ void load_group(const T* __restrict__ p, float (&v)[K]) {
-  if constexpr ((K * sizeof(T)) % 16 == 0) {
-    constexpr int kPerVec = 16 / sizeof(T);
+// Exact two-pass (count, mean, M2) of the N x W values v[u][first .. first+W).
+template <int N, int E, int W>
+__device__ __forceinline__ Stat two_pass(const float (&v)[N][E], int first) {
+  float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < K / kPerVec; ++j) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + j);
-      const T* e = reinterpret_cast<const T*>(&raw);
+  for (int u = 0; u < N; ++u) {
 #pragma unroll
-      for (int q = 0; q < kPerVec; ++q) v[j * kPerVec + q] = to_float(e[q]);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = to_float(p[k]);
+    for (int e = 0; e < W; ++e) sum += v[u][first + e];
   }
+  const float mean = sum * (1.f / (N * W));  // N * W is a power of two: exact
+  float m2 = 0.f;
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const float d = v[u][first + e] - mean;
+      m2 += d * d;
+    }
+  }
+  return Stat{(float)(N * W), mean, m2};
 }
 
-// grid (G, B), block kThreads: block (g, b) reduces group g of image b.
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ out,
-                int64_t hw, int64_t channels) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int groups = gridDim.x;
-  const T* base = x + (int64_t)b * hw * channels + (int64_t)g * K;
+// Shared memory holds three planes (n, mean, M2) of `plane` floats each.
+__device__ __forceinline__ void put(float* smem, int plane, int i, const Stat s) {
+  smem[i] = s.n;
+  smem[plane + i] = s.mean;
+  smem[2 * plane + i] = s.m2;
+}
 
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  for (int64_t i = threadIdx.x; i < hw; i += kThreads) {
-    float v[K];
-    load_group<T, K>(base + i * channels, v);
-    float s = 0.f;
+__device__ __forceinline__ Stat get(const float* smem, int plane, int i) {
+  return Stat{smem[i], smem[plane + i], smem[2 * plane + i]};
+}
+
+// Fold the partials of `rows` rows, `width` threads apart, into row 0 by a
+// fixed tree: row r takes row r + ceil(active / 2) while the active rows
+// halve. Every thread of the block calls it; a thread that holds no partial
+// passes member = false. Afterwards row 0's sums are in `st` and in shared
+// memory at its own index.
+template <int S>
+__device__ __forceinline__ void fold_rows(Stat (&st)[S], float* smem, int plane, int tid,
+                                          int row, int rows, int width, bool member) {
+  if (member) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) s += v[k];
-    const float pm = s / K;
-    float pm2 = 0.f;
+    for (int j = 0; j < S; ++j) put(smem, plane, tid * S + j, st[j]);
+  }
+  for (int active = rows; active > 1;) {
+    const int half = (active + 1) >> 1;
+    __syncthreads();
+    if (member && row + half < active) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float d = v[k] - pm;
-      pm2 += d * d;
+      for (int j = 0; j < S; ++j) {
+        chan_combine(st[j], get(smem, plane, (tid + half * width) * S + j));
+        put(smem, plane, tid * S + j, st[j]);
+      }
     }
-    chan_combine(n, mean, m2, (float)K, pm, pm2);
-  }
-
-  // warp-level combine
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float nb = __shfl_down_sync(0xffffffffu, n, off);
-    const float mb = __shfl_down_sync(0xffffffffu, mean, off);
-    const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
-    chan_combine(n, mean, m2, nb, mb, m2b);
-  }
-
-  // one partial per warp through shared memory, combined by warp 0
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float sh_n[kWarps], sh_mean[kWarps], sh_m2[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    sh_n[warp] = n; sh_mean[warp] = mean; sh_m2[warp] = m2;
+    active = half;
   }
   __syncthreads();
-  if (warp == 0) {
-    n = lane < kWarps ? sh_n[lane] : 0.f;
-    mean = lane < kWarps ? sh_mean[lane] : 0.f;
-    m2 = lane < kWarps ? sh_m2[lane] : 0.f;
+}
+
+// grid (splits, B), block rows * cp threads, 3 * blockDim.x * S floats of
+// dynamic shared memory. Block (s, b) reduces pixels [s * per_split,
+// (s + 1) * per_split) of image b.
+template <typename T, int K>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
+                unsigned* __restrict__ counters, float* __restrict__ out, int hw,
+                int channels, int cp, int rows, int per_split) {
+  constexpr int E = 16 / sizeof(T);  // values in a 16-byte chunk
+  constexpr int W = K < E ? K : E;   // of them, in one group
+  constexpr int S = E / W;           // groups that a chunk holds (K <= E)
+  constexpr int J = K / W;           // chunk columns that a group spans (K > E)
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int col = tid % cp;
+  const int row = tid / cp;
+  const int split = blockIdx.x;
+  const int splits = gridDim.x;
+  const int b = blockIdx.y;
+  const int groups = channels / K;
+  const int plane = blockDim.x * S;
+  const int p0 = split * per_split;
+  const int p1 = min(hw, p0 + per_split);
+  // chunk `col` of pixel p of this image is base[p * cp]
+  const uint4* base = reinterpret_cast<const uint4*>(x + (int64_t)b * hw * channels) + col;
+
+  Stat st[S];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float nb = __shfl_down_sync(0xffffffffu, n, off);
-      const float mb = __shfl_down_sync(0xffffffffu, mean, off);
-      const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
-      chan_combine(n, mean, m2, nb, mb, m2b);
+  for (int j = 0; j < S; ++j) st[j] = Stat{0.f, 0.f, 0.f};
+
+  int p = p0 + row;
+  for (; p + (kUnroll - 1) * rows < p1; p += kUnroll * rows) {
+    uint4 raw[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) raw[u] = __ldg(base + (int64_t)(p + u * rows) * cp);
+    float v[kUnroll][E];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) decode(raw[u], v[u]);
+#pragma unroll
+    for (int j = 0; j < S; ++j) chan_combine(st[j], two_pass<kUnroll, E, W>(v, j * W));
+  }
+  for (; p < p1; p += rows) {  // the ragged end of the split, a pixel at a time
+    float v[1][E];
+    decode(__ldg(base + (int64_t)p * cp), v[0]);
+#pragma unroll
+    for (int j = 0; j < S; ++j) chan_combine(st[j], two_pass<1, E, W>(v, j * W));
+  }
+
+  fold_rows<S>(st, smem, plane, tid, row, rows, cp, true);
+
+  // chunk columns to groups; row 0 holds the block's sums
+  if (row == 0 && col % J == 0) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      Stat a = st[j];
+#pragma unroll
+      for (int i = 1; i < J; ++i) chan_combine(a, get(smem, plane, (col + i) * S + j));
+      const int g = J > 1 ? col / J : col * S + j;
+      if (splits == 1) {
+        out[((int64_t)b * 2 + 0) * groups + g] = a.mean;
+        out[((int64_t)b * 2 + 1) * groups + g] = a.m2 / a.n;  // biased, like GN
+      } else {
+        float* dst = partials + ((int64_t)b * splits + split) * 3 * groups + g;
+        dst[0] = a.n;
+        dst[groups] = a.mean;
+        dst[2 * groups] = a.m2;
+      }
     }
-    if (lane == 0) {
-      out[((int64_t)b * 2 + 0) * groups + g] = mean;
-      out[((int64_t)b * 2 + 1) * groups + g] = m2 / n;  // biased, like GN
+  }
+  if (splits == 1) return;
+  if (!last_block_done(counters + b, (unsigned)splits)) return;
+
+  // the image's last block: `lanes` threads per group take the splits in
+  // turn, in split order, and meet by the same tree
+  const int lanes = min(splits, (int)blockDim.x / groups);
+  const bool member = tid < lanes * groups;
+  const int g = tid % groups;
+  const int lane = tid / groups;
+  Stat acc[1] = {Stat{0.f, 0.f, 0.f}};
+  if (member) {
+    const float* mine = partials + (int64_t)b * splits * 3 * groups + g;
+    constexpr int kAhead = 4;  // partials loaded before they are folded
+    for (int s = lane; s < splits; s += kAhead * lanes) {
+      Stat part[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) {
+        const float* src = mine + (int64_t)(s + i * lanes) * 3 * groups;
+        part[i] = s + i * lanes < splits
+                      ? Stat{__ldcg(src), __ldcg(src + groups), __ldcg(src + 2 * groups)}
+                      : Stat{0.f, 0.f, 0.f};
+      }
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i) chan_combine(acc[0], part[i]);
     }
+  }
+  fold_rows<1>(acc, smem, plane, tid, lane, lanes, groups, member);
+  if (member && lane == 0) {
+    out[((int64_t)b * 2 + 0) * groups + g] = acc[0].mean;
+    out[((int64_t)b * 2 + 1) * groups + g] = acc[0].m2 / acc[0].n;
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, void* out, int64_t batch, int64_t hw,
-                   int64_t channels, int64_t groups, cudaStream_t stream) {
-  const dim3 grid((unsigned)groups, (unsigned)batch);
-  const T* xp = static_cast<const T*>(x);
-  float* op = static_cast<float*>(out);
-  switch (channels / groups) {
-    case 2: gn_stats_kernel<T, 2><<<grid, kThreads, 0, stream>>>(xp, op, hw, channels); break;
-    case 4: gn_stats_kernel<T, 4><<<grid, kThreads, 0, stream>>>(xp, op, hw, channels); break;
-    case 8: gn_stats_kernel<T, 8><<<grid, kThreads, 0, stream>>>(xp, op, hw, channels); break;
-    case 16: gn_stats_kernel<T, 16><<<grid, kThreads, 0, stream>>>(xp, op, hw, channels); break;
+cudaError_t launch(const void* x, void* partials, void* counters, void* out, int64_t batch,
+                   int64_t hw, int64_t channels, int64_t groups, int64_t cp, int64_t rows,
+                   int64_t splits, int64_t per_split, cudaStream_t stream) {
+  constexpr int E = 16 / sizeof(T);
+  const int64_t k = channels / groups;
+  const int64_t threads = rows * cp;
+  if (batch < 1 || hw < 1 || groups < 1 || channels != groups * k || cp * E != channels ||
+      rows < 1 || threads > kMaxThreads || groups > threads || splits < 1 ||
+      splits * per_split < hw || (splits - 1) * per_split >= hw || batch > 65535 ||
+      (splits > 1 && (partials == nullptr || counters == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  const int s_per_chunk = k < E ? (int)(E / k) : 1;
+  const dim3 grid((unsigned)splits, (unsigned)batch);
+  const size_t shmem = 3 * (size_t)threads * s_per_chunk * sizeof(float);
+#define HN_GN_STATS(K)                                                                     \
+  gn_stats_kernel<T, K><<<grid, (unsigned)threads, shmem, stream>>>(                       \
+      static_cast<const T*>(x), static_cast<float*>(partials),                             \
+      static_cast<unsigned*>(counters), static_cast<float*>(out), (int)hw, (int)channels,  \
+      (int)cp, (int)rows, (int)per_split)
+  switch (k) {
+    case 2: HN_GN_STATS(2); break;
+    case 4: HN_GN_STATS(4); break;
+    case 8: HN_GN_STATS(8); break;
+    case 16: HN_GN_STATS(16); break;
     default: return cudaErrorInvalidValue;
   }
+#undef HN_GN_STATS
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
-extern "C" int hn_gn_group_stats(const void* x, void* out, int64_t batch,
-                                 int64_t hw, int64_t channels, int64_t groups,
+// x [batch, hw, channels] contiguous, 16-byte aligned (dtype 0 = float32,
+// 1 = bfloat16); out [batch, 2, groups] float32. The block shape (cp chunk
+// columns x rows pixel rows) and the cut of hw into `splits` runs of
+// `per_split` pixels come from the wrapper (ops/cuda_gn.py: stats_plan).
+// With splits > 1, partials is [batch, splits, 3, groups] float32 scratch and
+// counters holds batch zeros, which the launch leaves zero. Returns the
+// launch's cudaError_t.
+extern "C" int hn_gn_group_stats(const void* x, void* out, void* partials, void* counters,
+                                 int64_t batch, int64_t hw, int64_t channels, int64_t groups,
+                                 int64_t cp, int64_t rows, int64_t splits, int64_t per_split,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, out, batch, hw, channels, groups, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, out, batch, hw, channels, groups, s);
+  if (dtype == 0) {
+    return (int)launch<float>(x, partials, counters, out, batch, hw, channels, groups, cp, rows,
+                              splits, per_split, s);
+  }
+  if (dtype == 1) {
+    return (int)launch<__nv_bfloat16>(x, partials, counters, out, batch, hw, channels, groups,
+                                      cp, rows, splits, per_split, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

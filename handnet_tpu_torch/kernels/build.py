@@ -43,14 +43,15 @@ _INT = ctypes.c_int
 # C entry points of csrc/*.cu: name -> argtypes. Every entry returns the
 # cudaError_t of its launch (cudaGetLastError) as an int.
 ENTRY_POINTS = {
-    # x, out, batch, hw, channels, groups, dtype code, stream
-    "hn_gn_group_stats": (_P, _P, _I64, _I64, _I64, _I64, _INT, _P),
-    # cls, reg, depth, anchors, out, batch, n, p,
-    # cls strides (b, n, p), reg strides (b, n, p, c), depth strides (b, n, p),
-    # dtype code, stream
-    "hn_a2j_decode": (_P, _P, _P, _P, _P, _I64, _I64, _I64,
-                      _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                      _I64, _I64, _I64, _INT, _P),
+    # x, out, partials (or null), counters (or null), batch, hw, channels,
+    # groups, cp, rows, splits, per_split, dtype code, stream
+    "hn_gn_group_stats": (_P, _P, _P, _P, *(_I64,) * 8, _INT, _P),
+    # x, stats, scale, bias, out, batch, hw, channels, groups, cp, rows,
+    # splits, per_split, eps, relu, dtype code, scale/bias dtype code, stream
+    "hn_gn_apply": (_P, _P, _P, _P, _P, *(_I64,) * 8, ctypes.c_float, _INT, _INT, _INT, _P),
+    # cls, reg, depth, anchors, out, partials (or null), counters (or null),
+    # batch, n, p, vec, rows, splits, per_split, chunk, dtype code, stream
+    "hn_a2j_decode": (_P, _P, _P, _P, _P, _P, _P, *(_I64,) * 8, _INT, _P),
     # x, sx, sx stride, q, batch, elements per sample, dtype code, stream
     "hn_int8_quantize": (_P, _P, _I64, _P, _I64, _I64, _INT, _P),
     # q, wq, sx, sx stride, sw, bias (or null), out, batch, h, w, cin, cout,

@@ -36,40 +36,43 @@ from handnet_tpu_torch.ops.nms import batched_nms_fixed
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm of an NCHW (channels_last) tensor with its statistics from
-    kernel K2 (``ops/cuda_gn.py``); ``use_kernel=False`` takes K2's plain
-    version instead. Parameters are named like ``torch.nn.GroupNorm``'s."""
+    """GroupNorm of an NCHW (channels_last) tensor, with the ReLU that follows
+    it when ``relu`` is set: kernels K2s and K2a (``ops/cuda_gn.py``), two
+    launches; ``use_kernel=False`` takes their plain versions instead.
+    Parameters are named like ``torch.nn.GroupNorm``'s."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
-                 use_kernel: bool = True):
+                 relu: bool = False, use_kernel: bool = True):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.relu = relu
         self.use_kernel = use_kernel
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # NHWC view of the channels_last bytes: what the kernel reads
+        # NHWC view of the channels_last bytes: what the kernels read
         nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         y = group_norm(nhwc, self.weight, self.bias, self.num_groups, self.eps,
-                       use_kernel=self.use_kernel)
+                       relu=self.relu, use_kernel=self.use_kernel)
         return y.permute(0, 3, 1, 2)
 
 
 class ConvTower(nn.Sequential):
     """num_convs x (conv3x3 + GroupNorm(32) + ReLU), shared across FPN levels
-    (reference fcos.py:235-240,355-360). Children are numbered like the
-    reference's [Conv, GN, ReLU] triplets: ``0, 1, 2, 3, ...``."""
+    (reference fcos.py:235-240,355-360). The GroupNorm applies its ReLU
+    itself; children keep the numbers of the reference's [Conv, GN, ReLU]
+    triplets (``0, 1, 3, 4, ...``), so the state dict's keys are the
+    reference's."""
 
     def __init__(self, channels: int, num_convs: int = 4, use_kernel: bool = True,
                  quant: Any = False):
-        layers = []
-        for _ in range(num_convs):
-            layers += [conv_layer(quant, channels, channels, 3, padding=1),
-                       GroupNorm(32, channels, use_kernel=use_kernel),
-                       nn.ReLU(inplace=True)]
-        super().__init__(*layers)
+        super().__init__()
+        for i in range(num_convs):
+            self.add_module(str(3 * i), conv_layer(quant, channels, channels, 3, padding=1))
+            self.add_module(str(3 * i + 1),
+                            GroupNorm(32, channels, relu=True, use_kernel=use_kernel))
 
 
 def _flat(t: torch.Tensor, k: int) -> torch.Tensor:

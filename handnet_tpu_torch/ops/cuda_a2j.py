@@ -4,16 +4,92 @@ Counterpart of ``handnet_tpu/ops/pallas_a2j.py:26-75`` and of the einsum path
 of ``handnet_tpu/models/a2j.py:144-153``. Per image and joint: a softmax over
 the N anchors, then the softmax-weighted means of ``anchor + offset`` and of
 depth.
+
+The kernel (``csrc/a2j_decode.cu``) cuts an image's anchors into splits, one
+block each, and stages each block's anchors through shared memory in chunks,
+copied as flat runs of 16 bytes (:func:`decode_plan`).
+:func:`staged_elements` transcribes which element each copy and each thread
+touches, so that a CPU test can check that every ``(anchor, joint)`` is
+copied once and read once, by a thread of its joint.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
+import numpy as np
 import torch
 
-from handnet_tpu_torch.kernels import build
+from handnet_tpu_torch.kernels import build, scratch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_JOINTS = 1024  # one block holds one thread per joint at least
+_MAX_THREADS = 512           # kMaxThreads of a2j_decode.cu
+_MAX_JOINTS = _MAX_THREADS   # a block holds at least one thread per joint
+_STAGE_BYTES = 42 * 1024     # kStageBytes: a chunk's cls, depth and reg in shared memory
+# Blocks the plan aims at, per SM, over the whole batch, and never more: four
+# blocks of 504 threads fit an SM, so at B=128 the grid is two full waves.
+BLOCKS_PER_SM = 8
+_MIN_ANCHORS_PER_SPLIT = 64
+
+
+class DecodePlan(NamedTuple):
+    """How K1 cuts ``[B, N, P]`` into blocks."""
+    vec: int        # elements per staged copy: 16 / itemsize, or 1 (unaligned runs)
+    rows: int       # anchor rows of a block: rows * P threads
+    splits: int     # blocks per image (gridDim.x)
+    per_split: int  # anchors per block; the last split may be shorter
+    chunk: int      # anchors staged in shared memory at a time
+
+
+def decode_plan(batch: int, n: int, p: int, itemsize: int, sm_count: int,
+                aligned: bool = True) -> DecodePlan:
+    """Blocks of at most 512 threads, one thread per (anchor row, joint);
+    as many splits of N as keep ``batch * splits`` within ``BLOCKS_PER_SM``
+    blocks per SM and a split at 64 anchors or more; chunks of at most 42 KB.
+    Where an image's ``N * P`` values are whole 16-byte words (and the
+    tensors are ``aligned``), splits and chunks are multiples of ``vec``
+    anchors, so every staged run starts and ends on 16 bytes."""
+    if not 1 <= p <= _MAX_JOINTS or n < 1 or batch < 1:
+        raise ValueError(f"a2j_decode: unsupported sizes B={batch}, N={n}, P={p}")
+    full = 16 // itemsize
+    vec = full if aligned and (n * p) % full == 0 else 1
+    rows = max(1, min(_MAX_THREADS // p, n))
+    chunk = _STAGE_BYTES // (4 * p * itemsize) // vec * vec
+    if chunk < 1:
+        raise ValueError(f"a2j_decode: P={p} joints of {itemsize} bytes do not fit a "
+                         f"{_STAGE_BYTES}-byte stage")
+    want = BLOCKS_PER_SM * sm_count // batch
+    splits = max(1, min(want, n // _MIN_ANCHORS_PER_SPLIT))
+    per_split = -(-(-(-n // splits)) // vec) * vec
+    return DecodePlan(vec, rows, -(-n // per_split), per_split, min(chunk, per_split))
+
+
+def staged_elements(plan: DecodePlan, n: int, p: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The kernel's index arithmetic for one image: for every staged copy, in
+    launch order, the flat elements ``anchor * P + joint`` of ``cls`` it
+    brings in (``copied``), and for every read a thread makes of the staged
+    chunk, the flat element it reads (``read``) and the joint that thread
+    owns (``read_joint``)."""
+    copied, read, read_joint = [], [], []
+    threads = plan.rows * p
+    for split in range(plan.splits):
+        a_end = min(n, (split + 1) * plan.per_split)
+        for a0 in range(split * plan.per_split, a_end, plan.chunk):
+            count = min(plan.chunk, a_end - a0)
+            first = a0 * p
+            if (count * p) % plan.vec or first % plan.vec:
+                raise AssertionError(f"chunk at anchor {a0} of {plan}: a {plan.vec}-element "
+                                     "copy would not start and end on whole words")
+            for i in range(count * p // plan.vec):          # copy i of the chunk
+                copied.append(first + i * plan.vec + np.arange(plan.vec))
+            tid = np.arange(threads)
+            for a in range(0, count, plan.rows):            # the threads' trips
+                anchor = a + tid // p
+                live = anchor < count
+                read.append(first + anchor[live] * p + tid[live] % p)
+                read_joint.append(tid[live] % p)
+    return np.concatenate(copied), np.concatenate(read), np.concatenate(read_joint)
 
 
 def a2j_decode_reference(cls: torch.Tensor, reg: torch.Tensor,
@@ -33,9 +109,11 @@ def a2j_decode(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
     """Fused A2J decode -> UVD ``[B, P, 3]`` float32.
 
     A CPU tensor takes :func:`a2j_decode_reference`. CUDA tensors launch the
-    kernel, which reads ``cls``, ``reg`` and ``depth`` in place through their
-    strides (one dtype for all three: float32 or bfloat16) with float32
-    ``anchors [N, 2]``; anything else raises.
+    kernel, which reads contiguous ``cls``, ``reg`` and ``depth`` in place
+    (one dtype for all three: float32 or bfloat16; ``reg``'s u and v stay
+    interleaved) with float32 ``anchors [N, 2]``; anything else raises:
+    a strided view is never copied silently. Two launches on the same
+    inputs give the same bits.
     """
     if cls.device.type == "cpu":
         return a2j_decode_reference(cls, reg, depth, anchors)
@@ -55,17 +133,28 @@ def a2j_decode(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
     if cls.dtype not in _DTYPE_CODES or reg.dtype != cls.dtype or depth.dtype != cls.dtype:
         raise TypeError(f"a2j_decode: dtypes {cls.dtype}/{reg.dtype}/{depth.dtype}: "
                         "one of float32 or bfloat16 for all three")
-    if anchors.dtype != torch.float32 or not anchors.is_contiguous():
-        raise ValueError("a2j_decode: anchors must be contiguous float32")
-    if b == 0 or n == 0 or not 1 <= p <= _MAX_JOINTS:
-        raise ValueError(f"a2j_decode: unsupported sizes B={b}, N={n}, P={p}")
+    if (anchors.dtype != torch.float32 or not anchors.is_contiguous()
+            or anchors.data_ptr() % 8):
+        raise ValueError("a2j_decode: anchors must be contiguous float32, 8-byte aligned")
+    for name, t in (("cls", cls), ("reg", reg), ("depth", depth)):
+        if not t.is_contiguous():
+            raise ValueError(f"a2j_decode: {name} must be contiguous (strides "
+                             f"{t.stride()}); call .contiguous() on a strided view")
+    aligned = not any(t.data_ptr() % 16 for t in (cls, reg, depth))
+    plan = decode_plan(b, n, p, cls.element_size(), scratch.sm_count(cls.device.index),
+                       aligned)
     out = torch.empty((b, p, 3), dtype=torch.float32, device=cls.device)
     lib = build.load_library()
     with torch.cuda.device(cls.device):
         stream = torch.cuda.current_stream(cls.device).cuda_stream
+        partials = counters = None
+        if plan.splits > 1:  # the blocks of an image meet in a workspace
+            partials = torch.empty((b, plan.splits, 5, p), dtype=torch.float32,
+                                   device=cls.device)
+            counters = scratch.split_counters(cls.device, stream, b)
         code = lib.hn_a2j_decode(
             cls.data_ptr(), reg.data_ptr(), depth.data_ptr(), anchors.data_ptr(),
-            out.data_ptr(), b, n, p, *cls.stride(), *reg.stride(), *depth.stride(),
+            out.data_ptr(), scratch.ptr(partials), scratch.ptr(counters), b, n, p, *plan,
             _DTYPE_CODES[cls.dtype], stream)
     build.check_launch("hn_a2j_decode", code)
     a2j_decode.launches += 1

@@ -298,10 +298,11 @@ def test_port_tree_hygiene():
     offenders = [p.name for p in pkg.rglob("*.py") if jax_import.search(p.read_text())]
     assert offenders == []
     sources = sorted((pkg / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_stats.cu", "int8_conv.cu",
-                                         "int8_quantize.cu"]
+    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_apply.cu", "gn_stats.cu",
+                                         "int8_conv.cu", "int8_quantize.cu"]
     replaces = {"a2j_decode.cu": ("_decode_kernel", "a2j_decode_pallas",
                                   "handnet_tpu/ops/pallas_a2j.py"),
+                "gn_apply.cu": ("pallas_group_norm", "handnet_tpu/ops/pallas_gn.py:152-169"),
                 "gn_stats.cu": ("_stats_kernel", "gn_group_stats",
                                 "handnet_tpu/ops/pallas_gn.py"),
                 "int8_conv.cu": ("QuantConv", "conv_general_dilated", "wgmma",
@@ -314,7 +315,7 @@ def test_port_tree_hygiene():
             assert name in text, (src.name, name)
         assert "mma.sync" not in text, src.name   # the pre-Hopper K3 is gone
     headers = sorted(p.name for p in (pkg / "csrc").glob("*.cuh"))
-    assert headers == ["round_to_byte.cuh", "wgmma_s8.cuh"]
+    assert headers == ["chunk16.cuh", "round_to_byte.cuh", "split_done.cuh", "wgmma_s8.cuh"]
     included = "".join(src.read_text() for src in sources)
     for header in headers:
         assert f'#include "{header}"' in included, header
