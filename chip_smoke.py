@@ -43,13 +43,27 @@ the next starts:
    tower convs at 3 levels); in the pipeline K3 is also held bit for bit
    against its plain version; and one batch of 8 of the dynamic quant
    profile.
-5. throughput: frames/s at batch 128 in bf16: fast with kernels and plain
+5. geometries: K2s and K2a at the parity FPN levels (C=256, G=32) and at
+   the fused towers' C=512, G=64 (480x640 and 800x1088 levels), under the
+   rules of phase 3; the parity resize (two float32 matmuls) against its
+   byte bound and the CPU; the plain and the space-to-depth stem against
+   each other and timed; then the parity profile (800x1088) as the slice
+   (K1 1, K2s and K2a 24 per call), parity with calibrated int8 (K3q and K3g
+   129 per call, K3 bit-equal to its plain version in the pipeline), turbo
+   (2-conv towers, K2s and K2a 12), the fused-tower head (K2s and K2a 12 at
+   C=512, its head outputs against the unfused head's) and a detector with
+   the 100DOH extension heads (``pipe.detect``) against the CPU.
+6. throughput: frames/s at batch 128 in bf16: fast with kernels and plain
    versions, quant_static with K3 and with K3's plain version, in turns;
    then a per-stage split of fast and quant_static (CUDA events), the
-   latency of a batch of 8, and a profile of quant_static by kernel.
+   latency of a batch of 8, and a profile of quant_static by kernel; then
+   parity and turbo with kernels and plain versions, the fused and the
+   unfused towers, in turns, parity int8, and a stage split of parity.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
-are times on the device; ``loop_ms`` is the wrapper loop's.
+are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
+the quant_static run's, ``launches_per_call`` each path's, and K2s's and
+K2a's ``shapes`` hold their numbers at the shapes of phase 5.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
@@ -90,6 +104,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 P3_TOWER = (60, 80, 256, 256, 3, 1, 1, 1, True)   # the towers' 3x3 at FPN level P3
+PARITY_LEVELS = ((100, 136), (50, 68), (25, 34))  # FPN P3-P5 at 800x1088
+GN_TURBO_PER_CALL = 12            # 2 towers x 2 GroupNorms x 3 levels
+GN_FUSED_PER_CALL = 12            # 1 fused tower x 4 GroupNorms (C=512, G=64) x 3 levels
+# the parity resize: B, frame, resized, padded to the network input
+RESIZE_CASE = (128, (480, 640), (800, 1067), (800, 1088))
+STEM_SIZES = ((480, 640), (800, 1088))    # the stem's input at fast and at parity
 
 
 def log(phase: str, msg: str) -> None:
@@ -274,34 +294,38 @@ def phase_a2j_kernel(dev) -> dict:
     return result
 
 
-def phase_gn_kernels(dev) -> dict:
-    """K2s and K2a against their plain versions at the three FPN levels, B =
-    1, 8 and 128, float32 and bfloat16; returns the numbers of their JSON
-    entries (times at P3, B=128, bf16)."""
+def gn_kernel_checks(dev, shapes, tag: str) -> dict:
+    """K2s and K2a against their plain versions at each ``(h, w, C, G)`` of
+    ``shapes``, B = 1, 8 and 128, float32 and bfloat16: K2s to 1e-4 of
+    scale with two runs bit-equal, K2a bit for bit with parameters in x's
+    type and in float32, ReLU on and off. Times both at every B=128 case,
+    and beside them, in bfloat16, the plain versions, ``torch.var_mean``
+    and ``F.group_norm`` (+ ``F.relu``). Returns the largest K2s error, the
+    number of K2a comparisons and the B=128 bfloat16 times by shape."""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from handnet_tpu_torch.ops.cuda_gn import (
         gn_apply, gn_apply_reference, gn_group_stats, gn_group_stats_reference, group_norm)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     eps = 1e-5
-    scale = torch.rand(256, device=dev, generator=gen) + 0.5
-    bias = torch.randn(256, device=dev, generator=gen)
-    stats_errs, applied, p3 = [], 0, {}
+    stats_errs, applied, b128 = [], 0, {}
     for b in (1, 8, 128):
-        for h, w in GN_LEVELS:
+        for h, w, c, g in shapes:
+            scale = torch.rand(c, device=dev, generator=gen) + 0.5
+            bias = torch.randn(c, device=dev, generator=gen)
             # statistics of N(2, 3) data; tolerance 1e-4 of their scale (float32
-            # reductions of up to 38,400 values in another order)
-            x = torch.randn(b, h, w, 256, device=dev, generator=gen) * 3 + 2
+            # reductions of up to 13600 x 16 values in another order)
+            x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
             for dtype in (torch.float32, torch.bfloat16):
                 xd = x.to(dtype)
-                name = f"B={b} {h}x{w}x256 G=32 {dtype}"
-                want = gn_group_stats_reference(xd, 32)
+                name = f"B={b} {h}x{w}x{c} G={g} {dtype}"
+                want = gn_group_stats_reference(xd, g)
                 tol = 1e-4 * max(1.0, want.abs().max().item())
-                stats = same_bits_twice(f"K2s {name}", lambda: gn_group_stats(xd, 32))
+                stats = same_bits_twice(f"K2s {name}", lambda: gn_group_stats(xd, g))
                 stats_errs.append(check(f"K2s {name}", stats, want, tol))
+                del want
                 # K2a bit for bit: parameters in x's type (as the pipeline holds
                 # them) and in float32, with and without the ReLU
                 for params in {dtype, torch.float32}:
@@ -316,50 +340,87 @@ def phase_gn_kernels(dev) -> dict:
                                 f"plain version ({int((diff > 0).sum())} elements differ, max "
                                 f"{diff.max().item():.3e})")
                         applied += 1
-                sc, bi = scale.to(dtype), bias.to(dtype)
-                s_t = timed(lambda: gn_group_stats(xd, 32))
-                a_t = timed(lambda: gn_apply(xd, stats, sc, bi, eps, True))
-                # K2s: x once, [B, 2, G] float32 out; a subtraction and 2
-                # multiply-adds per element over two passes, counted as 6 float32
-                # operations. K2a: x in, y out; 4 operations per element.
-                s_bound = bound(nbytes(xd) + b * 2 * 32 * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
-                a_bound = bound(2 * nbytes(xd) + nbytes(stats, sc, bi), 4 * xd.numel(),
-                                F32_FLOPS_PER_S)
+                        del got, ref
                 line = (f"K2 {name}: K2s max|err| {stats_errs[-1]:.3e} (tol {tol:.1e}), two runs "
-                        f"bit-equal; K2a bit-equal to its plain version; on the device K2s "
-                        f"{s_t['ms']:.4f} ms (bound {s_bound['bound_ms']:.4f}), K2a+ReLU "
-                        f"{a_t['ms']:.4f} ms (bound {a_bound['bound_ms']:.4f}); wrapper loops "
-                        f"{s_t['loop_ms']:.4f}, {a_t['loop_ms']:.4f} ms")
+                        "bit-equal; K2a bit-equal to its plain version")
                 if b == 128:
-                    grouped = xd.view(b, h * w, 32, 8)
-                    xc = xd.permute(0, 3, 1, 2)   # NCHW view of NHWC bytes: channels_last
-                    rest = {
-                        "K2s plain": timed(lambda: gn_group_stats_reference(xd, 32)),
-                        "K2a plain": timed(lambda: gn_apply_reference(xd, stats, sc, bi, eps,
-                                                                      True)),
-                        "torch.var_mean": timed(lambda: torch.var_mean(grouped, dim=(1, 3),
-                                                                       correction=0)),
-                        "K2s+K2a": timed(lambda: group_norm(xd, sc, bi, 32, eps)),
-                        "F.group_norm": timed(lambda: F.group_norm(xc, 32, sc, bi, eps)),
-                        "K2s+K2a+ReLU": timed(lambda: group_norm(xd, sc, bi, 32, eps, relu=True)),
-                        "F.relu(F.group_norm)": timed(
-                            lambda: F.relu(F.group_norm(xc, 32, sc, bi, eps))),
-                    }
-                    line += "; " + ", ".join(f"{k} {v['ms']:.4f} (loop {v['loop_ms']:.4f})"
-                                             for k, v in rest.items())
-                    if (h, w, dtype) == (60, 80, torch.bfloat16):
-                        p3 = {"K2s": s_t, "K2a": a_t, "s_bound": s_bound, "a_bound": a_bound,
-                              **rest}
-                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                            group_norm(xd, sc, bi, 32, eps, relu=True)
-                            torch.cuda.synchronize()
-                        launched = sorted((key, count) for key, _, count in device_rows(prof))
-                        if ([c for _, c in launched] != [1, 1]
-                                or "gn_apply_kernel" not in launched[0][0]
-                                or "gn_stats_kernel" not in launched[1][0]):
-                            raise AssertionError(f"group_norm on the card launched {launched}: "
-                                                 "expected K2s and K2a once each, nothing else")
-                log("kernels", line)
+                    sc, bi = scale.to(dtype), bias.to(dtype)
+                    s_t = timed(lambda: gn_group_stats(xd, g))
+                    a_t = timed(lambda: gn_apply(xd, stats, sc, bi, eps, True))
+                    # K2s: x once, [B, 2, G] float32 out; a subtraction and 2
+                    # multiply-adds per element over two passes, counted as 6
+                    # float32 operations. K2a: x in, y out; 4 operations per element.
+                    s_bound = bound(nbytes(xd) + b * 2 * g * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
+                    a_bound = bound(2 * nbytes(xd) + nbytes(stats, sc, bi), 4 * xd.numel(),
+                                    F32_FLOPS_PER_S)
+                    line += (f"; on the device K2s {s_t['ms']:.4f} ms (bound "
+                             f"{s_bound['bound_ms']:.4f}), K2a+ReLU {a_t['ms']:.4f} ms (bound "
+                             f"{a_bound['bound_ms']:.4f}); wrapper loops {s_t['loop_ms']:.4f}, "
+                             f"{a_t['loop_ms']:.4f} ms")
+                    if dtype == torch.bfloat16:
+                        grouped = xd.view(b, h * w, g, c // g)
+                        xc = xd.permute(0, 3, 1, 2)   # NCHW view of NHWC bytes: channels_last
+                        rest = {
+                            "K2s plain": timed(lambda: gn_group_stats_reference(xd, g)),
+                            "K2a plain": timed(lambda: gn_apply_reference(xd, stats, sc, bi, eps,
+                                                                          True)),
+                            "torch.var_mean": timed(lambda: torch.var_mean(
+                                grouped, dim=(1, 3), correction=0)),
+                            "K2s+K2a": timed(lambda: group_norm(xd, sc, bi, g, eps)),
+                            "F.group_norm": timed(lambda: F.group_norm(xc, g, sc, bi, eps)),
+                            "K2s+K2a+ReLU": timed(lambda: group_norm(xd, sc, bi, g, eps,
+                                                                     relu=True)),
+                            "F.relu(F.group_norm)": timed(
+                                lambda: F.relu(F.group_norm(xc, g, sc, bi, eps))),
+                        }
+                        line += "; " + ", ".join(f"{k} {v['ms']:.4f} (loop {v['loop_ms']:.4f})"
+                                                 for k, v in rest.items())
+                        b128[(h, w, c, g)] = {"K2s": s_t, "K2a": a_t, "s_bound": s_bound,
+                                              "a_bound": a_bound, **rest}
+                log(tag, line)
+                del xd, stats
+            del x
+    return {"err": max(stats_errs), "applied": applied, "b128": b128}
+
+
+def gn_entry_numbers(t: dict) -> tuple:
+    """The JSON numbers of K2s and of K2a at one shape's B=128 bf16 times."""
+    pair = {"pair_ms": t["K2s+K2a"]["ms"], "pair_library_ms": t["F.group_norm"]["ms"],
+            "pair_relu_ms": t["K2s+K2a+ReLU"]["ms"],
+            "pair_relu_library_ms": t["F.relu(F.group_norm)"]["ms"]}
+    # the one PyTorch call that computes K2s's function: torch.var_mean; no one
+    # call applies given statistics (F.group_norm computes K2s + K2a: pair_*)
+    return ({**t["K2s"], "plain_ms": t["K2s plain"]["ms"],
+             "plain_loop_ms": t["K2s plain"]["loop_ms"], **t["s_bound"],
+             "library_ms": t["torch.var_mean"]["ms"], **pair},
+            {**t["K2a"], "plain_ms": t["K2a plain"]["ms"],
+             "plain_loop_ms": t["K2a plain"]["loop_ms"], **t["a_bound"], "library_ms": None,
+             **pair})
+
+
+def phase_gn_kernels(dev) -> dict:
+    """K2s and K2a against their plain versions at the three FPN levels of
+    the fast profile (C=256, G=32), B = 1, 8 and 128, float32 and bfloat16;
+    returns the numbers of their JSON entries (times at P3, B=128, bf16)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from handnet_tpu_torch.ops.cuda_gn import gn_group_stats, gn_group_stats_reference, group_norm
+
+    res = gn_kernel_checks(dev, [(h, w, 256, 32) for h, w in GN_LEVELS], "kernels")
+    stats_errs = [res["err"]]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    xd = torch.randn(128, 60, 80, 256, device=dev, generator=gen).to(torch.bfloat16)
+    sc, bi = torch.ones(256, device=dev), torch.zeros(256, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        group_norm(xd, sc, bi, 32, 1e-5, relu=True)
+        torch.cuda.synchronize()
+    launched = sorted((key, count) for key, _, count in device_rows(prof))
+    if ([c for _, c in launched] != [1, 1] or "gn_apply_kernel" not in launched[0][0]
+            or "gn_stats_kernel" not in launched[1][0]):
+        raise AssertionError(f"group_norm on the card launched {launched}: "
+                             "expected K2s and K2a once each, nothing else")
+    del xd
     log("kernels", f"group_norm(relu=True) at P3 B=128 bf16 under the profiler: two kernels, "
         f"{launched[1][0][:60]} and {launched[0][0][:60]}, no other pass over the activation")
     # mean >> std: E[x^2]-E[x]^2 would lose the variance entirely in float32
@@ -371,23 +432,11 @@ def phase_gn_kernels(dev) -> dict:
         raise AssertionError(f"K2s mean>>std: variance rel err {rel:.3e} > 1e-2")
     log("kernels", f"K2s mean>>std (1000 + 0.1 N(0,1)) float32: mean max|err| "
         f"{stats_errs[-1]:.3e} (tol 2e-3), variance max rel err {rel:.3e} (tol 1e-2)")
-    log("kernels", f"K2a: {applied} comparisons bit-equal to gn_apply_reference (B=1/8/128 x "
-        "P3/P4/P5 x f32/bf16 x parameter type x ReLU on/off)")
-    pair = {"pair_ms": p3["K2s+K2a"]["ms"], "pair_library_ms": p3["F.group_norm"]["ms"],
-            "pair_relu_ms": p3["K2s+K2a+ReLU"]["ms"],
-            "pair_relu_library_ms": p3["F.relu(F.group_norm)"]["ms"]}
-    return {
-        # the one PyTorch call that computes K2s's function: torch.var_mean
-        "gn_group_stats": {"max_abs_err": max(stats_errs), **p3["K2s"],
-                           "plain_ms": p3["K2s plain"]["ms"],
-                           "plain_loop_ms": p3["K2s plain"]["loop_ms"], **p3["s_bound"],
-                           "library_ms": p3["torch.var_mean"]["ms"], **pair},
-        # no one call applies given statistics; F.group_norm computes K2s + K2a
-        # (the pair_* keys, on the same channels_last bytes)
-        "gn_apply": {"max_abs_err": 0.0, **p3["K2a"], "plain_ms": p3["K2a plain"]["ms"],
-                     "plain_loop_ms": p3["K2a plain"]["loop_ms"], **p3["a_bound"],
-                     "library_ms": None, **pair},
-    }
+    log("kernels", f"K2a: {res['applied']} comparisons bit-equal to gn_apply_reference (B=1/8/128 "
+        "x P3/P4/P5 x f32/bf16 x parameter type x ReLU on/off)")
+    stats_entry, apply_entry = gn_entry_numbers(res["b128"][(60, 80, 256, 32)])
+    return {"gn_group_stats": {"max_abs_err": max(stats_errs), **stats_entry},
+            "gn_apply": {"max_abs_err": 0.0, **apply_entry}}
 
 
 def int8_geometries(dev, cfg):
@@ -689,57 +738,75 @@ def compare_outputs(name: str, got, want, joint_tol: float) -> float:
     return err
 
 
-def phase_slice(dev, cfg):
+def expected_launches(calls: int, gn: int, int8: int = 0) -> dict:
+    return {"gn_group_stats": gn * calls, "gn_apply": gn * calls, "a2j_decode": calls,
+            "int8_quantize": int8 * calls, "int8_conv_gemm": int8 * calls}
+
+
+def per_call(launches: dict, calls: int) -> dict:
+    return {name: count // calls for name, count in launches.items()}
+
+
+def slice_path(dev, cfg, name: str, gn_per_call: int, requests, tag: str = "slice",
+               fused: bool = False) -> dict:
+    """One float operating point: bf16 calls of the batch sizes ``requests``
+    through the kernels, with the launch counts of K1 (1 per call) and K2s
+    and K2a (``gn_per_call`` each) and no K3; then in float32 with TF32 off
+    the kernel path against the plain path on the card (batch 8) and
+    against the port's CPU run (2 frames). ``fused`` turns on the head's
+    fused towers. Returns the launch counts per call."""
     import torch
 
     from handnet_tpu_torch.models.pipeline import HandNetPipeline
 
     crop, joints = cfg.pipeline.crop_size, cfg.a2j.num_joints
-    pipe = HandNetPipeline(cfg, dtype=torch.bfloat16, device=dev, seed=SEED)
-    requests = [make_frames(bsz, dev, seed=100 + i) for i, bsz in enumerate(SLICE_REQUESTS)]
+
+    def build(**kw):
+        pipe = HandNetPipeline(cfg, seed=SEED, **kw)
+        pipe.detector.head.fused_towers = fused
+        return pipe
+
+    pipe = build(dtype=torch.bfloat16, device=dev)
+    frames = [make_frames(bsz, dev, seed=100 + i) for i, bsz in enumerate(requests)]
     torch.cuda.synchronize()
 
     reset_launch_counts()
     start = time.perf_counter()
-    outs = [pipe(*req) for req in requests]
+    outs = [pipe(*req) for req in frames]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = launch_counts()
-    for out, bsz in zip(outs, SLICE_REQUESTS):
-        check_outputs(out, bsz, crop, joints)
-    calls = len(SLICE_REQUESTS)
-    if launches != {"gn_group_stats": GN_LAYERS_PER_CALL * calls,
-                    "gn_apply": GN_LAYERS_PER_CALL * calls, "a2j_decode": calls,
-                    "int8_quantize": 0, "int8_conv_gemm": 0}:
-        raise AssertionError(f"launch counts {launches} for {calls} calls: expected K2s and "
-                             f"K2a {GN_LAYERS_PER_CALL} each and K1 1 per call, no K3")
-    log("slice", f"fast bf16 calls of batch {list(SLICE_REQUESTS)} in {seconds:.3f} s (first "
-        f"calls, cuDNN set-up included): all frames found, outputs finite; launches {launches}")
-    del pipe, outs, requests
+    for out, req in zip(outs, frames):
+        check_outputs(out, len(req[0]), crop, joints)
+    calls = len(requests)
+    if launches != expected_launches(calls, gn_per_call):
+        raise AssertionError(f"{name}: launch counts {launches} for {calls} calls: expected K2s "
+                             f"and K2a {gn_per_call} each and K1 1 per call, no K3")
+    log(tag, f"{name} bf16 calls of batch {list(requests)} in {seconds:.3f} s (first calls, "
+        f"cuDNN set-up included): all frames found, outputs finite; launches {launches}")
+    del pipe, outs, frames
 
     # float32, TF32 off: the kernel path against the plain path on the card,
     # and against the port's own CPU run (which the CPU tests tie to JAX)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     images, depth, paras = make_frames(8, dev, seed=200)
-    kern = HandNetPipeline(cfg, device=dev, seed=SEED)
-    out_k = kern(images, depth, paras)
-    del kern
-    plain = HandNetPipeline(cfg, device=dev, use_kernels=False, seed=SEED)
-    out_p = plain(images, depth, paras)
-    del plain
-    err_plain = compare_outputs("kernels vs plain (card, f32)", out_k, out_p, 1e-2)
-    log("slice", f"fast f32 batch 8: kernel path == plain path on found/sides/boxes/crops; "
+    out_k = build(device=dev)(images, depth, paras)
+    out_p = build(device=dev, use_kernels=False)(images, depth, paras)
+    err_plain = compare_outputs(f"{name} kernels vs plain (card, f32)", out_k, out_p, 1e-2)
+    log(tag, f"{name} f32 batch 8: kernel path == plain path on found/sides/boxes/crops; "
         f"joints max|err| {err_plain:.3e} (tol 1e-2 px, 1e-1 mm)")
-    cpu = HandNetPipeline(cfg, device="cpu", seed=SEED)
-    out_c = cpu(images[:2].cpu(), depth[:2].cpu(), paras[:2].cpu())
-    del cpu
-    err_cpu = compare_outputs("card vs CPU (f32)", {k: v[:2] for k, v in out_k.items()},
+    out_c = build(device="cpu")(images[:2].cpu(), depth[:2].cpu(), paras[:2].cpu())
+    err_cpu = compare_outputs(f"{name} card vs CPU (f32)", {k: v[:2] for k, v in out_k.items()},
                               out_c, 5e-2)
-    log("slice", f"fast f32 2 frames: card kernel path == CPU run on found/sides/boxes/crops; "
+    log(tag, f"{name} f32 2 frames: card kernel path == CPU run on found/sides/boxes/crops; "
         f"joints max|err| {err_cpu:.3e} (tol 5e-2 px, 5e-1 mm)")
     torch.backends.cudnn.allow_tf32 = True
-    return launches
+    return per_call(launches, calls)
+
+
+def phase_slice(dev, cfg) -> dict:
+    return slice_path(dev, cfg, "fast", GN_LAYERS_PER_CALL, SLICE_REQUESTS)
 
 
 def counted_wrappers() -> dict:
@@ -879,6 +946,290 @@ def phase_quant_slice(dev, cfg, cfg_dynamic):
     return launches
 
 
+def phase_geometry_kernels(dev) -> dict:
+    """K2s and K2a at the shapes that the parity and fused-tower paths give
+    them: the parity FPN levels at C=256, G=32, and the fused towers' C=512,
+    G=64 at the fast and the parity levels; returns per kernel the B=128
+    bf16 numbers by shape for the JSON line."""
+    shapes = ([(h, w, 256, 32) for h, w in PARITY_LEVELS]
+              + [(h, w, 512, 64) for h, w in GN_LEVELS + PARITY_LEVELS])
+    res = gn_kernel_checks(dev, shapes, "geometries")
+    log("geometries", f"K2s at {len(shapes)} new shapes x B=1/8/128 x f32/bf16: max|err| "
+        f"{res['err']:.3e} (tol 1e-4 of scale), two runs bit-equal; K2a: {res['applied']} "
+        "comparisons bit-equal to gn_apply_reference")
+    out = {"gn_group_stats": [], "gn_apply": []}
+    for (h, w, c, g), t in res["b128"].items():
+        shape = f"B=128 {h}x{w}x{c} G={g} bf16"
+        for name, numbers in zip(out, gn_entry_numbers(t)):
+            out[name].append({"shape": shape, **numbers})
+            log("geometries", f"{name} {shape}: {numbers['ms']:.4f} ms on the device (loop "
+                f"{numbers['loop_ms']:.4f}), bound {numbers['bound_ms']:.4f} ms, "
+                f"{numbers['bound_ms'] / numbers['ms'] * 100:.0f}% of it; plain "
+                f"{numbers['plain_ms']:.4f}; library {numbers['library_ms']}")
+    return out
+
+
+def phase_resize(dev) -> dict:
+    """``resize_bilinear_matmul`` at the parity geometry, B=128: 480x640 ->
+    800x1067, padded to 800x1088, float32. Its time on the device, its
+    bytes and FLOPs, and the card's run against the CPU's on 2 frames."""
+    import torch
+
+    from handnet_tpu_torch.ops.resize import _matrix_on, resize_bilinear_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, (h, w), (oh, ow), (ph, pw) = RESIZE_CASE
+    x = torch.randn(b, h, w, 3, device=dev, generator=gen)
+    run = lambda: resize_bilinear_matmul(x, oh, ow, padded_hw=(ph, pw))  # noqa: E731
+    out = run()
+    if tuple(out.shape) != (b, ph, pw, 3) or bool(out[:, :, ow:].any()):
+        raise AssertionError(f"resize: shape {tuple(out.shape)} or a non-zero pad")
+    want = resize_bilinear_matmul(x[:2].cpu(), oh, ow, padded_hw=(ph, pw))
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    err = check("resize card vs CPU (2 frames)", out[:2].cpu(), want, tol)
+    t = timed(run)
+    # each product alone, and the W product as torch.matmul on the permuted
+    # view (which ops/resize.py avoids: cuBLAS then takes a transposed operand)
+    mh, mw = _matrix_on(h, oh, ph, x.device), _matrix_on(w, ow, pw, x.device)
+    xw = x.permute(0, 1, 3, 2).reshape(b * h * 3, w) @ mw.t()
+    parts = {"W product (copy + GEMM)": device_ms(
+                 lambda: x.permute(0, 1, 3, 2).reshape(b * h * 3, w) @ mw.t(), 5, 1),
+             "H product (batched GEMM)": device_ms(
+                 lambda: torch.bmm(mh.expand(b, ph, h), xw.view(b, h, 3 * pw)), 5, 1),
+             "W product as matmul of the permuted view": device_ms(
+                 lambda: torch.matmul(x.permute(0, 1, 3, 2), mw.t()), 3, 1)}
+    del xw
+    moved = nbytes(x) + nbytes(out)
+    # the two products as computed: along W [B*h*3, w] x [w, pw], then along
+    # H [ph, h] x [h, 3*pw] per image
+    flops = 2 * b * h * 3 * w * pw + 2 * b * ph * h * 3 * pw
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_flops = flops / F32_FLOPS_PER_S * 1e3
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    log("geometries", f"resize_bilinear_matmul B={b} {h}x{w} -> {oh}x{ow} pad {ph}x{pw} f32 "
+        f"(torch.backends.cuda.matmul.allow_tf32={tf32}): card vs CPU on 2 frames max|err| "
+        f"{err:.3e} (tol {tol:.1e}), pad exactly 0; {t['ms']:.4f} ms on the device (loop "
+        f"{t['loop_ms']:.4f}); {moved / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP; byte bound "
+        f"{by_bytes:.4f} ms (the function's bound: {by_bytes / t['ms'] * 100:.1f}% of it), "
+        f"the two dense products' FLOPs at 67 TFLOP/s {by_flops:.4f} ms; on the device "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+    return {"ms": t["ms"], "loop_ms": t["loop_ms"], "bytes": moved, "flops": flops,
+            "bound_ms": by_bytes, "dense_flop_ms": by_flops, "allow_tf32": tf32, **parts}
+
+
+def phase_stem(dev) -> dict:
+    """The plain and the space-to-depth stem, same weights: in float32 with
+    TF32 off at B=8 to 1e-5 of scale, and in bf16 at B=128 to 1e-2 of
+    scale (the CPU test's tolerances), at 480x640 and 800x1088; both timed
+    at B=128 bf16."""
+    import torch
+
+    from handnet_tpu_torch.nn.resnet import StemConv, init_conv_weights_
+
+    conv = StemConv(3, 64, s2d=True)
+    init_conv_weights_(conv, torch.Generator().manual_seed(SEED))
+    conv = conv.to(dev, memory_format=torch.channels_last)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    times = {}
+    torch.backends.cudnn.allow_tf32 = False
+    for h, w in STEM_SIZES:
+        outs = {}
+        for dtype, batch, rel in ((torch.float32, 8, 1e-5), (torch.bfloat16, 128, 1e-2)):
+            c = conv.to(dtype)
+            x = torch.randn(batch, 3, h, w, device=dev, generator=gen).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            with torch.no_grad():
+                for s2d in (True, False):
+                    c.s2d = s2d
+                    outs[s2d] = c(x)
+                ref = outs[False].float()
+                tol = rel * max(1.0, ref.abs().max().item())
+                err = check(f"stem s2d vs plain {h}x{w} B={batch} {dtype}", outs[True].float(),
+                            ref, tol)
+                del outs, ref
+                outs = {}
+                line = (f"stem {h}x{w} B={batch} {dtype}: s2d vs plain max|err| {err:.3e} (tol "
+                        f"{tol:.1e})")
+                if dtype == torch.bfloat16:
+                    for s2d in (False, True):
+                        c.s2d = s2d
+                        times[(h, w, s2d)] = timed(lambda: c(x))
+                    p_t, s_t = times[(h, w, False)], times[(h, w, True)]
+                    line += (f"; on the device plain {p_t['ms']:.4f} ms (loop "
+                             f"{p_t['loop_ms']:.4f}), s2d {s_t['ms']:.4f} ms (loop "
+                             f"{s_t['loop_ms']:.4f})")
+            log("geometries", line)
+            del x
+    torch.backends.cudnn.allow_tf32 = True
+    return {f"{h}x{w} {'s2d' if s2d else 'plain'}": t["ms"] for (h, w, s2d), t in times.items()}
+
+
+def head_outputs_close(name: str, got: dict, want: dict) -> float:
+    """Raw detector head outputs within the CPU tests' network tolerance:
+    rtol 1e-4 with a floor of 1e-4 of each output's scale."""
+    import torch
+
+    worst = 0.0
+    for key, w in want.items():
+        g, w = got[key].double().cpu(), w.double().cpu()
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {key}: shape or non-finite values")
+        excess = ((g - w).abs() - 1e-4 * w.abs()).max().item()
+        scale = 1e-4 * max(1.0, w.abs().max().item())
+        if excess > scale:
+            raise AssertionError(f"{name} {key}: beyond rtol 1e-4 + {scale:.1e}")
+        worst = max(worst, (g - w).abs().max().item())
+    return worst
+
+
+def phase_parity_int8(dev, cfg) -> dict:
+    """Static int8 on the parity geometry: calibrated on the two seeded
+    batches of 8, a batch of 8 and one of 128 with K3q and K3g 129 times
+    each per call, and K3 bit-equal to its plain version in the pipeline."""
+    import torch
+
+    start = time.perf_counter()
+    pipe = calibrated_pipeline(dev, cfg, torch.bfloat16)
+    log("geometries", f"parity int8 bf16: calibrated on 2 x 8 seeded frames in "
+        f"{time.perf_counter() - start:.3f} s")
+    requests = [make_frames(bsz, dev, seed=110 + i) for i, bsz in enumerate((8, 128))]
+    reset_launch_counts()
+    outs = [pipe(*req) for req in requests]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for out, req in zip(outs, requests):
+        check_outputs(out, len(req[0]), cfg.pipeline.crop_size, cfg.a2j.num_joints)
+    expected = expected_launches(2, GN_LAYERS_PER_CALL, INT8_LAUNCHES_PER_CALL)
+    if launches != expected:
+        raise AssertionError(f"parity int8 launch counts {launches}, expected {expected}")
+    set_int8_kernel(pipe, False)
+    out_plain = pipe(*requests[0])
+    set_int8_kernel(pipe, True)
+    for key, value in outs[0].items():
+        if not torch.equal(value, out_plain[key]):
+            raise AssertionError(f"parity int8 bf16: {key} differs between K3 and its plain "
+                                 "version")
+    log("geometries", f"parity int8 bf16 calls of batch 8 and 128: all frames found, outputs "
+        f"finite; launches {launches}; batch 8: every output bit-equal with K3's plain version "
+        "in place of K3")
+    return per_call(launches, 2)
+
+
+def phase_fused_towers(dev, cfg) -> dict:
+    """The fused-tower head on the fast profile: in float32 (TF32 off) the
+    raw head outputs against the unfused head's and the pipeline's outputs
+    against the unfused pipeline's; then the bf16 path with its launches
+    (K2s and K2a 12 per call, at C=512) and the f32 checks of slice_path."""
+    import torch
+
+    from handnet_tpu_torch.models.fcos import preprocess
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = HandNetPipeline(cfg, device=dev, seed=SEED)
+    images, depth, paras = make_frames(8, dev, seed=210)
+    with torch.inference_mode():
+        net_in = preprocess(images, cfg.fcos)[0]
+        unfused_head = pipe.detector(net_in)
+        unfused = pipe(images, depth, paras)
+        pipe.detector.head.fused_towers = True
+        reset_launch_counts()
+        fused_head = pipe.detector(net_in)
+        counts = launch_counts()
+        fused = pipe(images, depth, paras)
+    head_err = head_outputs_close("fused vs unfused head (f32)", fused_head, unfused_head)
+    if counts["gn_group_stats"] != GN_FUSED_PER_CALL or counts["gn_apply"] != GN_FUSED_PER_CALL:
+        raise AssertionError(f"fused towers: launch counts {counts} for one detector call")
+    err = compare_outputs("fused vs unfused pipeline (f32)", fused, unfused, 1e-2)
+    torch.backends.cudnn.allow_tf32 = True
+    log("geometries", f"fused towers f32 batch 8: head outputs == unfused head's (max|err| "
+        f"{head_err:.3e}, rtol 1e-4 + 1e-4 of scale); pipeline == unfused on found/sides/"
+        f"boxes/crops, joints max|err| {err:.3e}; detector launches {counts}")
+    del pipe
+    return slice_path(dev, cfg, "fused towers", GN_FUSED_PER_CALL, (8, 128), "geometries",
+                      fused=True)
+
+
+def separated_slots(scores, gap: float):
+    """Slots of sorted ``[B, K]`` scores that are more than ``gap`` from both
+    neighbours: a detection that another rounding cannot swap."""
+    import torch
+
+    s = scores.double()
+    big = torch.full_like(s[:, :1], float("inf"))
+    before = torch.cat([big, s[:, :-1] - s[:, 1:]], dim=1)
+    after = torch.cat([s[:, :-1] - s[:, 1:], big], dim=1)
+    return (before > gap) & (after > gap)
+
+
+def phase_ext_heads(dev, cfg) -> dict:
+    """An ``ext=True`` detector (the fast profile with the 100DOH heads),
+    detector-only through ``pipe.detect`` at 480x640, B=8, float32 with TF32
+    off: shapes, finite values, (dx, dy) of norm 0.1 or 0; held against the
+    port's CPU run on 2 frames: scores to 1e-5, and the detections whose
+    score stands more than 1e-4 from its neighbours' equal (labels, sides,
+    contacts, valid) or close (boxes, dxdymags)."""
+    import torch
+
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    images = make_frames(8, dev, seed=220)[0]
+    pipe = HandNetPipeline(cfg, device=dev, seed=SEED)
+    reset_launch_counts()
+    det = pipe.detect(images)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    b, k = len(images), cfg.fcos.max_detections
+    if tuple(det["contacts"].shape) != (b, k) or tuple(det["dxdymags"].shape) != (b, k, 3):
+        raise AssertionError(f"ext detect: contacts {tuple(det['contacts'].shape)}, dxdymags "
+                             f"{tuple(det['dxdymags'].shape)}")
+    for key, value in det.items():
+        if value.is_floating_point() and not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"ext detect: {key} not finite")
+    norm = det["dxdymags"][..., 1:].norm(dim=-1)
+    if not bool(((norm - 0.1).abs() < 1e-5).logical_or(norm == 0).all()):
+        raise AssertionError("ext detect: a (dx, dy) pair of norm other than 0.1 or 0")
+    cpu = HandNetPipeline(cfg, device="cpu", seed=SEED).detect(images[:2].cpu())
+    card = {key: value[:2].cpu() for key, value in det.items()}
+    check("ext detect scores card vs CPU", card["scores"], cpu["scores"], 1e-5)
+    keep = separated_slots(cpu["scores"], 1e-4)
+    if not bool(keep.any()):
+        raise AssertionError("ext detect: no detection stands apart from its neighbours")
+    for key in ("labels", "sides", "contacts", "valid"):
+        if not torch.equal(card[key][keep], cpu[key][keep]):
+            raise AssertionError(f"ext detect card vs CPU: {key} differ on separated slots")
+    box_err = check("ext detect boxes", card["boxes"][keep], cpu["boxes"][keep], 1e-2)
+    dxdy_err = check("ext detect dxdymags", card["dxdymags"][keep], cpu["dxdymags"][keep], 1e-4)
+    torch.backends.cudnn.allow_tf32 = True
+    log("geometries", f"ext detect f32 batch 8: contacts {tuple(det['contacts'].shape)}, "
+        f"dxdymags {tuple(det['dxdymags'].shape)}, finite, (dx, dy) norms 0.1 or 0; launches "
+        f"{counts}; 2 frames against the CPU run: scores within 1e-5, {int(keep.sum())} of "
+        f"{keep.numel()} slots separated by > 1e-4 equal in labels/sides/contacts/valid, boxes "
+        f"max|err| {box_err:.3e} px (tol 1e-2), dxdymags {dxdy_err:.3e} (tol 1e-4)")
+    return counts
+
+
+def phase_geometries(dev, cfgs) -> dict:
+    """The parity and turbo operating points and the FCOS variants: the
+    kernels at their new shapes, the resize, the stem, then each path.
+    Returns the kernels' new-shape numbers, the resize's, the stem's and
+    the launch counts per call of each path."""
+    kernel_shapes = phase_geometry_kernels(dev)
+    resize = phase_resize(dev)
+    stem = phase_stem(dev)
+    paths = {
+        "parity": slice_path(dev, cfgs["parity"], "parity", GN_LAYERS_PER_CALL, SLICE_REQUESTS,
+                             "geometries"),
+        "parity_int8": phase_parity_int8(dev, cfgs["parity_int8"]),
+        "turbo": slice_path(dev, cfgs["turbo"], "turbo", GN_TURBO_PER_CALL, (8, 128),
+                            "geometries"),
+        "fused_towers": phase_fused_towers(dev, cfgs["fast"]),
+        "ext_detect": phase_ext_heads(dev, cfgs["ext"]),
+    }
+    return {"kernel_shapes": kernel_shapes, "resize": resize, "stem": stem, "paths": paths}
+
+
 def phase_throughput(dev, cfg, cfg_quant) -> None:
     """frames/s at B=128 in bf16, in turns: fast with kernels and with the
     plain versions, quant_static with K3 and with K3's plain version."""
@@ -891,29 +1242,13 @@ def phase_throughput(dev, cfg, cfg_quant) -> None:
             "fast plain": HandNetPipeline(cfg, dtype=torch.bfloat16, device=dev,
                                           use_kernels=False, seed=SEED)}
     quant = calibrated_pipeline(dev, cfg_quant, torch.bfloat16)
-    iters = 10
-    names = ("fast kernels", "fast plain", "quant_static kernels", "quant_static K3 plain")
-    fps = {name: [] for name in names}
-    for name in names + names[::-1]:
-        pipe = fast.get(name, quant)
-        if pipe is quant:
-            set_int8_kernel(quant, name == "quant_static kernels")
-        for _ in range(2):
-            pipe(images, depth, paras)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(iters):
-            pipe(images, depth, paras)
-        torch.cuda.synchronize()
-        fps[name].append(128 * iters / (time.perf_counter() - start))
+    fps_in_turns([*((name, pipe, lambda: None) for name, pipe in fast.items()),
+                  ("quant_static kernels", quant, lambda: set_int8_kernel(quant, True)),
+                  ("quant_static K3 plain", quant, lambda: set_int8_kernel(quant, False))],
+                 images, depth, paras, iters=10)
     set_int8_kernel(quant, True)
-    for name, vals in fps.items():
-        log("throughput", f"bf16 batch 128, {name}: "
-            + ", ".join(f"{v:.2f}" for v in vals) + " frames/s "
-            f"(mean {sum(vals) / len(vals):.2f}; {iters} calls per run, "
-            "host clock around synchronize)")
     log("throughput", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    stage_split(fast["fast kernels"], quant, images, depth)
+    stage_split([("fast", fast["fast kernels"]), ("quant_static", quant)], images, depth)
     small = make_frames(8, dev, seed=301)
     for name, pipe in (("fast", fast["fast kernels"]), ("quant_static", quant)):
         for _ in range(3):
@@ -928,13 +1263,79 @@ def phase_throughput(dev, cfg, cfg_quant) -> None:
     profile_by_kernel("quant_static", quant, images, depth)
 
 
-def stage_split(fast, quant, images, depth) -> None:
+def set_kernels(pipe, on: bool) -> None:
+    """Every kernel of ``pipe`` on (True) or its plain version (False): the
+    towers' GroupNorms (K2s, K2a), the int8 convs (K3q, K3g) and A2J's
+    decode (K1); the weights stay as they are."""
+    for m in pipe.modules():
+        if hasattr(m, "use_kernel"):
+            m.use_kernel = on
+    pipe.a2j.use_kernels = on
+
+
+def fps_in_turns(runs, images, depth, paras, iters: int = 5) -> dict:
+    """frames/s of each ``(name, pipe, prepare)`` of ``runs`` at the batch of
+    ``images``, in the order given and then in reverse (2 warm-up calls,
+    ``iters`` timed calls each, host clock around synchronize)."""
+    import torch
+
+    fps = {name: [] for name, _, _ in runs}
+    for name, pipe, prepare in list(runs) + list(runs)[::-1]:
+        prepare()
+        for _ in range(2):
+            pipe(images, depth, paras)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            pipe(images, depth, paras)
+        torch.cuda.synchronize()
+        fps[name].append(len(images) * iters / (time.perf_counter() - start))
+    for name, vals in fps.items():
+        log("throughput", f"bf16 batch {len(images)}, {name}: "
+            + ", ".join(f"{v:.2f}" for v in vals) + f" frames/s (mean "
+            f"{sum(vals) / len(vals):.2f}; {iters} calls per run, host clock around synchronize)")
+    return fps
+
+
+def phase_geometry_throughput(dev, cfgs) -> None:
+    """frames/s at B=128 in bf16 of parity and turbo with kernels and with
+    plain versions and of the fast profile with fused and unfused towers,
+    each pair in turns, and of parity int8; then the stage split of parity,
+    where preprocess is the resize."""
+    import torch
+
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+    images, depth, paras = make_frames(128, dev, seed=310)
+    for name in ("parity", "turbo"):
+        pipe = HandNetPipeline(cfgs[name], dtype=torch.bfloat16, device=dev, seed=SEED)
+        fps_in_turns([(f"{name} kernels", pipe, lambda p=pipe: set_kernels(p, True)),
+                      (f"{name} plain", pipe, lambda p=pipe: set_kernels(p, False))],
+                     images, depth, paras)
+        set_kernels(pipe, True)
+        if name == "parity":
+            stage_split([("parity", pipe)], images, depth)
+        del pipe
+    pipe = HandNetPipeline(cfgs["fast"], dtype=torch.bfloat16, device=dev, seed=SEED)
+    head = pipe.detector.head
+    fps_in_turns([("fast fused towers", pipe, lambda: setattr(head, "fused_towers", True)),
+                  ("fast unfused towers", pipe, lambda: setattr(head, "fused_towers", False))],
+                 images, depth, paras)
+    del pipe, head
+    pipe = calibrated_pipeline(dev, cfgs["parity_int8"], torch.bfloat16)
+    fps_in_turns([("parity int8 kernels", pipe, lambda: None)], images, depth, paras)
+    del pipe
+    log("throughput", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def stage_split(pipes, images, depth) -> None:
     """ms per stage at B=128 bf16 (CUDA events, 5 calls after 2), each
-    stage run alone on the previous stage's output."""
+    stage run alone on the previous stage's output, for each ``(name,
+    pipe)``."""
     from handnet_tpu_torch.models.a2j import a2j_postprocess
     from handnet_tpu_torch.models.fcos import decode_detections, preprocess
 
-    for name, pipe in (("fast", fast), ("quant_static", quant)):
+    for name, pipe in pipes:
         det = pipe.detector
         net_in, scale = preprocess(images, det.cfg)
         head = det(net_in)
@@ -998,7 +1399,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    from handnet_tpu_torch.config import FAST, QUANT, QUANT_STATIC, load_config
+    from handnet_tpu_torch.config import FAST, QUANT, QUANT_STATIC, load_config, resolve_config
     from handnet_tpu_torch.kernels import build
 
     res = build.build_library()
@@ -1008,11 +1409,17 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             log("build", line.strip())
 
-    def profile(overrides):  # score threshold 0: every frame takes the found path
-        cfg = load_config(overrides=overrides)
+    def found_path(cfg):  # score threshold 0: every frame takes the found path
         return dataclasses.replace(cfg, fcos=dataclasses.replace(cfg.fcos, score_thresh=0.0))
 
-    cfg, cfg_quant, cfg_dynamic = profile(FAST), profile(QUANT_STATIC), profile(QUANT)
+    cfg, cfg_quant, cfg_dynamic = (found_path(load_config(overrides=o))
+                                   for o in (FAST, QUANT_STATIC, QUANT))
+    geometry_cfgs = {
+        "fast": cfg, "parity": found_path(resolve_config("parity")),
+        "parity_int8": found_path(resolve_config("parity", quant="static")),
+        "turbo": found_path(resolve_config("turbo")),
+        "ext": found_path(load_config(overrides={**FAST, "fcos": {**FAST["fcos"], "ext": True}})),
+    }
 
     results = {"a2j_decode": phase_a2j_kernel(dev), **phase_gn_kernels(dev)}
     geos = int8_geometries(dev, cfg_dynamic)
@@ -1024,10 +1431,16 @@ def main() -> int:
     results["int8_quantize"], results["int8_conv_gemm"] = k3["k3q"], k3["k3g"]
     phase_encode_host_time(dev, geos)
 
-    phase_slice(dev, cfg)
+    by_path = {"fast": phase_slice(dev, cfg)}
     # the main path of this script: every kernel runs in the quant_static slice
     launches = phase_quant_slice(dev, cfg_quant, cfg_dynamic)
+    by_path["quant_static"] = per_call(launches, len(SLICE_REQUESTS))
+    geometries = phase_geometries(dev, geometry_cfgs)
+    by_path.update(geometries["paths"])
+    for name, shapes in geometries["kernel_shapes"].items():
+        results[name]["shapes"] = shapes
     phase_throughput(dev, cfg, cfg_quant)
+    phase_geometry_throughput(dev, geometry_cfgs)
 
     sources = {"a2j_decode": ("handnet_tpu_torch/csrc/a2j_decode.cu",
                               "handnet_tpu/ops/pallas_a2j.py:55"),
@@ -1039,8 +1452,11 @@ def main() -> int:
                                  "handnet_tpu/nn/quant.py:135"),
                "int8_conv_gemm": ("handnet_tpu_torch/csrc/int8_conv.cu",
                                   "handnet_tpu/nn/quant.py:139")}
+    # launches: the quant_static run's (4 calls); launches_per_call: each
+    # path's, counted from 0 just before it and read just after
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": launches[name], **results[name]}
+                "launches": launches[name], **results[name],
+                "launches_per_call": {path: counts[name] for path, counts in by_path.items()}}
                for name, (src, replaces) in sources.items()]
     log("card", f"every phase passed in {time.perf_counter() - started:.1f} s, the kernels' "
         "build included")

@@ -3,7 +3,8 @@
 The classes are copied field for field rather than imported, so that a run of
 the port loads nothing of the JAX package; ``tests/test_torch_port_pipeline.py``
 asserts the two trees are equal. Operating points are Python dicts (``FAST``,
-``QUANT``, ``QUANT_STATIC``) because the machines that serve the port may lack
+``QUANT``, ``QUANT_STATIC``, ``PARITY``, ``TURBO``; :func:`resolve_config`
+picks one by name) because the machines that serve the port may lack
 ``pyyaml``; ``load_config`` still reads a YAML file when asked to.
 
 ``FCOSConfig.gn_fast_variance`` is kept for equality with the YAML profiles,
@@ -160,6 +161,24 @@ QUANT: Dict[str, Any] = {**FAST, "fcos": {**FAST["fcos"], "quant": True},
 QUANT_STATIC: Dict[str, Any] = {**FAST, "fcos": {**FAST["fcos"], "quant": "static"},
                                 "a2j": {"quant": "static"}}
 
+# configs/parity.yaml: the reference's inference geometry. A 480x640 frame
+# is resized to 800x1067 (GeneralizedRCNNTransform's min-800 resize) and
+# padded to 800x1088; exact GroupNorm variance (the port's only kind).
+PARITY: Dict[str, Any] = {
+    "fcos": {"num_classes": 3, "ext": False, "image_h": 800, "image_w": 1088,
+             "score_thresh": 0.7, "nms_thresh": 0.5, "post_nms_thresh": 0.3},
+    "pipeline": {"pad_percent": 0.4, "crop_size": 176},
+    "train": {"batch_size": 128, "bf16": True},
+}
+
+# configs/turbo.yaml: the fast geometry with 2-conv head towers instead of
+# the reference's 4 (a reduced-FLOP design for models trained from scratch).
+TURBO: Dict[str, Any] = {**FAST, "fcos": {**FAST["fcos"], "num_convs": 2}}
+
+PROFILES: Dict[str, Dict[str, Any]] = {
+    "fast": FAST, "parity": PARITY, "turbo": TURBO, "quant": QUANT,
+    "quant_static": QUANT_STATIC}
+
 
 def _replace_recursive(cfg: Any, overrides: Dict[str, Any]) -> Any:
     kwargs = {}
@@ -187,4 +206,26 @@ def load_config(overrides: Optional[Dict[str, Any]] = None,
         cfg = _replace_recursive(cfg, file_overrides)
     if overrides:
         cfg = _replace_recursive(cfg, overrides)
+    return cfg
+
+
+def resolve_config(profile: str = "quant_static", quant: Any = None) -> HandNetConfig:
+    """An operating point by name, with the int8 conv path composed onto it:
+    the counterpart of ``bench.py``'s ``resolve_config`` (``PROFILE`` and
+    ``QUANT``).
+
+    ``profile`` is a key of :data:`PROFILES`; ``quant`` is None (the
+    profile's own convs), True (dynamic int8, ``QUANT=1``) or ``"static"``
+    (calibrated int8, ``QUANT=static``), set on both the detector and A2J.
+    ``bench.py``'s ``GNFV`` switch has no counterpart: the port's tower
+    GroupNorm always takes the exact statistics of its kernel, so there is
+    nothing to switch.
+    """
+    if profile not in PROFILES:
+        raise KeyError(f"unknown profile {profile!r}; one of {sorted(PROFILES)}")
+    if quant not in (None, True, "static"):
+        raise ValueError(f"quant must be None, True or 'static', got {quant!r}")
+    cfg = load_config(overrides=PROFILES[profile])
+    if quant is not None:
+        cfg = _replace_recursive(cfg, {"fcos": {"quant": quant}, "a2j": {"quant": quant}})
     return cfg

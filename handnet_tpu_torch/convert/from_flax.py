@@ -71,6 +71,8 @@ def _fcos_name(path: Tuple[str, ...]) -> str:
             return f"head.{branch}_head.conv.{idx}"
         out = {"cls_logits": "classification_head.cls_logits",
                "hand_lr": "classification_head.hand_lr_layer",
+               "hand_contact": "classification_head.hand_contact_state_layer",
+               "hand_dxdy": "classification_head.hand_dydx_layer",
                "bbox_reg": "regression_head.bbox_reg",
                "bbox_ctrness": "regression_head.bbox_ctrness"}
         return "head." + out[name]

@@ -9,11 +9,11 @@ Parameter names follow the reference's torch state dict
 
 ``cfg.quant`` makes the backbone's residual blocks, the FPN and the tower
 convs int8 (``nn/quant.py``); the stem and the prediction convs stay float,
-as in the JAX package.
-
-Not ported yet: the 100DOH extension heads (``ext=True``), the grouped-conv
-``fused_towers`` head and the resize branch of ``preprocess`` (ROADMAP
-item 8); each raises ``NotImplementedError``.
+as in the JAX package. ``cfg.ext`` adds the 100DOH extension heads (contact
+state, offset vector), ``cfg.s2d_stem`` the space-to-depth stem
+(``nn/resnet.py`` ``StemConv``), and ``FCOSHead.fused_towers`` runs the two
+towers as one grouped-conv tower. ``preprocess`` resizes frames of another
+size than the network input (``ops/resize.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from handnet_tpu_torch.ops.anchors import fcos_anchor_pyramid
 from handnet_tpu_torch.ops.boxes import linear_decode
 from handnet_tpu_torch.ops.cuda_gn import group_norm
 from handnet_tpu_torch.ops.nms import batched_nms_fixed
+from handnet_tpu_torch.ops.resize import resize_bilinear_matmul
 
 
 class GroupNorm(nn.Module):
@@ -52,11 +53,18 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # NHWC view of the channels_last bytes: what the kernels read
-        nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        y = group_norm(nhwc, self.weight, self.bias, self.num_groups, self.eps,
-                       relu=self.relu, use_kernel=self.use_kernel)
-        return y.permute(0, 3, 1, 2)
+        return _group_norm_nchw(x, self.weight, self.bias, self.num_groups, self.eps,
+                                self.relu, self.use_kernel)
+
+
+def _group_norm_nchw(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     num_groups: int, eps: float, relu: bool,
+                     use_kernel: bool) -> torch.Tensor:
+    """``group_norm`` of an NCHW tensor through the NHWC view of its
+    channels_last bytes, which is what the kernels read."""
+    nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    y = group_norm(nhwc, scale, bias, num_groups, eps, relu=relu, use_kernel=use_kernel)
+    return y.permute(0, 3, 1, 2)
 
 
 class ConvTower(nn.Sequential):
@@ -82,20 +90,36 @@ def _flat(t: torch.Tensor, k: int) -> torch.Tensor:
 
 class FCOSHead(nn.Module):
     """Both towers and the output convs, shared across levels; returns flat
-    ``[B, N, .]`` outputs concatenated over levels (``ext=False`` heads)."""
+    ``[B, N, .]`` outputs concatenated over levels, with
+    ``hand_contact_state`` and ``hand_dxdy`` when ``cfg.ext``.
+
+    ``fused_towers`` (False by default, read at forward time, the
+    counterpart of the JAX class attribute) runs the cls and reg towers as
+    one tower of twice the width: layer 1 is one conv with the two kernels'
+    output channels concatenated, the later layers are 2-group convs, and
+    each GroupNorm(32) pair is one GroupNorm of 64 groups. The concatenated
+    parameters are built from the two towers' at every forward, so the
+    parameters and state-dict keys are the same either way. Float towers
+    only: with ``cfg.quant`` it raises, where the JAX package's fused head
+    would serve its towers' float kernels.
+    """
 
     def __init__(self, cfg: FCOSConfig, use_kernels: bool = True):
         super().__init__()
-        if cfg.ext:
-            raise NotImplementedError(
-                "FCOSHead: the 100DOH extension heads (ext=True) are not ported yet")
         c = cfg.fpn_channels
         self.num_classes = cfg.num_classes
-        self.classification_head = nn.ModuleDict({
+        self.ext = cfg.ext
+        self.quant = cfg.quant
+        self.fused_towers = False
+        cls_layers = {
             "conv": ConvTower(c, cfg.num_convs, use_kernels, cfg.quant),
             "cls_logits": nn.Conv2d(c, cfg.num_classes, 3, padding=1),
             "hand_lr_layer": nn.Conv2d(c, 2, 3, padding=1),
-        })
+        }
+        if cfg.ext:
+            cls_layers["hand_contact_state_layer"] = nn.Conv2d(c, 5, 3, padding=1)
+            cls_layers["hand_dydx_layer"] = nn.Conv2d(c, 3, 3, padding=1)
+        self.classification_head = nn.ModuleDict(cls_layers)
         self.regression_head = nn.ModuleDict({
             "conv": ConvTower(c, cfg.num_convs, use_kernels, cfg.quant),
             "bbox_reg": nn.Conv2d(c, 4, 3, padding=1),
@@ -103,15 +127,58 @@ class FCOSHead(nn.Module):
         })
         self.prior_bias = -math.log((1.0 - cfg.prior_prob) / cfg.prior_prob)
 
+    def _fused_layers(self) -> List[Tuple[torch.Tensor, ...]]:
+        """Per tower layer: the concatenated conv weight and bias, GroupNorm
+        scale and bias, and the GroupNorm module of the cls tower (for its
+        eps and kernel switch)."""
+        if self.quant:
+            raise ValueError("FCOSHead: fused_towers runs float convs only; the towers "
+                             f"are int8 (quant={self.quant!r})")
+        cls_t, reg_t = self.classification_head["conv"], self.regression_head["conv"]
+        layers = []
+        for i in range(len(cls_t) // 2):   # children named by the triplets: 0, 1, 3, 4, ...
+            conv_c, conv_r = getattr(cls_t, str(3 * i)), getattr(reg_t, str(3 * i))
+            gn_c, gn_r = getattr(cls_t, str(3 * i + 1)), getattr(reg_t, str(3 * i + 1))
+            layers.append((torch.cat([conv_c.weight, conv_r.weight]),
+                           torch.cat([conv_c.bias, conv_r.bias]),
+                           torch.cat([gn_c.weight, gn_r.weight]),
+                           torch.cat([gn_c.bias, gn_r.bias]), gn_c))
+        return layers
+
+    @staticmethod
+    def _fused_tower(f: torch.Tensor, layers) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = f
+        for i, (weight, bias, scale, gbias, gn) in enumerate(layers):
+            x = F.conv2d(x, weight, bias, padding=1, groups=1 if i == 0 else 2)
+            # 2 x 32 groups of C/32 channels: the two towers' GroupNorms
+            x = _group_norm_nchw(x, scale, gbias, 2 * gn.num_groups, gn.eps, True,
+                                 gn.use_kernel)
+        c = x.shape[1] // 2
+        return x[:, :c], x[:, c:]
+
     def forward(self, features: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         cls_h, reg_h = self.classification_head, self.regression_head
-        outs: Dict[str, list] = {k: [] for k in (
-            "cls_logits", "hand_lr", "bbox_regression", "bbox_ctrness")}
+        keys = ["cls_logits", "hand_lr", "bbox_regression", "bbox_ctrness"]
+        if self.ext:
+            keys[2:2] = ["hand_contact_state", "hand_dxdy"]
+        outs: Dict[str, list] = {k: [] for k in keys}
+        fused = self._fused_layers() if self.fused_towers else None
         for f in features:
-            cls_t = cls_h["conv"](f)
-            reg_t = reg_h["conv"](f)
+            if fused is None:
+                cls_t, reg_t = cls_h["conv"](f), reg_h["conv"](f)
+            else:
+                cls_t, reg_t = self._fused_tower(f, fused)
             outs["cls_logits"].append(_flat(cls_h["cls_logits"](cls_t), self.num_classes))
             outs["hand_lr"].append(_flat(cls_h["hand_lr_layer"](cls_t), 2))
+            if self.ext:
+                outs["hand_contact_state"].append(
+                    _flat(cls_h["hand_contact_state_layer"](cls_t), 5))
+                # relu, then the (dx, dy) pair L2-normalized and scaled by 0.1
+                # with the magnitude channel kept raw (reference fcos.py:301-303)
+                dxdy = F.relu(cls_h["hand_dydx_layer"](cls_t))
+                mag, vec = dxdy[:, :1], dxdy[:, 1:]
+                norm = torch.sqrt(vec.square().sum(dim=1, keepdim=True) + 1e-12)
+                outs["hand_dxdy"].append(_flat(torch.cat([mag, 0.1 * vec / norm], dim=1), 3))
             # relu on box regression (reference fcos.py:379)
             outs["bbox_regression"].append(_flat(F.relu(reg_h["bbox_reg"](reg_t)), 4))
             outs["bbox_ctrness"].append(_flat(reg_h["bbox_ctrness"](reg_t), 1))
@@ -125,13 +192,11 @@ class FCOS(nn.Module):
     def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
         super().__init__()
         cfg = cfg or FCOSConfig()
-        if cfg.s2d_stem:
-            raise NotImplementedError("FCOS: the space-to-depth stem is ROADMAP item 8")
         if cfg.backbone != "resnet34":
             raise NotImplementedError(f"FCOS: backbone {cfg.backbone!r}")
         self.cfg = cfg
         self.backbone = nn.ModuleDict({
-            "body": resnet34(quant=cfg.quant),
+            "body": resnet34(quant=cfg.quant, s2d_stem=cfg.s2d_stem),
             "fpn": FPN((128, 256, 512), cfg.fpn_channels, quant=cfg.quant),
         })
         self.head = FCOSHead(cfg, use_kernels)
@@ -154,24 +219,28 @@ class FCOS(nn.Module):
 def preprocess(images: torch.Tensor, cfg: FCOSConfig
                ) -> Tuple[torch.Tensor, Tuple[float, float]]:
     """Normalize RGB ``[B, H, W, 3]`` frames (0-1 float, or uint8) for the
-    detector and pad them bottom/right to ``image_h x image_w``.
+    detector, resize them aspect-preserving to fit ``image_h x image_w``
+    and pad them bottom/right to that size.
 
-    Only the native branch is ported: frames that need no resample. Returns
-    the network input and the (scale_y, scale_x) from frame to network pixels.
+    Frames that need no resample are only normalized and padded. Others are
+    normalized, then resized with the pad fused in (``ops/resize.py``): the
+    weight rows sum to 1 inside the resized region, so normalizing first
+    commutes with the resize there, and to 0 in the pad, which stays exactly
+    zero. Returns the network input (float32) and the (scale_y, scale_x)
+    from frame to network pixels.
     """
     if images.dtype == torch.uint8:
         images = images.float() / 255.0
     _, h, w, _ = images.shape
     scale = min(cfg.image_h / h, cfg.image_w / w)
     new_h, new_w = int(round(h * scale)), int(round(w * scale))
-    if (new_h, new_w) != (h, w):
-        raise NotImplementedError(
-            f"preprocess: {h}x{w} frames need a resample to {cfg.image_h}x"
-            f"{cfg.image_w}; the resize branch is ROADMAP item 8")
     mean = torch.tensor(cfg.image_mean, dtype=images.dtype, device=images.device)
     std = torch.tensor(cfg.image_std, dtype=images.dtype, device=images.device)
     normalized = (images - mean) / std
-    if (h, w) != (cfg.image_h, cfg.image_w):
+    if (new_h, new_w) != (h, w):
+        normalized = resize_bilinear_matmul(normalized, new_h, new_w,
+                                            padded_hw=(cfg.image_h, cfg.image_w))
+    elif (h, w) != (cfg.image_h, cfg.image_w):
         normalized = F.pad(normalized, (0, 0, 0, cfg.image_w - w, 0, cfg.image_h - h))
     return normalized, (new_h / h, new_w / w)
 
@@ -187,7 +256,8 @@ def decode_detections(head: Dict[str, torch.Tensor], anchors: torch.Tensor,
     """Fixed-shape detection decode (reference fcos.py:572-659).
 
     Returns ``[B, K]`` tensors (K = cfg.max_detections): boxes ``[B, K, 4]``,
-    scores, labels, sides, valid. Invalid slots have score 0 and valid False.
+    scores, labels, sides, valid, and with the extension heads contacts and
+    dxdymags ``[B, K, 3]``. Invalid slots have score 0 and valid False.
     Candidates are ranked by a stable descending sort, so equal scores keep
     index order as ``jax.lax.top_k`` does.
     """
@@ -222,6 +292,11 @@ def decode_detections(head: Dict[str, torch.Tensor], anchors: torch.Tensor,
         "sides": sides.gather(1, top_idx),
         "valid": keep,
     }
+    if "hand_contact_state" in head:
+        contacts = torch.sigmoid(head["hand_contact_state"].float()).argmax(dim=-1)
+        out["contacts"] = contacts.gather(1, top_idx)
+        out["dxdymags"] = head["hand_dxdy"].float().gather(
+            1, top_idx[..., None].expand(-1, -1, 3))
     if scale_to_original is not None:
         sy, sx = scale_to_original
         out["boxes"] = out["boxes"] * torch.tensor(

@@ -1,9 +1,12 @@
 """HandNetPipeline — the fused frame -> joints forward.
 
-Counterpart of ``handnet_tpu/models/pipeline.py:32-196``: normalize ->
+Counterpart of ``handnet_tpu/models/pipeline.py:32-196,263-271``: normalize ->
 ResNet-34+FPN+GN towers (kernel K2) -> fixed-shape decode + NMS -> masked
 argmax hand selection -> 40% pad -> nearest crop -> dilated ResNet-50 + A2J
-heads -> anchor decode (kernel K1) -> optional XYZ unprojection. Frames
+heads -> anchor decode (kernel K1) -> optional XYZ unprojection. Frames of
+any size are resized to the detector's input (``models/fcos.py``
+``preprocess``); :meth:`HandNetPipeline.detect` and
+:meth:`HandNetPipeline.pose` run either half alone. Frames
 without a hand flow through as masked zeros instead of control flow
 (reference handnet_pipeline.py:81-83,107-108).
 
@@ -162,6 +165,19 @@ class HandNetPipeline(nn.Module):
         if paras is not None:
             out["joints_xyz"] = convert_joints(joints_uvd, boxes, paras, size, size) * keep
         return out
+
+    @torch.inference_mode()
+    def detect(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Detector-only entry (the reference's ``is_detect=True`` branch):
+        RGB frames ``[B, H, W, 3]`` (0-1 float, or uint8) -> padded
+        detections in frame pixels (``FCOSSystem.detect``)."""
+        return self.detector.detect(images)
+
+    @torch.inference_mode()
+    def pose(self, depth_crops: torch.Tensor) -> torch.Tensor:
+        """Pose-only entry (the ``is_3D=True`` branch): depth crops
+        ``[B, S, S, C]`` -> UVD joints ``[B, P, 3]`` in the crop frame."""
+        return self.a2j.predict(depth_crops)
 
     @torch.no_grad()
     def calibrate(self, images: Union[torch.Tensor, Sequence[torch.Tensor]],

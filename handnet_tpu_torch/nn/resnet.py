@@ -10,7 +10,8 @@ package's NHWC, and the layout in which cuDNN runs bf16 convolutions.
 
 ``quant`` (False, True/"dynamic" or "static") makes every residual-block
 conv, downsample included, an int8 ``QuantConv`` (``nn/quant.py``); the stem
-stays float, as in the JAX package (``handnet_tpu/nn/resnet.py:198-201``).
+stays float, as in the JAX package (``handnet_tpu/nn/resnet.py:198-201``),
+plain or by space-to-depth (:class:`StemConv`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,39 @@ class FrozenBatchNorm2d(nn.Module):
         mul = scale / std
         add = self.bias.float() - self.running_mean.float() * scale / std
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
+
+
+class StemConv(nn.Conv2d):
+    """The 7x7/stride-2 stem conv (no bias), optionally computed by
+    space-to-depth (``handnet_tpu/nn/resnet.py:142-185``).
+
+    With ``s2d`` and even H and W, the input's 2x2 pixel blocks become 12
+    channels and the kernel, zero-padded to 8x8 at the top and left, is
+    re-blocked to ``[O, 4*I, 4, 4]``: a stride-1 4x4 conv over the blocks,
+    with 2 blocks of zero padding before and 1 after, gives the plain conv's
+    output. Otherwise it is the plain conv. The parameter is the plain
+    ``weight [O, I, 7, 7]`` either way, so state dicts do not change.
+    """
+
+    def __init__(self, in_channels: int, width: int, s2d: bool = False):
+        super().__init__(in_channels, width, 7, stride=2, padding=3, bias=False)
+        self.s2d = s2d
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        if not self.s2d or h % 2 or w % 2:
+            return super().forward(x)
+        # out[i] = sum_d k8[d] x[2i + d - 4] with k8 the kernel padded at the
+        # front; d = 2t + r is tap t of the block at offset r
+        k8 = F.pad(self.weight, (1, 0, 1, 0))                     # [O, I, 8, 8]
+        k8 = k8.view(self.out_channels, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+        k8 = k8.reshape(self.out_channels, 4 * c, 4, 4)           # channels (r_h, r_w, i)
+        # 4 pixels of zeros before and 2 after = 2 blocks before and 1 after
+        xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, 4, 2, 4, 2))    # NHWC [B, H+6, W+6, I]
+        hb, wb = (h + 6) // 2, (w + 6) // 2
+        xs = xp.reshape(b, hb, 2, wb, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(b, hb, wb, 4 * c)
+        return F.conv2d(xs.permute(0, 3, 1, 2),
+                        k8.contiguous(memory_format=torch.channels_last))
 
 
 def _downsample(cin: int, cout: int, stride: int, quant: Any) -> nn.Sequential:
@@ -109,14 +143,15 @@ class ResNet(nn.Module):
     ``stage_strides``/``stage_dilations`` give A2J's layer4 stride 1 and
     dilation 2. The first block of a dilated stage keeps the previous stage's
     dilation (a2j/resnet.py:133-145; ``handnet_tpu/nn/resnet.py:216-221``).
+    ``s2d_stem`` computes the stem by space-to-depth (:class:`StemConv`).
     """
 
     def __init__(self, block, stage_sizes: Sequence[int], width: int = 64,
                  stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
                  stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
-                 in_channels: int = 3, quant: Any = False):
+                 in_channels: int = 3, quant: Any = False, s2d_stem: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, width, 7, stride=2, padding=3, bias=False)
+        self.conv1 = StemConv(in_channels, width, s2d=s2d_stem)
         self.bn1 = FrozenBatchNorm2d(width)
         cin = width
         for i, num_blocks in enumerate(stage_sizes):

@@ -218,8 +218,6 @@ def test_preprocess_native_branch():
         got, got_scale = pfcos.preprocess(torch.from_numpy(frames), cfg_p)
         assert got_scale == want_scale
         assert_close(got, want, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        pfcos.preprocess(torch.zeros(1, IMAGE_H // 2, IMAGE_W // 2, 3), cfg_p)
 
 
 def _random_head(rng, n, num_classes=3):
@@ -291,12 +289,17 @@ def test_geometry_matches():
 
 def test_port_tree_hygiene():
     """The port never imports jax, each CUDA source names the JAX function
-    it replaces (a Pallas kernel, or for K3q and K3g the XLA int8 conv), and
-    every header under csrc/ is included by a source."""
+    it replaces (a Pallas kernel, or for K3q and K3g the XLA int8 conv),
+    every header under csrc/ is included by a source, and the resize
+    (``ops/resize.py``, two matmuls as in the JAX package) launches no
+    kernel of the port's own."""
     pkg = REPO / "handnet_tpu_torch"
     jax_import = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     offenders = [p.name for p in pkg.rglob("*.py") if jax_import.search(p.read_text())]
     assert offenders == []
+    resize = (pkg / "ops" / "resize.py").read_text()
+    assert "handnet_tpu/ops/resize.py" in resize and "torch.bmm" in resize
+    assert "handnet_tpu_torch.kernels" not in resize
     sources = sorted((pkg / "csrc").glob("*.cu"))
     assert [p.name for p in sources] == ["a2j_decode.cu", "gn_apply.cu", "gn_stats.cu",
                                          "int8_conv.cu", "int8_quantize.cu"]

@@ -138,6 +138,8 @@ out = HandNetPipeline(cfg, device="cpu")(
     torch.from_numpy(rng.uniform(0.3, 1.0, size=(2, 64, 96)).astype(np.float32)))
 assert tuple(out["joints_uvd"].shape) == (2, 21, 3)
 assert bool(torch.isfinite(out["joints_uvd"]).all())
+small = torch.from_numpy(rng.uniform(size=(2, 48, 64, 3)).astype(np.float32))  # resampled
+assert bool(torch.isfinite(HandNetPipeline(cfg, device="cpu").detect(small)["boxes"]).all())
 static = C.HandNetConfig(
     a2j=C.A2JConfig(crop_h=48, crop_w=48, quant="static"),
     fcos=C.FCOSConfig(image_h=64, image_w=96, max_detections=8, num_classes=3,
@@ -157,7 +159,8 @@ print("LOADED", loaded)
 
 def test_port_imports_no_jax():
     """A fresh interpreter runs the slice through the port, float and
-    calibrated static int8, builds the full-width QUANT_STATIC pipeline,
+    calibrated static int8, detects on frames that it resamples, builds the
+    full-width QUANT_STATIC pipeline,
     and has loaded neither jax nor the JAX package (a subprocess: tests/conftest.py imports
     jax into this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
