@@ -45,14 +45,16 @@ the next starts:
    profile.
 5. geometries: K2s and K2a at the parity FPN levels (C=256, G=32) and at
    the fused towers' C=512, G=64 (480x640 and 800x1088 levels), under the
-   rules of phase 3; the parity resize (two float32 matmuls) against its
-   byte bound and the CPU; the plain and the space-to-depth stem against
-   each other and timed; then the parity profile (800x1088) as the slice
-   (K1 1, K2s and K2a 24 per call), parity with calibrated int8 (K3q and K3g
-   129 per call, K3 bit-equal to its plain version in the pipeline), turbo
-   (2-conv towers, K2s and K2a 12), the fused-tower head (K2s and K2a 12 at
-   C=512, its head outputs against the unfused head's) and a detector with
-   the 100DOH extension heads (``pipe.detect``) against the CPU.
+   rules of phase 3, with their B=128 times also on fresh inputs (cold
+   L2); the parity resize (two float32 matmuls) against its byte bound and
+   the CPU; the plain and the space-to-depth stem against each other and
+   timed; then the parity profile (800x1088) as the slice (K1 1, K2s and
+   K2a 24 per call), parity with calibrated int8 (K3q and K3g 129 per call,
+   K3 bit-equal to its plain version in the pipeline at B=8 and B=128),
+   turbo (2-conv towers, K2s and K2a 12), the fused-tower head (K2s and K2a
+   12 at C=512, its head outputs against the unfused head's) and a detector
+   with the 100DOH extension heads (``pipe.detect``, K2s and K2a 24) against
+   the CPU.
 6. throughput: frames/s at batch 128 in bf16: fast with kernels and plain
    versions, quant_static with K3 and with K3's plain version, in turns;
    then a per-stage split of fast and quant_static (CUDA events), the
@@ -79,6 +81,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -141,13 +144,22 @@ def device_rows(prof) -> list:
             if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
 
 
+# profiler sessions of device_ms, and those that lost kernel records
+PROFILER_SESSIONS = {"sessions": 0, "short": 0, "lost_records": 0}
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean time that the card spends in the kernels of one call of ``fn``:
     the kernels' own durations from torch.profiler, summed over ``iters``
     calls. Unlike :func:`cuda_ms` it leaves out whatever the host takes
     between launches, which bounds a loop of short kernels. ``fn`` may be a
     sequence of callables, taken in turn (inputs that together exceed the
-    50 MB L2, so that every launch reads from device memory). Should the
+    50 MB L2, so that every launch reads from device memory).
+
+    Every kernel must show a whole number of launches per call: a session
+    that lost some of its records (the profiler does, now and then) is
+    taken again, and if three are short, each kernel is priced by the mean
+    of its recorded launches times its launches per call. Should the
     profiler record nothing, the event loop's time stands in, and a line
     says so."""
     import torch
@@ -156,15 +168,25 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     fns = fn if isinstance(fn, (list, tuple)) else [fn]
     for i in range(max(warmup, len(fns))):
         fns[i % len(fns)]()
-    for _ in range(3):   # a profiler session now and then comes back empty
+    estimate = None
+    for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        total = sum(ms for _, ms, _ in device_rows(prof))
-        if total > 0:
-            return total / iters
+        rows = [(ms, n) for _, ms, n in device_rows(prof) if n > 0]
+        PROFILER_SESSIONS["sessions"] += 1
+        if not rows:
+            continue
+        if all(n % iters == 0 for _, n in rows):
+            return sum(ms for ms, _ in rows) / iters
+        PROFILER_SESSIONS["short"] += 1
+        PROFILER_SESSIONS["lost_records"] += sum(
+            max(1, round(n / iters)) * iters - n for _, n in rows)
+        estimate = sum(ms / n * max(1, round(n / iters)) for ms, n in rows)
+    if estimate is not None:
+        return estimate
     log("kernels", "device_ms: the profiler recorded no device time in three sessions; this "
         "time is the event loop's instead")
     return cuda_ms(fns[0], iters, warmup)
@@ -960,13 +982,39 @@ def phase_geometry_kernels(dev) -> dict:
     out = {"gn_group_stats": [], "gn_apply": []}
     for (h, w, c, g), t in res["b128"].items():
         shape = f"B=128 {h}x{w}x{c} G={g} bf16"
-        for name, numbers in zip(out, gn_entry_numbers(t)):
-            out[name].append({"shape": shape, **numbers})
+        cold = gn_cold_l2_ms(dev, 128, h, w, c, g)
+        for name, numbers, cold_ms in zip(out, gn_entry_numbers(t), cold):
+            out[name].append({"shape": shape, **numbers, "cold_l2_ms": cold_ms})
             log("geometries", f"{name} {shape}: {numbers['ms']:.4f} ms on the device (loop "
                 f"{numbers['loop_ms']:.4f}), bound {numbers['bound_ms']:.4f} ms, "
-                f"{numbers['bound_ms'] / numbers['ms'] * 100:.0f}% of it; plain "
-                f"{numbers['plain_ms']:.4f}; library {numbers['library_ms']}")
+                f"{numbers['bound_ms'] / numbers['ms'] * 100:.0f}% of it; cold L2 "
+                f"{cold_ms:.4f} ms, {numbers['bound_ms'] / cold_ms * 100:.0f}% of the bound; "
+                f"plain {numbers['plain_ms']:.4f}; library {numbers['library_ms']}")
     return out
+
+
+def gn_cold_l2_ms(dev, b: int, h: int, w: int, c: int, g: int) -> tuple:
+    """K2s's and K2a(+ReLU)'s device times in bfloat16 with every launch on
+    fresh input: distinct input sets in turn, at least two and together
+    more than three times the 50 MB L2, so that no launch finds its input
+    there from the launch before (a loop on one input keeps the tail of the
+    last launch's bytes in the L2)."""
+    import torch
+
+    from handnet_tpu_torch.ops.cuda_gn import gn_apply, gn_group_stats
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_sets = max(2, math.ceil(150e6 / (b * h * w * c * 2)))
+    sets = [torch.randn(b, h, w, c, device=dev, generator=gen, dtype=torch.bfloat16)
+            for _ in range(n_sets)]
+    stats = [gn_group_stats(x, g) for x in sets]
+    sc = torch.ones(c, device=dev, dtype=torch.bfloat16)
+    bi = torch.zeros(c, device=dev, dtype=torch.bfloat16)
+    s_ms = device_ms([lambda x=x: gn_group_stats(x, g) for x in sets])
+    a_ms = device_ms([lambda x=x, s=s: gn_apply(x, s, sc, bi, 1e-5, True)
+                      for x, s in zip(sets, stats)])
+    del sets, stats
+    return s_ms, a_ms
 
 
 def phase_resize(dev) -> dict:
@@ -1085,7 +1133,9 @@ def head_outputs_close(name: str, got: dict, want: dict) -> float:
 def phase_parity_int8(dev, cfg) -> dict:
     """Static int8 on the parity geometry: calibrated on the two seeded
     batches of 8, a batch of 8 and one of 128 with K3q and K3g 129 times
-    each per call, and K3 bit-equal to its plain version in the pipeline."""
+    each per call, and at both batches K3 bit-equal to its plain version in
+    the pipeline (at B=128 K3g's im2col maps cover up to 128x200x272 base
+    pixels)."""
     import torch
 
     start = time.perf_counter()
@@ -1103,23 +1153,25 @@ def phase_parity_int8(dev, cfg) -> dict:
     if launches != expected:
         raise AssertionError(f"parity int8 launch counts {launches}, expected {expected}")
     set_int8_kernel(pipe, False)
-    out_plain = pipe(*requests[0])
+    for out, req in zip(outs, requests):
+        out_plain = pipe(*req)
+        for key, value in out.items():
+            if not torch.equal(value, out_plain[key]):
+                raise AssertionError(f"parity int8 bf16 batch {len(req[0])}: {key} differs "
+                                     "between K3 and its plain version")
+        del out_plain
     set_int8_kernel(pipe, True)
-    for key, value in outs[0].items():
-        if not torch.equal(value, out_plain[key]):
-            raise AssertionError(f"parity int8 bf16: {key} differs between K3 and its plain "
-                                 "version")
     log("geometries", f"parity int8 bf16 calls of batch 8 and 128: all frames found, outputs "
-        f"finite; launches {launches}; batch 8: every output bit-equal with K3's plain version "
-        "in place of K3")
+        f"finite; launches {launches}; batches 8 and 128: every output bit-equal with K3's "
+        "plain version in place of K3")
     return per_call(launches, 2)
 
 
 def phase_fused_towers(dev, cfg) -> dict:
     """The fused-tower head on the fast profile: in float32 (TF32 off) the
-    raw head outputs against the unfused head's and the pipeline's outputs
-    against the unfused pipeline's; then the bf16 path with its launches
-    (K2s and K2a 12 per call, at C=512) and the f32 checks of slice_path."""
+    raw head outputs against the unfused head's (what follows the head is
+    the same code either way); then the bf16 path with its launches (K2s
+    and K2a 12 per call, at C=512) and the f32 checks of slice_path."""
     import torch
 
     from handnet_tpu_torch.models.fcos import preprocess
@@ -1127,24 +1179,20 @@ def phase_fused_towers(dev, cfg) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     pipe = HandNetPipeline(cfg, device=dev, seed=SEED)
-    images, depth, paras = make_frames(8, dev, seed=210)
+    images = make_frames(8, dev, seed=210)[0]
     with torch.inference_mode():
         net_in = preprocess(images, cfg.fcos)[0]
         unfused_head = pipe.detector(net_in)
-        unfused = pipe(images, depth, paras)
         pipe.detector.head.fused_towers = True
         reset_launch_counts()
         fused_head = pipe.detector(net_in)
         counts = launch_counts()
-        fused = pipe(images, depth, paras)
     head_err = head_outputs_close("fused vs unfused head (f32)", fused_head, unfused_head)
-    if counts["gn_group_stats"] != GN_FUSED_PER_CALL or counts["gn_apply"] != GN_FUSED_PER_CALL:
+    if counts != {**expected_launches(1, GN_FUSED_PER_CALL), "a2j_decode": 0}:
         raise AssertionError(f"fused towers: launch counts {counts} for one detector call")
-    err = compare_outputs("fused vs unfused pipeline (f32)", fused, unfused, 1e-2)
     torch.backends.cudnn.allow_tf32 = True
     log("geometries", f"fused towers f32 batch 8: head outputs == unfused head's (max|err| "
-        f"{head_err:.3e}, rtol 1e-4 + 1e-4 of scale); pipeline == unfused on found/sides/"
-        f"boxes/crops, joints max|err| {err:.3e}; detector launches {counts}")
+        f"{head_err:.3e}, rtol 1e-4 + 1e-4 of scale); detector launches {counts}")
     del pipe
     return slice_path(dev, cfg, "fused towers", GN_FUSED_PER_CALL, (8, 128), "geometries",
                       fused=True)
@@ -1165,7 +1213,8 @@ def separated_slots(scores, gap: float):
 def phase_ext_heads(dev, cfg) -> dict:
     """An ``ext=True`` detector (the fast profile with the 100DOH heads),
     detector-only through ``pipe.detect`` at 480x640, B=8, float32 with TF32
-    off: shapes, finite values, (dx, dy) of norm 0.1 or 0; held against the
+    off: K2s and K2a 24 launches each and no other kernel's, shapes, finite
+    values, (dx, dy) of norm 0.1 or 0; held against the
     port's CPU run on 2 frames: scores to 1e-5, and the detections whose
     score stands more than 1e-4 from its neighbours' equal (labels, sides,
     contacts, valid) or close (boxes, dxdymags)."""
@@ -1180,6 +1229,9 @@ def phase_ext_heads(dev, cfg) -> dict:
     det = pipe.detect(images)
     torch.cuda.synchronize()
     counts = launch_counts()
+    if counts != {**expected_launches(1, GN_LAYERS_PER_CALL), "a2j_decode": 0}:
+        raise AssertionError(f"ext detect: launch counts {counts}, expected K2s and K2a "
+                             f"{GN_LAYERS_PER_CALL} each, no K1 and no K3")
     b, k = len(images), cfg.fcos.max_detections
     if tuple(det["contacts"].shape) != (b, k) or tuple(det["dxdymags"].shape) != (b, k, 3):
         raise AssertionError(f"ext detect: contacts {tuple(det['contacts'].shape)}, dxdymags "
@@ -1458,6 +1510,10 @@ def main() -> int:
                 "launches": launches[name], **results[name],
                 "launches_per_call": {path: counts[name] for path, counts in by_path.items()}}
                for name, (src, replaces) in sources.items()]
+    log("card", f"device_ms: {PROFILER_SESSIONS['short']} of "
+        f"{PROFILER_SESSIONS['sessions']} profiler sessions lost kernel records "
+        f"({PROFILER_SESSIONS['lost_records']} in all) and were taken again or priced by "
+        "their recorded launches")
     log("card", f"every phase passed in {time.perf_counter() - started:.1f} s, the kernels' "
         "build included")
     print(smi, flush=True)
