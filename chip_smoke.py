@@ -8,6 +8,26 @@ the next starts:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. build: compiles ``handnet_tpu_torch/csrc/*.cu`` for sm_90a (first use).
+serve: the serving tier at 480x640, bf16, buckets 1, 8 and 128, seeded
+   random weights, score threshold 0. ``PipelineServer`` captures one CUDA
+   graph per bucket (``graphs.py``; the eager warm-up and capture calls must
+   launch K1 1, K2s and K2a 24, K3q and K3g 0 or 129 times per call), and a
+   replay must equal the eager forward of the same bucket bit for bit, at
+   B=8 and 128, for fast and for calibrated quant_static, while launching
+   nothing through the wrappers. A fast server fed by 4 host threads with
+   512 frames returns each frame once with its ids and no error, and a
+   full and a partial dispatch equal the eager forward of their padded
+   batch bit for bit; it prints ``sustained_fps``, ``compute_fps_probe()``,
+   ``latency_stats()`` and ``bucket_dispatches``. Then a trickle of 16
+   single frames (bucket 1, p50/p99), one injected failing dispatch (error
+   results, the server goes on), and the fast forward's ms per call at B=8
+   and 128, eager against replay, in turns. Last, calibrated quant_static is
+   exported (``export.export_pipeline``, quantized wire) under
+   ``build/serve_artifact``; a fresh interpreter that must not import jax,
+   the JAX package or ``handnet_tpu_torch.models`` loads it, predicts 3
+   frames (bucket 8, pad 5 > 3) and 130 (128 + 2), which must equal the
+   live pipeline at the same buckets bit for bit, and serves 64 frames
+   through ``PipelineServer.from_artifact``.
 3. kernels: every kernel against its plain PyTorch version, and its time
    twice: by a loop of wrapper calls between two CUDA events (``cuda_ms``,
    which the host bounds when the kernel is short) and by the kernel's own
@@ -60,12 +80,16 @@ the next starts:
    then a per-stage split of fast and quant_static (CUDA events), the
    latency of a batch of 8, and a profile of quant_static by kernel; then
    parity and turbo with kernels and plain versions, the fused and the
-   unfused towers, in turns, parity int8, and a stage split of parity.
+   unfused towers, in turns, parity int8, and a stage split of parity;
+   last, the share of the wall time in which no kernel runs (torch.profiler)
+   for the fast forward at B=8 and 128, eager and as a graph replay.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
-the quant_static run's, ``launches_per_call`` each path's, and K2s's and
-K2a's ``shapes`` hold their numbers at the shapes of phase 5.
+the quant_static run's, ``launches_per_call`` each path's (for the serving
+paths, per eager warm-up or capture call: a replay launches through no
+wrapper), and K2s's and K2a's ``shapes`` hold their numbers at the shapes
+of phase 5.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
@@ -1383,25 +1407,30 @@ def phase_geometry_throughput(dev, cfgs) -> None:
 def stage_split(pipes, images, depth) -> None:
     """ms per stage at B=128 bf16 (CUDA events, 5 calls after 2), each
     stage run alone on the previous stage's output, for each ``(name,
-    pipe)``."""
+    pipe)``; under ``torch.inference_mode()``, as the pipeline's forward
+    runs (with autograd on, the stage outputs held here would keep every
+    activation of the parity detector alive)."""
+    import torch
+
     from handnet_tpu_torch.models.a2j import a2j_postprocess
-    from handnet_tpu_torch.models.fcos import decode_detections, preprocess
+    from handnet_tpu_torch.models.fcos import decode_detections
 
     for name, pipe in pipes:
-        det = pipe.detector
-        net_in, scale = preprocess(images, det.cfg)
-        head = det(net_in)
-        stage = pipe._detect_and_crop(images, depth)
-        heads = pipe.a2j(stage["crops"])
-        times = {
-            "preprocess": cuda_ms(lambda: preprocess(images, det.cfg), 5, 2),
-            "detector network": cuda_ms(lambda: det(net_in), 5, 2),
-            "decode + NMS": cuda_ms(lambda: decode_detections(head, det.anchors, det.cfg,
-                                                              scale_to_original=scale), 5, 2),
-            "A2J network": cuda_ms(lambda: pipe.a2j(stage["crops"]), 5, 2),
-            "A2J decode": cuda_ms(lambda: a2j_postprocess(heads, pipe.a2j.anchors), 5, 2),
-            "whole forward": cuda_ms(lambda: pipe(images, depth), 5, 2),
-        }
+        with torch.inference_mode():
+            det = pipe.detector
+            net_in, scale = det.preprocess(images)
+            head = det(net_in)
+            stage = pipe._detect_and_crop(images, depth)
+            heads = pipe.a2j(stage["crops"])
+            times = {
+                "preprocess": cuda_ms(lambda: det.preprocess(images), 5, 2),
+                "detector network": cuda_ms(lambda: det(net_in), 5, 2),
+                "decode + NMS": cuda_ms(lambda: decode_detections(
+                    head, det.anchors, det.cfg, scale_to_original=scale), 5, 2),
+                "A2J network": cuda_ms(lambda: pipe.a2j(stage["crops"]), 5, 2),
+                "A2J decode": cuda_ms(lambda: a2j_postprocess(heads, pipe.a2j.anchors), 5, 2),
+                "whole forward": cuda_ms(lambda: pipe(images, depth), 5, 2),
+            }
         log("throughput", f"stage split, {name} kernels, bf16 B=128 (ms): "
             + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
 
@@ -1433,6 +1462,509 @@ def profile_by_kernel(name: str, pipe, images, depth, calls: int = 3) -> None:
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:14]:
         log("throughput", f"  {ms / calls:8.3f} ms/call {count // calls:5d} launches/call  "
             f"{key[:110]}")
+
+
+# --- the serving tier: CUDA graphs per bucket, PipelineServer, the artifact ---
+
+SERVE_BUCKETS = (1, 8, 128)
+SERVE_FRAMES = 512                # the host-thread-fed run
+SERVE_STREAMS = 4
+TRICKLE_FRAMES = 16
+ARTIFACT_SERVE_FRAMES = 64
+ARTIFACT_DIR = "build/serve_artifact"
+GRAPH_WARMUP = 3                  # eager calls before each capture (BucketGraphs)
+
+# Run in a fresh interpreter by the [serve] phase: load the artifact with no
+# model code, predict 3 frames (bucket 8, pad 5 > 3) and 130 (128 + 2), save
+# them, then serve 64 frames through PipelineServer.from_artifact.
+_ARTIFACT_SCRIPT = r"""
+import json, sys, threading, time
+import numpy as np
+import torch
+
+def foreign():
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                  "handnet_tpu") or m.startswith("handnet_tpu_torch.models"))
+
+path, device, seed, n_serve, streams = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+    int(sys.argv[4]), int(sys.argv[5])
+start = time.perf_counter()
+from handnet_tpu_torch.export import ServingArtifact
+from handnet_tpu_torch.ops import cuda_a2j, cuda_gn, cuda_int8_conv
+art = ServingArtifact.load(path, device=device)
+load_s = time.perf_counter() - start
+assert not foreign(), foreign()
+counted = {"a2j_decode": cuda_a2j.a2j_decode, "gn_group_stats": cuda_gn.gn_group_stats,
+           "gn_apply": cuda_gn.gn_apply, "int8_quantize": cuda_int8_conv.int8_quantize,
+           "int8_conv_gemm": cuda_int8_conv.int8_conv_gemm}
+h, w = art.frame_hw
+rng = np.random.default_rng(seed)
+rgb = rng.integers(0, 256, size=(133, h, w, 3), dtype=np.uint8)
+depth = rng.integers(300, 1000, size=(133, h, w), dtype=np.uint16)
+start = time.perf_counter()
+few, many = art.predict(rgb[:3], depth[:3]), art.predict(rgb[3:], depth[3:])
+predict_s = time.perf_counter() - start
+np.savez(f"{path}/predicted.npz", **{f"few/{k}": v for k, v in few.items()},
+         **{f"many/{k}": v for k, v in many.items()})
+launches = {name: fn.launches for name, fn in counted.items()}
+captured = list(art.graphs.captured)
+
+from handnet_tpu_torch.apps.serve import PipelineServer
+server = PipelineServer.from_artifact(art, flush_timeout=0.002).start()
+def feed(sid):
+    for fid in range(n_serve // streams):
+        server.submit(sid, fid, rgb[(sid + fid) % 8], depth[(sid + fid) % 8])
+threads = [threading.Thread(target=feed, args=(s,)) for s in range(streams)]
+for t in threads:
+    t.start()
+got = [server.get(timeout=300) for _ in range(n_serve)]
+for t in threads:
+    t.join()
+server.stop()
+ids = sorted((sid, fid) for sid, fid, _ in got)
+assert ids == sorted((s, f) for s in range(streams) for f in range(n_serve // streams)), ids
+assert not any("error" in out for _, _, out in got), [o for _, _, o in got if "error" in o][:1]
+assert all(np.isfinite(out["joints_uvd"]).all() for _, _, out in got)
+assert not foreign(), foreign()
+print(json.dumps({"load_s": load_s, "predict_s": predict_s, "launches": launches,
+                  "captured": captured, "served": len(got),
+                  "bucket_dispatches": server.bucket_dispatches,
+                  "sustained_fps": server.sustained_fps, "latency": server.latency_stats()}))
+"""
+
+
+def wire_frames(batch: int, seed: int, hw=(480, 640)):
+    """Seeded sensor-format frames: uint8 RGB ``[B, H, W, 3]`` and uint16
+    depth in mm ``[B, H, W]`` (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, size=(batch, *hw, 3), dtype=np.uint8),
+            rng.integers(300, 1000, size=(batch, *hw), dtype=np.uint16))
+
+
+def padded_eager(forward, rgb, depth, bucket: int, dev) -> dict:
+    """``forward`` (wire frames on ``dev``) on ``rgb``/``depth`` padded with
+    zero frames to ``bucket``, cut back to the real frames, on the host."""
+    import numpy as np
+    import torch
+
+    n = len(rgb)
+    pad = [(0, bucket - n)] + [(0, 0)] * (rgb.ndim - 1)
+    im = torch.from_numpy(np.pad(rgb, pad)).to(dev)
+    d = torch.from_numpy(np.pad(depth, pad[:-1])).to(dev)
+    return {k: v[:n].cpu() for k, v in forward(im, d).items()}
+
+
+def check_serve_outputs(out: dict, batch: int, crop: int, joints: int,
+                        expect_found: bool) -> None:
+    """Shapes of the server's fields, finite values, every frame found."""
+    import torch
+
+    shapes = {"joints_uvd": (batch, joints, 3), "joints_uvd_full": (batch, joints, 3),
+              "boxes": (batch, 4), "crops": (batch, crop, crop, 1), "found": (batch,),
+              "scores": (batch,), "sides": (batch,)}
+    for key, value in out.items():
+        if tuple(value.shape) != shapes[key]:
+            raise AssertionError(f"{key}: shape {tuple(value.shape)} != {shapes[key]}")
+        if value.is_floating_point() and not bool(torch.isfinite(value).all()):
+            raise AssertionError(f"{key}: non-finite values")
+    if expect_found and not bool(out["found"].all()):
+        raise AssertionError(f"found: {int(out['found'].sum())}/{batch} frames")
+
+
+def assert_equal_outputs(name: str, got: dict, want: dict) -> None:
+    import torch
+
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{name}: keys {sorted(got)} vs {sorted(want)}")
+    for key in want:
+        g, w = torch.as_tensor(got[key]).cpu(), torch.as_tensor(want[key]).cpu()
+        if g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{name}: {key} differs")
+
+
+def serving_server(cfg, dev, state_dict, buckets, frame_hw):
+    from handnet_tpu_torch.apps.serve import PipelineServer
+
+    return PipelineServer(cfg, batch_size=buckets[-1], state_dict=state_dict,
+                          frame_hw=frame_hw, dtype=cfg_dtype(dev), batch_buckets=buckets,
+                          device=dev)
+
+
+def cfg_dtype(dev):
+    import torch
+
+    return torch.bfloat16 if torch.device(dev).type == "cuda" else torch.float32
+
+
+def replay_against_eager(name: str, server, gn: int, int8: int, frame_hw, sizes,
+                         expect_found: bool) -> dict:
+    """Capture every bucket of ``server`` (counting the eager warm-up and
+    capture calls' launches), then hold a replay of each of ``sizes``
+    against the eager forward of the same bucket, bit for bit; a replay
+    launches nothing through the Python wrappers. Returns the launches per
+    eager call."""
+    import torch
+
+    cfg, dev = server.cfg, server.device
+    crop, joints = cfg.pipeline.crop_size, cfg.a2j.num_joints
+    reset_launch_counts()
+    start = time.perf_counter()
+    server.compile()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - start
+    calls = (GRAPH_WARMUP + 1) * len(server.batch_buckets) if dev.type == "cuda" else 0
+    launches = launch_counts()
+    if calls and launches != expected_launches(calls, gn, int8):
+        raise AssertionError(f"{name}: launches {launches} in {calls} eager calls of the "
+                             f"capture: expected K1 1, K2s/K2a {gn}, K3q/K3g {int8} per call")
+    log("serve", f"{name}: captured buckets {list(server.batch_buckets)} in {seconds:.3f} s "
+        f"({GRAPH_WARMUP} warm-up calls and the capture each); launches {launches} "
+        f"in {calls} eager calls")
+    for i, bsz in enumerate(sizes):
+        rgb, depth = wire_frames(bsz, seed=700 + i, hw=frame_hw)
+        im, d = torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev)
+        reset_launch_counts()
+        eager = server._pipeline_forward(im, d)
+        eager_launches = launch_counts()
+        if dev.type == "cuda" and eager_launches != expected_launches(1, gn, int8):
+            raise AssertionError(f"{name}: eager call of {bsz}: launches {eager_launches}")
+        reset_launch_counts()
+        replay = server.graphs.run(bsz, im, d)
+        if dev.type == "cuda" and any(launch_counts().values()):
+            raise AssertionError(f"{name}: a replay went through the Python wrappers: "
+                                 f"{launch_counts()}")
+        check_serve_outputs(replay, bsz, crop, joints, expect_found)
+        assert_equal_outputs(f"{name} B={bsz} replay vs eager", replay, eager)
+        log("serve", f"{name} bf16 B={bsz}: graph replay == eager forward bit for bit on "
+            f"{sorted(replay)}; eager launches {eager_launches}, replay launches none "
+            "through the wrappers")
+    return per_call(launches, calls) if calls else {}
+
+
+def host_ms_in_turns(server, sizes, frame_hw, iters: int = 10) -> None:
+    """ms per call, host clock around synchronize, of the eager forward and
+    of a graph replay (copy in, replay, copy out) at each batch of
+    ``sizes``, in turns: eager, replay, replay, eager."""
+    import torch
+
+    dev = server.device
+    for bsz in sizes:
+        rgb, depth = wire_frames(bsz, seed=720, hw=frame_hw)
+        im, d = torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev)
+        runs = {"eager": lambda: server._pipeline_forward(im, d),
+                "replay": lambda: server.graphs.run(bsz, im, d, fields=server.out_fields)}
+        ms = {"eager": [], "replay": []}
+        for name in ("eager", "replay", "replay", "eager"):
+            for _ in range(2):
+                runs[name]()
+            torch.cuda.synchronize(dev)
+            start = time.perf_counter()
+            for _ in range(iters):
+                runs[name]()
+            torch.cuda.synchronize(dev)
+            ms[name].append((time.perf_counter() - start) * 1e3 / iters)
+        log("serve", f"fast bf16 B={bsz}, ms per call (host clock, {iters} calls, in turns "
+            f"eager, replay, replay, eager): eager " + ", ".join(f"{v:.3f}" for v in ms["eager"])
+            + "; replay " + ", ".join(f"{v:.3f}" for v in ms["replay"]))
+
+
+def phase_idle_shares(dev, cfg) -> None:
+    """The share of the wall time in which no kernel runs, under
+    torch.profiler, for the fast forward at B=8 and 128, eager and as a
+    CUDA-graph replay. Last of the script: in two runs on the card's machine,
+    profiler sessions over graph replays taken in the [serve] phase left the
+    one-call session of [kernels] that followed empty."""
+    import torch
+
+    from handnet_tpu_torch.graphs import BucketGraphs, dequantize_wire
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+    pipe = HandNetPipeline(cfg, dtype=torch.bfloat16, device=dev, seed=SEED)
+    forward = lambda im, d: pipe(*dequantize_wire(im, d))   # noqa: E731
+    graphs = BucketGraphs(forward, (480, 640), True, dev)
+    for bsz in SERVE_BUCKETS[1:]:
+        rgb, depth = wire_frames(bsz, seed=720)
+        im, d = torch.from_numpy(rgb).to(dev), torch.from_numpy(depth).to(dev)
+        for name, fn in (("eager", lambda: forward(im, d)),
+                         ("replay", lambda: graphs.run(bsz, im, d))):
+            wall, busy = busy_ms(fn)
+            log("throughput", f"fast bf16 B={bsz} {name} under the profiler: wall {wall:.3f} ms "
+                f"per call, kernels {busy:.3f} ms, no kernel running "
+                f"{max(0.0, 1 - busy / wall) * 100:.1f}% of the wall time" if busy else
+                f"fast bf16 B={bsz} {name}: the profiler recorded no device time")
+
+
+def busy_ms(fn, calls: int = 5) -> tuple:
+    """(wall ms, kernel ms) per call of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - start) * 1e3 / calls
+    return wall, sum(ms for _, ms, _ in device_rows(prof)) / calls
+
+
+def serve_fed(server, frame_hw, n_frames: int, streams: int, expect_found: bool) -> None:
+    """``n_frames`` from ``streams`` host threads through the started
+    ``server``: every frame comes back once with its ids and no error, and
+    the frames of the first full and the first partial dispatch equal the
+    eager forward of their padded batch, bit for bit."""
+    import threading
+
+    import numpy as np
+
+    cfg = server.cfg
+    pool = wire_frames(8, seed=730, hw=frame_hw)
+    dispatches = []
+    dispatch = server._dispatch
+
+    def recording(items):   # which frames rode together, in which bucket
+        out = dispatch(items)
+        bucket = next(b for b in server.batch_buckets if b >= len(items))
+        dispatches.append(([(sid, fid) for sid, fid, *_ in items], bucket))
+        return out
+
+    server._dispatch = recording
+    per_stream = n_frames // streams
+
+    def feed(sid):
+        for fid in range(per_stream):
+            k = (sid + fid) % len(pool[0])
+            server.submit(sid, fid, pool[0][k], pool[1][k])
+
+    before = dict(server.bucket_dispatches)
+    threads = [threading.Thread(target=feed, args=(s,)) for s in range(streams)]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    got = {}
+    for _ in range(streams * per_stream):
+        sid, fid, out = server.get(timeout=300)
+        if (sid, fid) in got:
+            raise AssertionError(f"frame {(sid, fid)} came back twice")
+        got[(sid, fid)] = out
+    seconds = time.perf_counter() - start
+    for t in threads:
+        t.join()
+    del server._dispatch     # the class's method again
+    if set(got) != {(s, f) for s in range(streams) for f in range(per_stream)}:
+        raise AssertionError(f"served {len(got)} frames, not every one of {n_frames}")
+    errors = [out["error"] for out in got.values() if "error" in out]
+    if errors:
+        raise AssertionError(f"{len(errors)} frames came back with an error: {errors[0]}")
+    for (sid, fid), out in got.items():
+        if not np.isfinite(out["joints_uvd"]).all() or (expect_found and not out["found"]):
+            raise AssertionError(f"frame {(sid, fid)}: non-finite joints or not found")
+    checked = []
+    for ids, bucket in dispatches:
+        if (len(ids) == bucket and "full" not in checked) or (
+                len(ids) < bucket and "partial" not in checked):
+            ks = [(sid + fid) % len(pool[0]) for sid, fid in ids]
+            want = padded_eager(server._pipeline_forward, pool[0][ks], pool[1][ks], bucket,
+                                server.device)
+            served = {k: np.stack([got[i][k] for i in ids]) for k in server.out_fields}
+            assert_equal_outputs(f"dispatch of {len(ids)} in bucket {bucket}", served,
+                                 {k: want[k] for k in server.out_fields})
+            checked.append("full" if len(ids) == bucket else "partial")
+            log("serve", f"a dispatch of {len(ids)} frames in bucket {bucket}: served "
+                "results == the eager forward of the padded batch, bit for bit")
+    moved = {b: server.bucket_dispatches[b] - before[b] for b in before}
+    log("serve", f"served {len(got)} frames from {streams} host threads in {seconds:.3f} s "
+        f"({len(got) / seconds:.1f} frames/s client-side): each once with its ids, no error; "
+        f"sustained_fps {server.sustained_fps:.1f}; latency_stats {server.latency_stats()}; "
+        f"bucket_dispatches of this run {moved}")
+
+
+def serve_trickle(server, frame_hw, n_frames: int) -> None:
+    """Single frames, each submitted after the last result: they ride bucket
+    1; their submit->result latencies, client-side."""
+    import numpy as np
+
+    rgb, depth = wire_frames(1, seed=740, hw=frame_hw)
+    before = server.bucket_dispatches[1]
+    lat = []
+    for fid in range(n_frames):
+        start = time.perf_counter()
+        server.submit("trickle", fid, rgb[0], depth[0])
+        sid, got_fid, out = server.get(timeout=120)
+        lat.append((time.perf_counter() - start) * 1e3)
+        if (sid, got_fid) != ("trickle", fid) or "error" in out:
+            raise AssertionError(f"trickle frame {fid}: got {(sid, got_fid)} {sorted(out)}")
+    if server.bucket_dispatches[1] - before != n_frames:
+        raise AssertionError(f"trickle: {server.bucket_dispatches[1] - before} bucket-1 "
+                             f"dispatches for {n_frames} frames")
+    p50, p99 = np.percentile(lat, [50, 99])
+    log("serve", f"trickle of {n_frames} single frames, each after the last result: all rode "
+        f"bucket 1; submit->result p50 {p50:.3f} ms, p99 {p99:.3f} ms, max {max(lat):.3f} ms")
+
+
+def serve_fault(server, frame_hw) -> None:
+    """One injected failing dispatch: its frames come back as errors, and
+    the server keeps serving."""
+    rgb, depth = wire_frames(2, seed=750, hw=frame_hw)
+    fwd, state = server._fwd, {"fail": 1}
+
+    def flaky(images, depth_):
+        if state["fail"]:
+            state["fail"] -= 1
+            raise RuntimeError("injected dispatch failure")
+        return fwd(images, depth_)
+
+    errors = server.error_count
+    server._fwd = flaky
+    try:
+        server.submit("fault", 0, rgb[0], depth[0])
+        sid, fid, out = server.get(timeout=120)
+        if "injected dispatch failure" not in out.get("error", ""):
+            raise AssertionError(f"fault: frame {(sid, fid)} came back as {sorted(out)}")
+        server.submit("fault", 1, rgb[1], depth[1])
+        sid, fid, out = server.get(timeout=120)
+        if fid != 1 or "error" in out:
+            raise AssertionError(f"fault: the next frame came back as {sorted(out)}")
+    finally:
+        del server._fwd      # the class's method again
+    if server.error_count != errors + 1:
+        raise AssertionError(f"fault: error_count {server.error_count}, expected {errors + 1}")
+    log("serve", "an injected failing dispatch came back as an error result for its frame; "
+        "the next frame was served")
+
+
+def serve_artifact(pipe, cfg, dev, frame_hw, buckets) -> dict:
+    """Export the calibrated static-int8 pipeline (quantized wire), load it
+    in a fresh interpreter that imports neither jax, the JAX package nor
+    ``handnet_tpu_torch.models``, and hold its ``predict`` (3 frames into
+    bucket 8, 130 = 128 + 2) against the live pipeline at the same buckets,
+    bit for bit; that interpreter then serves frames through
+    ``PipelineServer.from_artifact``. Returns its launches per eager call."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.export import export_pipeline
+    from handnet_tpu_torch.graphs import dequantize_wire
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ARTIFACT_DIR)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    start = time.perf_counter()
+    export_pipeline(cfg, pipe.state_dict(), out_dir, buckets=buckets, frame_hw=frame_hw,
+                    dtype=cfg_dtype(dev), quantized_wire=True, device=dev)
+    export_s = time.perf_counter() - start
+    sizes = {name: os.path.getsize(os.path.join(out_dir, "graphs", name))
+             for name in sorted(os.listdir(os.path.join(out_dir, "graphs")))}
+    log("serve", f"exported quant_static (quantized wire, buckets {list(buckets)}) in "
+        f"{export_s:.2f} s: graphs {sizes} bytes, weights "
+        f"{os.path.getsize(os.path.join(out_dir, 'weights.npz'))} bytes")
+
+    seed = 760
+    rgb, depth = wire_frames(133, seed, hw=frame_hw)
+
+    def live(frames, deps):
+        forward = lambda im, d: pipe(*dequantize_wire(im, d))   # noqa: E731
+        top, parts = buckets[-1], []
+        for s in range(0, len(frames), top):
+            n = len(frames[s:s + top])
+            bucket = next(b for b in buckets if b >= n)
+            parts.append(padded_eager(forward, frames[s:s + top], deps[s:s + top], bucket, dev))
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+    want = {"few": live(rgb[:3], depth[:3]), "many": live(rgb[3:], depth[3:])}
+    free_device_memory(dev)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _ARTIFACT_SCRIPT, out_dir, str(dev), str(seed),
+                           str(ARTIFACT_SERVE_FRAMES), str(SERVE_STREAMS)],
+                          capture_output=True, text=True, env=env, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"artifact interpreter failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(os.path.join(out_dir, "predicted.npz")) as data:
+        for part in ("few", "many"):
+            got = {k.split("/", 1)[1]: data[k] for k in data.files if k.startswith(part + "/")}
+            assert_equal_outputs(f"artifact predict ({part})", got, want[part])
+    log("serve", f"a fresh interpreter (no jax, no handnet_tpu, no handnet_tpu_torch.models) "
+        f"ran {time.perf_counter() - start:.2f} s: load {report['load_s']:.2f} s, predict of "
+        f"3 + 130 frames {report['predict_s']:.2f} s (graphs captured for buckets "
+        f"{report['captured']}) == the live pipeline at the same buckets, bit for bit, pad > n "
+        f"and chunking included; from_artifact served {report['served']} frames, each once, "
+        f"no error, {report['sustained_fps']:.1f} sustained fps, latency {report['latency']}, "
+        f"bucket_dispatches {report['bucket_dispatches']}")
+    if dev.type != "cuda":
+        return {}
+    calls = (GRAPH_WARMUP + 1) * len(report["captured"])
+    if report["launches"] != expected_launches(calls, GN_LAYERS_PER_CALL, INT8_LAUNCHES_PER_CALL):
+        raise AssertionError(f"artifact: launches {report['launches']} in {calls} eager calls")
+    return per_call(report["launches"], calls)
+
+
+def phase_serve(dev, cfg_fast, cfg_quant, frame_hw=(480, 640), buckets=SERVE_BUCKETS,
+                n_frames: int = SERVE_FRAMES, expect_found: bool = True) -> dict:
+    """The serving tier at full width: CUDA graph replays against the eager
+    forward (fast and calibrated quant_static, B=8 and 128), a fast server
+    fed by host threads, a trickle, host ms per call eager against replay,
+    fault isolation, and the static-int8 artifact in a fresh interpreter.
+    Returns the launches per eager call of each serving path."""
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+    sizes = buckets[1:]
+    paths = {}
+    fast = serving_server(cfg_fast, dev, HandNetPipeline(cfg_fast, dtype=cfg_dtype(dev),
+                                                         device=dev, seed=SEED).state_dict(),
+                          buckets, frame_hw)
+    paths["serve fast"] = replay_against_eager("fast", fast, GN_LAYERS_PER_CALL, 0, frame_hw,
+                                               sizes, expect_found)
+    log("serve", f"compute_fps_probe (B={buckets[-1]} pre-staged on the device, 2 in flight): "
+        f"{fast.compute_fps_probe():.1f} frames/s")
+    fast.start()
+    try:
+        serve_fed(fast, frame_hw, n_frames, SERVE_STREAMS, expect_found)
+        serve_trickle(fast, frame_hw, TRICKLE_FRAMES)
+        serve_fault(fast, frame_hw)
+    finally:
+        fast.stop()
+    log("serve", f"bucket_dispatches of the fast server {fast.bucket_dispatches}, error_count "
+        f"{fast.error_count}")
+    if dev.type == "cuda":
+        host_ms_in_turns(fast, sizes, frame_hw)
+    del fast
+    free_device_memory(dev)
+
+    pipe = calibrated_pipeline(dev, cfg_quant, cfg_dtype(dev))
+    quant = serving_server(cfg_quant, dev, pipe.state_dict(), buckets, frame_hw)
+    paths["serve quant_static"] = replay_against_eager("quant_static", quant,
+                                                      GN_LAYERS_PER_CALL,
+                                                      INT8_LAUNCHES_PER_CALL, frame_hw, sizes,
+                                                      expect_found)
+    del quant
+    free_device_memory(dev)
+    paths["artifact quant_static"] = serve_artifact(pipe, cfg_quant, dev, frame_hw, buckets)
+    del pipe
+    free_device_memory(dev)
+    return paths
+
+
+def free_device_memory(dev) -> None:
+    """Collect the objects dropped so far (a server and its graphs refer to
+    each other, so only the collector frees them, graph memory pools
+    included) and return the cached blocks to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1473,6 +2005,11 @@ def main() -> int:
         "ext": found_path(load_config(overrides={**FAST, "fcos": {**FAST["fcos"], "ext": True}})),
     }
 
+    # the serving tier first: its graphs, server and artifact (launches per
+    # eager call of each serving path)
+    by_path = phase_serve(dev, cfg, cfg_quant)
+    log("serve", f"device memory after the phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
     results = {"a2j_decode": phase_a2j_kernel(dev), **phase_gn_kernels(dev)}
     geos = int8_geometries(dev, cfg_dynamic)
     if (sum(map(len, geos.values())) != INT8_LAUNCHES_PER_CALL
@@ -1483,7 +2020,7 @@ def main() -> int:
     results["int8_quantize"], results["int8_conv_gemm"] = k3["k3q"], k3["k3g"]
     phase_encode_host_time(dev, geos)
 
-    by_path = {"fast": phase_slice(dev, cfg)}
+    by_path["fast"] = phase_slice(dev, cfg)
     # the main path of this script: every kernel runs in the quant_static slice
     launches = phase_quant_slice(dev, cfg_quant, cfg_dynamic)
     by_path["quant_static"] = per_call(launches, len(SLICE_REQUESTS))
@@ -1493,6 +2030,7 @@ def main() -> int:
         results[name]["shapes"] = shapes
     phase_throughput(dev, cfg, cfg_quant)
     phase_geometry_throughput(dev, geometry_cfgs)
+    phase_idle_shares(dev, cfg)
 
     sources = {"a2j_decode": ("handnet_tpu_torch/csrc/a2j_decode.cu",
                               "handnet_tpu/ops/pallas_a2j.py:55"),

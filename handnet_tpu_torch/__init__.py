@@ -13,7 +13,13 @@ normalize, affine and ReLU pass that XLA fuses for the JAX package) and
 ``ops.cuda_a2j`` (A2J anchor decode); ``ops.cuda_int8_conv`` computes the int8
 convolutions that XLA computes for the JAX package. A wrapper given a CPU
 tensor runs its plain PyTorch version; given a CUDA tensor it launches the
-kernel or raises.
+kernel or raises. Each kernel is a ``torch.library`` op
+(``torch.ops.handnet_torch.*``), so ``torch.export`` records it.
+
+Serving: ``apps.serve.PipelineServer`` (the streaming server, one CUDA
+graph per batch bucket from ``graphs``) and ``export`` (the deployment
+artifact: one ``torch.export`` program per bucket, loaded without model
+code), with the CLIs ``apps.serve`` and ``apps.export_pipeline``.
 """
 
 __version__ = "0.1.0"

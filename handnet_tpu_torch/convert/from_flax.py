@@ -17,6 +17,8 @@ Layout rules (reversed from the JAX package's converter):
 pipeline buffer name (``detector.backbone.body.layer1.0.conv1.act_amax``) and
 the key of the JAX package's calibration npz
 (``detector/quant_stats/backbone/layer1_0/conv1/act_amax``).
+:func:`load_params_npz` reads the flat npz trees the JAX package's
+``train.checkpoints.save_params_npz`` writes.
 """
 
 from __future__ import annotations
@@ -178,4 +180,19 @@ def pipeline_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
            for k, v in fcos_state_dict_from_flax(variables["detector"]).items()}
     out.update({f"a2j.{k}": v
                 for k, v in a2j_state_dict_from_flax(variables["a2j"]).items()})
+    return out
+
+
+def load_params_npz(path: str) -> dict:
+    """Rebuild a nested params dict from a flat ``.npz`` export (keys
+    ``a/b/c``): a copy of ``handnet_tpu/train/checkpoints.py``
+    ``load_params_npz``, whose module imports orbax."""
+    data = np.load(path)
+    out: dict = {}
+    for key in data.files:
+        parts = key.split("/")
+        node = out
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = data[key]
     return out

@@ -216,11 +216,17 @@ class FCOS(nn.Module):
         return self.head(pyramid)
 
 
-def preprocess(images: torch.Tensor, cfg: FCOSConfig
+def preprocess(images: torch.Tensor, cfg: FCOSConfig, mean: Optional[torch.Tensor] = None,
+               std: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Tuple[float, float]]:
     """Normalize RGB ``[B, H, W, 3]`` frames (0-1 float, or uint8) for the
     detector, resize them aspect-preserving to fit ``image_h x image_w``
     and pad them bottom/right to that size.
+
+    ``mean`` and ``std`` are ``cfg.image_mean``/``image_std`` as float32
+    tensors on the frames' device (``FCOSSystem``'s buffers); None builds
+    them from ``cfg``, a host-to-device copy at every call, which a CUDA
+    graph cannot capture.
 
     Frames that need no resample are only normalized and padded. Others are
     normalized, then resized with the pad fused in (``ops/resize.py``): the
@@ -234,9 +240,10 @@ def preprocess(images: torch.Tensor, cfg: FCOSConfig
     _, h, w, _ = images.shape
     scale = min(cfg.image_h / h, cfg.image_w / w)
     new_h, new_w = int(round(h * scale)), int(round(w * scale))
-    mean = torch.tensor(cfg.image_mean, dtype=images.dtype, device=images.device)
-    std = torch.tensor(cfg.image_std, dtype=images.dtype, device=images.device)
-    normalized = (images - mean) / std
+    if mean is None or std is None:
+        mean, std = (torch.tensor(v, dtype=torch.float32, device=images.device)
+                     for v in (cfg.image_mean, cfg.image_std))
+    normalized = (images - mean.to(images.dtype)) / std.to(images.dtype)
     if (new_h, new_w) != (h, w):
         normalized = resize_bilinear_matmul(normalized, new_h, new_w,
                                             padded_hw=(cfg.image_h, cfg.image_w))
@@ -298,10 +305,12 @@ def decode_detections(head: Dict[str, torch.Tensor], anchors: torch.Tensor,
         out["dxdymags"] = head["hand_dxdy"].float().gather(
             1, top_idx[..., None].expand(-1, -1, 3))
     if scale_to_original is not None:
+        # times [1/sx, 1/sy, 1/sx, 1/sy] in float32, one scalar per column:
+        # the same bits as a product with that vector, with no vector to
+        # copy to the device
         sy, sx = scale_to_original
-        out["boxes"] = out["boxes"] * torch.tensor(
-            [1 / sx, 1 / sy, 1 / sx, 1 / sy], dtype=torch.float32,
-            device=top_boxes.device)
+        out["boxes"] = torch.stack([c * (1 / s) for c, s in
+                                    zip(out["boxes"].unbind(-1), (sx, sy, sx, sy))], dim=-1)
     return out
 
 
@@ -309,19 +318,27 @@ class FCOSSystem(FCOS):
     """The FCOS module plus its anchor table and the ``detect`` entry.
 
     (The JAX package pairs a flax module with its anchors in a plain class;
-    here the anchors are a non-persistent buffer, so the state dict is
-    FCOS's own.)
+    here the anchors, and the normalization's mean and std, are
+    non-persistent buffers, so the state dict is FCOS's own.)
     """
 
     def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
         super().__init__(cfg, use_kernels)
         anchors, _, self.level_slices = anchors_for(self.cfg)
         self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+        for name, value in (("image_mean", self.cfg.image_mean),
+                            ("image_std", self.cfg.image_std)):
+            self.register_buffer(name, torch.tensor(value, dtype=torch.float32),
+                                 persistent=False)
+
+    def preprocess(self, images: torch.Tensor) -> Tuple[torch.Tensor, Tuple[float, float]]:
+        """:func:`preprocess` with this detector's config and buffers."""
+        return preprocess(images, self.cfg, self.image_mean, self.image_std)
 
     def detect(self, images_01: torch.Tensor) -> Dict[str, torch.Tensor]:
         """0-1 RGB frames ``[B, H, W, 3]`` -> padded detections in frame
         pixel coordinates."""
-        net_in, scale = preprocess(images_01, self.cfg)
+        net_in, scale = self.preprocess(images_01)
         head = self(net_in)
         return decode_detections(head, self.anchors, self.cfg,
                                  scale_to_original=scale)

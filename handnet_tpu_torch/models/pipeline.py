@@ -28,7 +28,7 @@ import torch.nn as nn
 
 from handnet_tpu_torch.config import HandNetConfig
 from handnet_tpu_torch.models.a2j import A2JSystem
-from handnet_tpu_torch.models.fcos import FCOSSystem, preprocess
+from handnet_tpu_torch.models.fcos import FCOSSystem
 from handnet_tpu_torch.nn.quant import QuantConv, apply_margin, set_calibrating
 from handnet_tpu_torch.ops.crop_resize import crop_resize_nearest, pad_box
 from handnet_tpu_torch.ops.geometry import convert_joints, crop_uvd_to_image_uvd
@@ -79,6 +79,10 @@ class HandNetPipeline(nn.Module):
         hand_label = self.cfg.pipeline.hand_label
         self.hand_label = (self.cfg.fcos.num_classes - 1
                            if hand_label is None else hand_label)
+        # the crop box of frames without a hand: a degenerate box that keeps
+        # the crop's gather in bounds
+        self.register_buffer("fallback_box", torch.tensor([0, 0, 175, 175], dtype=torch.int32),
+                             persistent=False)
         generator = torch.Generator().manual_seed(seed)
         self.detector.init_weights_(generator)
         self.a2j.init_weights_(generator)
@@ -121,10 +125,7 @@ class HandNetPipeline(nn.Module):
 
         # pad by 40% and clip (reference :88-97, int truncation first)
         crop_box = pad_box(box, cfg.pipeline.pad_percent, img_h, img_w)
-        # degenerate box for not-found frames keeps the gather in bounds
-        fallback = torch.tensor([0, 0, 175, 175], dtype=torch.int32,
-                                device=crop_box.device)
-        crop_box = torch.where(found[:, None], crop_box, fallback)
+        crop_box = torch.where(found[:, None], crop_box, self.fallback_box)
         size = cfg.pipeline.crop_size
         crops = crop_resize_nearest(depth_images, crop_box, size, size)
         return {"found": found, "scores": score, "sides": side,
@@ -203,7 +204,7 @@ class HandNetPipeline(nn.Module):
         try:
             set_calibrating(self.detector, True)
             for im, _ in batches:
-                self.detector(preprocess(im, self.cfg.fcos)[0])
+                self.detector(self.detector.preprocess(im)[0])
             set_calibrating(self.detector, False)
             set_calibrating(self.a2j, True)
             for im, d in batches:

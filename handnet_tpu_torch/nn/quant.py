@@ -87,15 +87,25 @@ class QuantConv(nn.Conv2d):
         self._weight_cache = None
 
     def quantized_weight(self):
-        """``(wq [O, kh, kw, I] int8, sw [O] float32)`` of the current weight."""
+        """``(wq [O, kh, kw, I] int8, sw [O] float32)`` of the current weight.
+
+        Cached until the weight changes. Under ``torch.export`` the weight is
+        a traced input with no storage, and the quantization goes into the
+        graph instead (the JAX package's graphs quantize their float kernels
+        in every call too)."""
         w = self.weight
+        if torch.compiler.is_compiling():
+            return self._quantize(w)
         key = (w.device, w.data_ptr(), w._version)
         if self._weight_cache is None or self._weight_cache[0] != key:
             with torch.no_grad():
-                wq, sw = quantize_symmetric(w, dims=(1, 2, 3))
-                self._weight_cache = (key, wq.permute(0, 2, 3, 1).contiguous(),
-                                      sw.reshape(-1).contiguous())
+                self._weight_cache = (key, *self._quantize(w))
         return self._weight_cache[1:]
+
+    @staticmethod
+    def _quantize(w: torch.Tensor):
+        wq, sw = quantize_symmetric(w, dims=(1, 2, 3))
+        return wq.permute(0, 2, 3, 1).contiguous(), sw.reshape(-1).contiguous()
 
     def activation_scale(self, x: torch.Tensor) -> torch.Tensor:
         """``sx`` of NHWC ``x``: ``[B]`` per sample (dynamic, calibrating) or

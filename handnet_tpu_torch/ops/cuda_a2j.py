@@ -11,6 +11,11 @@ copied as flat runs of 16 bytes (:func:`decode_plan`).
 :func:`staged_elements` transcribes which element each copy and each thread
 touches, so that a CPU test can check that every ``(anchor, joint)`` is
 copied once and read once, by a thread of its joint.
+
+The kernel is the ``torch.library`` op ``handnet_torch::a2j_decode``: its CPU
+implementation is the plain version, its CUDA implementation checks the
+inputs and launches K1, and its fake implementation gives ``torch.export``
+the output's shape, so an exported graph records the op itself.
 """
 
 from __future__ import annotations
@@ -104,21 +109,10 @@ def a2j_decode_reference(cls: torch.Tensor, reg: torch.Tensor,
     return torch.cat([xy, d[..., None]], dim=-1)
 
 
-def a2j_decode(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
-               anchors: torch.Tensor) -> torch.Tensor:
-    """Fused A2J decode -> UVD ``[B, P, 3]`` float32.
-
-    A CPU tensor takes :func:`a2j_decode_reference`. CUDA tensors launch the
-    kernel, which reads contiguous ``cls``, ``reg`` and ``depth`` in place
-    (one dtype for all three: float32 or bfloat16; ``reg``'s u and v stay
-    interleaved) with float32 ``anchors [N, 2]``; anything else raises:
-    a strided view is never copied silently. Two launches on the same
-    inputs give the same bits.
-    """
-    if cls.device.type == "cpu":
-        return a2j_decode_reference(cls, reg, depth, anchors)
-    if cls.device.type != "cuda":
-        raise ValueError(f"a2j_decode: unsupported device {cls.device}")
+def _a2j_decode_cuda(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
+                     anchors: torch.Tensor) -> torch.Tensor:
+    """CUDA implementation of ``handnet_torch::a2j_decode``: checks what K1
+    takes, then launches it on the current stream."""
     if cls.dim() != 3:
         raise ValueError(f"a2j_decode: cls must be [B, N, P], got {tuple(cls.shape)}")
     b, n, p = cls.shape
@@ -161,4 +155,33 @@ def a2j_decode(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
     return out
 
 
-a2j_decode.launches = 0  # kernel launches, counted by the wrapper
+def _a2j_decode_fake(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
+                     anchors: torch.Tensor) -> torch.Tensor:
+    return cls.new_empty((cls.shape[0], cls.shape[2], 3), dtype=torch.float32)
+
+
+_LIB = torch.library.Library("handnet_torch", "FRAGMENT")
+_LIB.define("a2j_decode(Tensor cls, Tensor reg, Tensor depth, Tensor anchors) -> Tensor")
+_LIB.impl("a2j_decode", a2j_decode_reference, "CPU")
+_LIB.impl("a2j_decode", _a2j_decode_cuda, "CUDA")
+torch.library.register_fake("handnet_torch::a2j_decode", _a2j_decode_fake, lib=_LIB)
+
+
+def a2j_decode(cls: torch.Tensor, reg: torch.Tensor, depth: torch.Tensor,
+               anchors: torch.Tensor) -> torch.Tensor:
+    """Fused A2J decode -> UVD ``[B, P, 3]`` float32: the op
+    ``handnet_torch::a2j_decode``.
+
+    A CPU tensor takes :func:`a2j_decode_reference`. CUDA tensors launch the
+    kernel, which reads contiguous ``cls``, ``reg`` and ``depth`` in place
+    (one dtype for all three: float32 or bfloat16; ``reg``'s u and v stay
+    interleaved) with float32 ``anchors [N, 2]``; anything else raises:
+    a strided view is never copied silently. Two launches on the same
+    inputs give the same bits.
+    """
+    if cls.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"a2j_decode: unsupported device {cls.device}")
+    return torch.ops.handnet_torch.a2j_decode(cls, reg, depth, anchors)
+
+
+a2j_decode.launches = 0  # kernel launches, counted by the op's CUDA implementation

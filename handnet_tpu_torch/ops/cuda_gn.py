@@ -14,6 +14,11 @@ Both kernels walk an image the same way: a block is ``rows`` pixel rows by
 K2s's blocks meet in a workspace and the last one folds the splits in order;
 :func:`gn_stats_split_emulation` transcribes that walk and fold, so that a
 CPU test can hold it against the plain version.
+
+Each kernel is a ``torch.library`` op (``handnet_torch::gn_group_stats``,
+``handnet_torch::gn_apply``): the CPU implementation is the plain version,
+the CUDA one checks the input and launches the kernel, and the fake one
+gives ``torch.export`` the output's shape.
 """
 
 from __future__ import annotations
@@ -78,11 +83,14 @@ def gn_group_stats_reference(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     return torch.stack([mean + correction, var], dim=1)
 
 
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
 def _check_nhwc(name: str, x: torch.Tensor, num_groups: int) -> None:
     """What K2s and K2a take on the card: float32 or bfloat16, contiguous
     NHWC, 16-byte aligned, C/G one of the supported widths."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"{name}: expected [B, H, W, C], got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -99,17 +107,8 @@ def _check_nhwc(name: str, x: torch.Tensor, num_groups: int) -> None:
         raise ValueError(f"{name}: x must be 16-byte aligned")
 
 
-def gn_group_stats(x: torch.Tensor, num_groups: int) -> torch.Tensor:
-    """Per-(image, group) GroupNorm statistics of NHWC ``x`` in one read.
-
-    Returns ``[B, 2, G]`` float32: ``[:, 0]`` means, ``[:, 1]`` biased
-    variances over (H, W, C/G), as flax ``GroupNorm(use_fast_variance=False)``
-    computes them. A CPU tensor takes :func:`gn_group_stats_reference`; a
-    CUDA tensor launches K2s (float32 or bfloat16, contiguous NHWC, 16-byte
-    aligned) or raises. Two launches on the same input give the same bits.
-    """
-    if x.device.type == "cpu":
-        return gn_group_stats_reference(x, num_groups)
+def _gn_group_stats_cuda(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """CUDA implementation of ``handnet_torch::gn_group_stats``: launches K2s."""
     _check_nhwc("gn_group_stats", x, num_groups)
     b, h, w, c = x.shape
     plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
@@ -135,7 +134,21 @@ def gn_group_stats(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     return out
 
 
-gn_group_stats.launches = 0  # kernel launches, counted by the wrapper
+def gn_group_stats(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Per-(image, group) GroupNorm statistics of NHWC ``x`` in one read:
+    the op ``handnet_torch::gn_group_stats``.
+
+    Returns ``[B, 2, G]`` float32: ``[:, 0]`` means, ``[:, 1]`` biased
+    variances over (H, W, C/G), as flax ``GroupNorm(use_fast_variance=False)``
+    computes them. A CPU tensor takes :func:`gn_group_stats_reference`; a
+    CUDA tensor launches K2s (float32 or bfloat16, contiguous NHWC, 16-byte
+    aligned) or raises. Two launches on the same input give the same bits.
+    """
+    _check_device("gn_group_stats", x)
+    return torch.ops.handnet_torch.gn_group_stats(x, num_groups)
+
+
+gn_group_stats.launches = 0  # kernel launches, counted by the op's CUDA implementation
 
 
 def gn_apply_reference(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
@@ -152,19 +165,9 @@ def gn_apply_reference(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor
     return torch.relu_(y) if relu else y
 
 
-def gn_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
-    """Normalize, affine and optional ReLU of NHWC ``x`` in one pass, from
-    the statistics ``[B, 2, G]`` of :func:`gn_group_stats`; returns a new
-    tensor of ``x``'s shape and dtype.
-
-    A CPU tensor takes :func:`gn_apply_reference`; a CUDA tensor launches
-    K2a (``x`` as K2s takes it; ``scale`` and ``bias`` contiguous ``[C]``,
-    both float32 or both bfloat16) or raises. The kernel rounds each
-    operation as the plain version does: the two agree bit for bit.
-    """
-    if x.device.type == "cpu":
-        return gn_apply_reference(x, stats, scale, bias, eps, relu)
+def _gn_apply_cuda(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, eps: float, relu: bool) -> torch.Tensor:
+    """CUDA implementation of ``handnet_torch::gn_apply``: launches K2a."""
     if stats.dim() != 3:
         raise ValueError(f"gn_apply: stats must be [B, 2, G], got {tuple(stats.shape)}")
     num_groups = stats.shape[-1]
@@ -198,7 +201,38 @@ def gn_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor, bias: to
     return out
 
 
-gn_apply.launches = 0  # kernel launches, counted by the wrapper
+def gn_apply(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """Normalize, affine and optional ReLU of NHWC ``x`` in one pass, from
+    the statistics ``[B, 2, G]`` of :func:`gn_group_stats`; returns a new
+    tensor of ``x``'s shape and dtype: the op ``handnet_torch::gn_apply``.
+
+    A CPU tensor takes :func:`gn_apply_reference`; a CUDA tensor launches
+    K2a (``x`` as K2s takes it; ``scale`` and ``bias`` contiguous ``[C]``,
+    both float32 or both bfloat16) or raises. The kernel rounds each
+    operation as the plain version does: the two agree bit for bit.
+    """
+    _check_device("gn_apply", x)
+    return torch.ops.handnet_torch.gn_apply(x, stats, scale, bias, eps, relu)
+
+
+gn_apply.launches = 0  # kernel launches, counted by the op's CUDA implementation
+
+_LIB = torch.library.Library("handnet_torch", "FRAGMENT")
+_LIB.define("gn_group_stats(Tensor x, int num_groups) -> Tensor")
+_LIB.impl("gn_group_stats", gn_group_stats_reference, "CPU")
+_LIB.impl("gn_group_stats", _gn_group_stats_cuda, "CUDA")
+torch.library.register_fake(
+    "handnet_torch::gn_group_stats",
+    lambda x, num_groups: x.new_empty((x.shape[0], 2, num_groups), dtype=torch.float32),
+    lib=_LIB)
+_LIB.define("gn_apply(Tensor x, Tensor stats, Tensor scale, Tensor bias, float eps, "
+            "bool relu) -> Tensor")
+_LIB.impl("gn_apply", gn_apply_reference, "CPU")
+_LIB.impl("gn_apply", _gn_apply_cuda, "CUDA")
+torch.library.register_fake(
+    "handnet_torch::gn_apply", lambda x, stats, scale, bias, eps, relu: torch.empty_like(x),
+    lib=_LIB)
 
 
 def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -13,7 +13,12 @@ steps, each a wrapper with its kernel and its plain version:
   and the float32 dequantize-and-bias epilogue: ``csrc/int8_conv.cu`` (K3g, a
   TMA-fed ``wgmma`` kernel) on a CUDA tensor; on a CPU tensor an explicit NHWC
   im2col multiplied with ``torch._int_mm`` (:func:`int8_conv_int32_reference`)
-  and :func:`dequantize`.
+  and :func:`dequantize` (:func:`int8_conv_gemm_reference`).
+
+Each step is a ``torch.library`` op (``handnet_torch::int8_quantize``,
+``handnet_torch::int8_conv_gemm``): the CPU implementation is the plain
+version, the CUDA one checks the operands and launches the kernel, and the
+fake one gives ``torch.export`` the output's shape and dtype.
 
 Integer sums are exact and both sides run the same float32 operations in the
 same order, so kernels and plain versions agree bit for bit.
@@ -171,6 +176,11 @@ def _check_sx(name: str, sx: torch.Tensor, batch: int) -> int:
     return 1 if sx.dim() and sx.numel() == batch else 0
 
 
+def _check_device(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
 def _check_operands(name: str, first: torch.Tensor, others) -> None:
     for t in others:
         if t is not None and (t.device != first.device or not t.is_contiguous()):
@@ -178,18 +188,8 @@ def _check_operands(name: str, first: torch.Tensor, others) -> None:
                              f"{first.device}")
 
 
-def int8_quantize(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """NHWC float ``x`` (float32 or bfloat16) to int8 by ``sx`` (``[]`` or
-    ``[B]`` float32): ``clip(round(x / sx), -127, 127)``.
-
-    A CPU tensor takes :func:`quantize_activation`. A CUDA tensor launches
-    K3q (contiguous, 16-byte aligned, a multiple of 16 elements per sample)
-    or raises.
-    """
-    if x.device.type == "cpu":
-        return quantize_activation(x, sx)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_quantize: unsupported device {x.device}")
+def _int8_quantize_cuda(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """CUDA implementation of ``handnet_torch::int8_quantize``: launches K3q."""
     if x.dim() != 4 or x.dtype not in _DTYPE_CODES:
         raise TypeError(f"int8_quantize: expected float32 or bfloat16 [B, H, W, C], got "
                         f"{x.dtype} {tuple(x.shape)}")
@@ -213,26 +213,37 @@ def int8_quantize(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
     return q
 
 
-int8_quantize.launches = 0  # K3q launches, counted by the wrapper
+def int8_quantize(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """NHWC float ``x`` (float32 or bfloat16) to int8 by ``sx`` (``[]`` or
+    ``[B]`` float32): ``clip(round(x / sx), -127, 127)``; the op
+    ``handnet_torch::int8_quantize``.
 
-
-def int8_conv_gemm(q: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
-                   bias: Optional[torch.Tensor], stride: Pair, padding: Pair, dilation: Pair,
-                   out_dtype: torch.dtype) -> torch.Tensor:
-    """int32 convolution of int8 NHWC ``q`` with int8 ``wq`` ``[O, kh, kw, I]``,
-    dequantized by ``sx`` (``[]`` or ``[B]``) times ``sw`` ``[O]``, plus
-    ``bias`` ``[O]`` float32 or None. Returns ``[B, Ho, Wo, O]`` in
-    ``out_dtype`` (float32 or bfloat16).
-
-    A CPU tensor takes :func:`int8_conv_int32_reference` and
-    :func:`dequantize`. A CUDA tensor launches K3g (contiguous NHWC, 16-byte
-    aligned, I and O multiples of 64) or raises.
+    A CPU tensor takes :func:`quantize_activation`. A CUDA tensor launches
+    K3q (contiguous, 16-byte aligned, a multiple of 16 elements per sample)
+    or raises.
     """
-    if q.device.type == "cpu":
-        acc = int8_conv_int32_reference(q, wq, stride, padding, dilation)
-        return dequantize(acc, sx, sw, bias).to(out_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"int8_conv_gemm: unsupported device {q.device}")
+    _check_device("int8_quantize", x)
+    return torch.ops.handnet_torch.int8_quantize(x, sx)
+
+
+int8_quantize.launches = 0  # K3q launches, counted by the op's CUDA implementation
+
+
+def int8_conv_gemm_reference(q: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                             sw: torch.Tensor, bias: Optional[torch.Tensor], stride: Pair,
+                             padding: Pair, dilation: Pair,
+                             out_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of K3g: :func:`int8_conv_int32_reference`, then
+    :func:`dequantize`, cast to ``out_dtype``."""
+    acc = int8_conv_int32_reference(q, wq, stride, padding, dilation)
+    return dequantize(acc, sx, sw, bias).to(out_dtype)
+
+
+def _int8_conv_gemm_cuda(q: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                         sw: torch.Tensor, bias: Optional[torch.Tensor], stride: Pair,
+                         padding: Pair, dilation: Pair,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """CUDA implementation of ``handnet_torch::int8_conv_gemm``: launches K3g."""
     if q.dim() != 4 or wq.dim() != 4 or q.dtype != torch.int8:
         raise ValueError(f"int8_conv_gemm: expected int8 q [B, H, W, C] and wq [O, kh, kw, C], "
                          f"got {q.dtype} {tuple(q.shape)} and {tuple(wq.shape)}")
@@ -271,7 +282,42 @@ def int8_conv_gemm(q: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torc
     return out
 
 
-int8_conv_gemm.launches = 0  # K3g launches, counted by the wrapper
+def _int8_conv_gemm_fake(q, wq, sx, sw, bias, stride, padding, dilation, out_dtype):
+    ho, wo = output_size(q.shape[1], q.shape[2], wq.shape[1], wq.shape[2], stride, padding,
+                         dilation)
+    return q.new_empty((q.shape[0], ho, wo, wq.shape[0]), dtype=out_dtype)
+
+
+def int8_conv_gemm(q: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
+                   bias: Optional[torch.Tensor], stride: Pair, padding: Pair, dilation: Pair,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """int32 convolution of int8 NHWC ``q`` with int8 ``wq`` ``[O, kh, kw, I]``,
+    dequantized by ``sx`` (``[]`` or ``[B]``) times ``sw`` ``[O]``, plus
+    ``bias`` ``[O]`` float32 or None; the op ``handnet_torch::int8_conv_gemm``.
+    Returns ``[B, Ho, Wo, O]`` in ``out_dtype`` (float32 or bfloat16).
+
+    A CPU tensor takes :func:`int8_conv_gemm_reference`. A CUDA tensor
+    launches K3g (contiguous NHWC, 16-byte aligned, I and O multiples of 64)
+    or raises.
+    """
+    _check_device("int8_conv_gemm", q)
+    return torch.ops.handnet_torch.int8_conv_gemm(q, wq, sx, sw, bias, stride, padding,
+                                                  dilation, out_dtype)
+
+
+int8_conv_gemm.launches = 0  # K3g launches, counted by the op's CUDA implementation
+
+_LIB = torch.library.Library("handnet_torch", "FRAGMENT")
+_LIB.define("int8_quantize(Tensor x, Tensor sx) -> Tensor")
+_LIB.impl("int8_quantize", quantize_activation, "CPU")
+_LIB.impl("int8_quantize", _int8_quantize_cuda, "CUDA")
+torch.library.register_fake("handnet_torch::int8_quantize",
+                            lambda x, sx: torch.empty_like(x, dtype=torch.int8), lib=_LIB)
+_LIB.define("int8_conv_gemm(Tensor q, Tensor wq, Tensor sx, Tensor sw, Tensor? bias, "
+            "int[2] stride, int[2] padding, int[2] dilation, ScalarType out_dtype) -> Tensor")
+_LIB.impl("int8_conv_gemm", int8_conv_gemm_reference, "CPU")
+_LIB.impl("int8_conv_gemm", _int8_conv_gemm_cuda, "CUDA")
+torch.library.register_fake("handnet_torch::int8_conv_gemm", _int8_conv_gemm_fake, lib=_LIB)
 
 
 def int8_conv(x: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,

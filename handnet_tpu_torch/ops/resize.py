@@ -10,7 +10,8 @@ the same two products.
 
 The JAX package leaves the two products to XLA; here they are two matrix
 products in float32 (cuBLAS on the card). The matrices are uploaded once
-per (sizes, device) and cached.
+per (sizes, device) and cached, so that a CUDA graph captured after a first
+call copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -46,9 +47,19 @@ def _resize_matrix(in_size: int, out_size: int,
     return m
 
 
-@lru_cache(maxsize=64)
 def _matrix_on(in_size: int, out_size: int, padded_out: int,
                device: torch.device) -> torch.Tensor:
+    """The weight rows on ``device``, uploaded once per (sizes, device). Under
+    ``torch.export`` they are uploaded afresh and become a constant of the
+    graph: the traced tensor must not outlive the trace in the cache."""
+    if torch.compiler.is_compiling():
+        return _uploaded.__wrapped__(in_size, out_size, padded_out, device)
+    return _uploaded(in_size, out_size, padded_out, device)
+
+
+@lru_cache(maxsize=64)
+def _uploaded(in_size: int, out_size: int, padded_out: int,
+              device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_resize_matrix(in_size, out_size, padded_out)).to(device)
 
 

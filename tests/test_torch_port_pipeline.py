@@ -151,6 +151,7 @@ pipe = HandNetPipeline(static, device="cpu")
 pipe.calibrate(*frames)
 assert bool(torch.isfinite(pipe(*frames)["joints_uvd"]).all())
 HandNetPipeline(C.load_config(overrides=C.QUANT_STATIC), device="cpu")
+import handnet_tpu_torch.apps.export_pipeline, handnet_tpu_torch.apps.serve, handnet_tpu_torch.export
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "handnet_tpu"))
 print("LOADED", loaded)
@@ -160,9 +161,9 @@ print("LOADED", loaded)
 def test_port_imports_no_jax():
     """A fresh interpreter runs the slice through the port, float and
     calibrated static int8, detects on frames that it resamples, builds the
-    full-width QUANT_STATIC pipeline,
-    and has loaded neither jax nor the JAX package (a subprocess: tests/conftest.py imports
-    jax into this one)."""
+    full-width QUANT_STATIC pipeline, imports the server, the artifact
+    module and the export CLI, and has loaded neither jax nor the JAX
+    package (a subprocess: tests/conftest.py imports jax into this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
