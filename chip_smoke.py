@@ -13,21 +13,23 @@ serve: the serving tier at 480x640, bf16, buckets 1, 8 and 128, seeded
    graph per bucket (``graphs.py``; the eager warm-up and capture calls must
    launch K1 1, K2s and K2a 24, K3q and K3g 0 or 129 times per call), and a
    replay must equal the eager forward of the same bucket bit for bit, at
-   B=8 and 128, for fast and for calibrated quant_static, while launching
+   B=1, 8 and 128, for fast and for calibrated quant_static, while launching
    nothing through the wrappers. A fast server fed by 4 host threads with
    512 frames returns each frame once with its ids and no error, and a
    full and a partial dispatch equal the eager forward of their padded
    batch bit for bit; it prints ``sustained_fps``, ``compute_fps_probe()``,
    ``latency_stats()`` and ``bucket_dispatches``. Then a trickle of 16
    single frames (bucket 1, p50/p99), one injected failing dispatch (error
-   results, the server goes on), and the fast forward's ms per call at B=8
-   and 128, eager against replay, in turns. Last, calibrated quant_static is
-   exported (``export.export_pipeline``, quantized wire) under
-   ``build/serve_artifact``; a fresh interpreter that must not import jax,
-   the JAX package or ``handnet_tpu_torch.models`` loads it, predicts 3
-   frames (bucket 8, pad 5 > 3) and 130 (128 + 2), which must equal the
-   live pipeline at the same buckets bit for bit, and serves 64 frames
-   through ``PipelineServer.from_artifact``.
+   results, the server goes on), and the fast and the quant_static forward's
+   ms per call at B=1, 8 and 128, eager against replay, in turns. Last,
+   calibrated quant_static is exported (``export.export_pipeline``,
+   quantized wire) under ``build/serve_artifact``; a fresh interpreter that
+   must not import jax, the JAX package or ``handnet_tpu_torch.models``
+   loads it, predicts 1 frame (bucket 1), 3 (bucket 8, pad 5 > 3) and 130
+   (128 + 2), which must equal the live pipeline at the same buckets bit
+   for bit, times a replay of each bucket (beside the live quant_static
+   replay above), and serves 64 frames through
+   ``PipelineServer.from_artifact``.
 3. kernels: every kernel against its plain PyTorch version, and its time
    twice: by a loop of wrapper calls between two CUDA events (``cuda_ms``,
    which the host bounds when the kernel is short) and by the kernel's own
@@ -1472,11 +1474,11 @@ SERVE_STREAMS = 4
 TRICKLE_FRAMES = 16
 ARTIFACT_SERVE_FRAMES = 64
 ARTIFACT_DIR = "build/serve_artifact"
-GRAPH_WARMUP = 3                  # eager calls before each capture (BucketGraphs)
 
 # Run in a fresh interpreter by the [serve] phase: load the artifact with no
-# model code, predict 3 frames (bucket 8, pad 5 > 3) and 130 (128 + 2), save
-# them, then serve 64 frames through PipelineServer.from_artifact.
+# model code, predict 1 frame (bucket 1), 3 (bucket 8, pad 5 > 3) and 130
+# (128 + 2), save them, time a replay of each bucket (the server's fields),
+# then serve 64 frames through PipelineServer.from_artifact.
 _ARTIFACT_SCRIPT = r"""
 import json, sys, threading, time
 import numpy as np
@@ -1502,14 +1504,32 @@ rng = np.random.default_rng(seed)
 rgb = rng.integers(0, 256, size=(133, h, w, 3), dtype=np.uint8)
 depth = rng.integers(300, 1000, size=(133, h, w), dtype=np.uint16)
 start = time.perf_counter()
-few, many = art.predict(rgb[:3], depth[:3]), art.predict(rgb[3:], depth[3:])
+parts = {"one": art.predict(rgb[:1], depth[:1]), "few": art.predict(rgb[:3], depth[:3]),
+         "many": art.predict(rgb[3:], depth[3:])}
 predict_s = time.perf_counter() - start
-np.savez(f"{path}/predicted.npz", **{f"few/{k}": v for k, v in few.items()},
-         **{f"many/{k}": v for k, v in many.items()})
+np.savez(f"{path}/predicted.npz",
+         **{f"{part}/{k}": v for part, out in parts.items() for k, v in out.items()})
 launches = {name: fn.launches for name, fn in counted.items()}
 captured = list(art.graphs.captured)
 
-from handnet_tpu_torch.apps.serve import PipelineServer
+from handnet_tpu_torch.apps.serve import DEFAULT_FIELDS, PipelineServer
+def sync():
+    if art.device.type == "cuda":
+        torch.cuda.synchronize(art.device)
+replay_ms = {}
+for b in art.buckets:
+    im, d = torch.from_numpy(rgb[:b]).to(art.device), torch.from_numpy(depth[:b]).to(art.device)
+    replay_ms[b] = []
+    for _ in range(2):
+        for _ in range(2):
+            art.graphs.run(b, im, d, fields=DEFAULT_FIELDS)
+        sync()
+        start = time.perf_counter()
+        for _ in range(10):
+            art.graphs.run(b, im, d, fields=DEFAULT_FIELDS)
+        sync()
+        replay_ms[b].append((time.perf_counter() - start) * 1e3 / 10)
+assert not any(fn.launches - launches[name] for name, fn in counted.items())
 server = PipelineServer.from_artifact(art, flush_timeout=0.002).start()
 def feed(sid):
     for fid in range(n_serve // streams):
@@ -1527,6 +1547,7 @@ assert not any("error" in out for _, _, out in got), [o for _, _, o in got if "e
 assert all(np.isfinite(out["joints_uvd"]).all() for _, _, out in got)
 assert not foreign(), foreign()
 print(json.dumps({"load_s": load_s, "predict_s": predict_s, "launches": launches,
+                  "replay_ms": replay_ms,
                   "captured": captured, "served": len(got),
                   "bucket_dispatches": server.bucket_dispatches,
                   "sustained_fps": server.sustained_fps, "latency": server.latency_stats()}))
@@ -1607,6 +1628,8 @@ def replay_against_eager(name: str, server, gn: int, int8: int, frame_hw, sizes,
     eager call."""
     import torch
 
+    from handnet_tpu_torch.graphs import WARMUP_CALLS
+
     cfg, dev = server.cfg, server.device
     crop, joints = cfg.pipeline.crop_size, cfg.a2j.num_joints
     reset_launch_counts()
@@ -1615,13 +1638,13 @@ def replay_against_eager(name: str, server, gn: int, int8: int, frame_hw, sizes,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - start
-    calls = (GRAPH_WARMUP + 1) * len(server.batch_buckets) if dev.type == "cuda" else 0
+    calls = (WARMUP_CALLS + 1) * len(server.batch_buckets) if dev.type == "cuda" else 0
     launches = launch_counts()
     if calls and launches != expected_launches(calls, gn, int8):
         raise AssertionError(f"{name}: launches {launches} in {calls} eager calls of the "
                              f"capture: expected K1 1, K2s/K2a {gn}, K3q/K3g {int8} per call")
     log("serve", f"{name}: captured buckets {list(server.batch_buckets)} in {seconds:.3f} s "
-        f"({GRAPH_WARMUP} warm-up calls and the capture each); launches {launches} "
+        f"({WARMUP_CALLS} warm-up calls and the capture each); launches {launches} "
         f"in {calls} eager calls")
     for i, bsz in enumerate(sizes):
         rgb, depth = wire_frames(bsz, seed=700 + i, hw=frame_hw)
@@ -1644,7 +1667,7 @@ def replay_against_eager(name: str, server, gn: int, int8: int, frame_hw, sizes,
     return per_call(launches, calls) if calls else {}
 
 
-def host_ms_in_turns(server, sizes, frame_hw, iters: int = 10) -> None:
+def host_ms_in_turns(name: str, server, sizes, frame_hw, iters: int = 10) -> None:
     """ms per call, host clock around synchronize, of the eager forward and
     of a graph replay (copy in, replay, copy out) at each batch of
     ``sizes``, in turns: eager, replay, replay, eager."""
@@ -1657,16 +1680,16 @@ def host_ms_in_turns(server, sizes, frame_hw, iters: int = 10) -> None:
         runs = {"eager": lambda: server._pipeline_forward(im, d),
                 "replay": lambda: server.graphs.run(bsz, im, d, fields=server.out_fields)}
         ms = {"eager": [], "replay": []}
-        for name in ("eager", "replay", "replay", "eager"):
+        for run in ("eager", "replay", "replay", "eager"):
             for _ in range(2):
-                runs[name]()
+                runs[run]()
             torch.cuda.synchronize(dev)
             start = time.perf_counter()
             for _ in range(iters):
-                runs[name]()
+                runs[run]()
             torch.cuda.synchronize(dev)
-            ms[name].append((time.perf_counter() - start) * 1e3 / iters)
-        log("serve", f"fast bf16 B={bsz}, ms per call (host clock, {iters} calls, in turns "
+            ms[run].append((time.perf_counter() - start) * 1e3 / iters)
+        log("serve", f"{name} bf16 B={bsz}, ms per call (host clock, {iters} calls, in turns "
             f"eager, replay, replay, eager): eager " + ", ".join(f"{v:.3f}" for v in ms["eager"])
             + "; replay " + ", ".join(f"{v:.3f}" for v in ms["replay"]))
 
@@ -1841,10 +1864,11 @@ def serve_fault(server, frame_hw) -> None:
 def serve_artifact(pipe, cfg, dev, frame_hw, buckets) -> dict:
     """Export the calibrated static-int8 pipeline (quantized wire), load it
     in a fresh interpreter that imports neither jax, the JAX package nor
-    ``handnet_tpu_torch.models``, and hold its ``predict`` (3 frames into
-    bucket 8, 130 = 128 + 2) against the live pipeline at the same buckets,
-    bit for bit; that interpreter then serves frames through
-    ``PipelineServer.from_artifact``. Returns its launches per eager call."""
+    ``handnet_tpu_torch.models``, and hold its ``predict`` (1 frame into
+    bucket 1, 3 into bucket 8, 130 = 128 + 2) against the live pipeline at
+    the same buckets, bit for bit; that interpreter times a replay of each
+    bucket and then serves frames through ``PipelineServer.from_artifact``.
+    Returns its launches per eager call."""
     import os
     import shutil
 
@@ -1852,7 +1876,7 @@ def serve_artifact(pipe, cfg, dev, frame_hw, buckets) -> dict:
     import torch
 
     from handnet_tpu_torch.export import export_pipeline
-    from handnet_tpu_torch.graphs import dequantize_wire
+    from handnet_tpu_torch.graphs import WARMUP_CALLS, dequantize_wire
 
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), ARTIFACT_DIR)
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -1878,7 +1902,8 @@ def serve_artifact(pipe, cfg, dev, frame_hw, buckets) -> dict:
             parts.append(padded_eager(forward, frames[s:s + top], deps[s:s + top], bucket, dev))
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
-    want = {"few": live(rgb[:3], depth[:3]), "many": live(rgb[3:], depth[3:])}
+    want = {"one": live(rgb[:1], depth[:1]), "few": live(rgb[:3], depth[:3]),
+            "many": live(rgb[3:], depth[3:])}
     free_device_memory(dev)
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
     start = time.perf_counter()
@@ -1890,19 +1915,23 @@ def serve_artifact(pipe, cfg, dev, frame_hw, buckets) -> dict:
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     with np.load(os.path.join(out_dir, "predicted.npz")) as data:
-        for part in ("few", "many"):
+        for part in want:
             got = {k.split("/", 1)[1]: data[k] for k in data.files if k.startswith(part + "/")}
             assert_equal_outputs(f"artifact predict ({part})", got, want[part])
     log("serve", f"a fresh interpreter (no jax, no handnet_tpu, no handnet_tpu_torch.models) "
         f"ran {time.perf_counter() - start:.2f} s: load {report['load_s']:.2f} s, predict of "
-        f"3 + 130 frames {report['predict_s']:.2f} s (graphs captured for buckets "
+        f"1 + 3 + 130 frames {report['predict_s']:.2f} s (graphs captured for buckets "
         f"{report['captured']}) == the live pipeline at the same buckets, bit for bit, pad > n "
-        f"and chunking included; from_artifact served {report['served']} frames, each once, "
+        f"and chunking included; ms per replay (host clock, 10 calls, twice, the server's "
+        f"fields): "
+        + "; ".join(f"B={b} " + ", ".join(f"{v:.3f}" for v in ms)
+                    for b, ms in report["replay_ms"].items())
+        + f"; from_artifact served {report['served']} frames, each once, "
         f"no error, {report['sustained_fps']:.1f} sustained fps, latency {report['latency']}, "
         f"bucket_dispatches {report['bucket_dispatches']}")
     if dev.type != "cuda":
         return {}
-    calls = (GRAPH_WARMUP + 1) * len(report["captured"])
+    calls = (WARMUP_CALLS + 1) * len(report["captured"])
     if report["launches"] != expected_launches(calls, GN_LAYERS_PER_CALL, INT8_LAUNCHES_PER_CALL):
         raise AssertionError(f"artifact: launches {report['launches']} in {calls} eager calls")
     return per_call(report["launches"], calls)
@@ -1911,19 +1940,19 @@ def serve_artifact(pipe, cfg, dev, frame_hw, buckets) -> dict:
 def phase_serve(dev, cfg_fast, cfg_quant, frame_hw=(480, 640), buckets=SERVE_BUCKETS,
                 n_frames: int = SERVE_FRAMES, expect_found: bool = True) -> dict:
     """The serving tier at full width: CUDA graph replays against the eager
-    forward (fast and calibrated quant_static, B=8 and 128), a fast server
-    fed by host threads, a trickle, host ms per call eager against replay,
-    fault isolation, and the static-int8 artifact in a fresh interpreter.
-    Returns the launches per eager call of each serving path."""
+    forward (fast and calibrated quant_static, every bucket), a fast server
+    fed by host threads, a trickle, host ms per call eager against replay
+    (fast and quant_static, every bucket), fault isolation, and the
+    static-int8 artifact in a fresh interpreter. Returns the launches per
+    eager call of each serving path."""
     from handnet_tpu_torch.models.pipeline import HandNetPipeline
 
-    sizes = buckets[1:]
     paths = {}
     fast = serving_server(cfg_fast, dev, HandNetPipeline(cfg_fast, dtype=cfg_dtype(dev),
                                                          device=dev, seed=SEED).state_dict(),
                           buckets, frame_hw)
     paths["serve fast"] = replay_against_eager("fast", fast, GN_LAYERS_PER_CALL, 0, frame_hw,
-                                               sizes, expect_found)
+                                               buckets, expect_found)
     log("serve", f"compute_fps_probe (B={buckets[-1]} pre-staged on the device, 2 in flight): "
         f"{fast.compute_fps_probe():.1f} frames/s")
     fast.start()
@@ -1936,7 +1965,7 @@ def phase_serve(dev, cfg_fast, cfg_quant, frame_hw=(480, 640), buckets=SERVE_BUC
     log("serve", f"bucket_dispatches of the fast server {fast.bucket_dispatches}, error_count "
         f"{fast.error_count}")
     if dev.type == "cuda":
-        host_ms_in_turns(fast, sizes, frame_hw)
+        host_ms_in_turns("fast", fast, buckets, frame_hw)
     del fast
     free_device_memory(dev)
 
@@ -1944,8 +1973,10 @@ def phase_serve(dev, cfg_fast, cfg_quant, frame_hw=(480, 640), buckets=SERVE_BUC
     quant = serving_server(cfg_quant, dev, pipe.state_dict(), buckets, frame_hw)
     paths["serve quant_static"] = replay_against_eager("quant_static", quant,
                                                       GN_LAYERS_PER_CALL,
-                                                      INT8_LAUNCHES_PER_CALL, frame_hw, sizes,
-                                                      expect_found)
+                                                      INT8_LAUNCHES_PER_CALL, frame_hw,
+                                                      buckets, expect_found)
+    if dev.type == "cuda":
+        host_ms_in_turns("quant_static", quant, buckets, frame_hw)
     del quant
     free_device_memory(dev)
     paths["artifact quant_static"] = serve_artifact(pipe, cfg_quant, dev, frame_hw, buckets)

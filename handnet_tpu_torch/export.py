@@ -11,7 +11,8 @@ weights and a manifest. A serving host loads it with
 Layout::
 
     <dir>/manifest.json      format and torch version, device type, config,
-                             frame geometry, buckets, wire, output fields
+                             frame geometry, buckets, wire, output fields,
+                             the int8 layers
     <dir>/weights.npz        the pipeline's state dict under its torch names
                              (bfloat16 stored as float32, see the manifest's
                              ``weights_dtypes``)
@@ -19,8 +20,12 @@ Layout::
 
 The programs take the state dict as a call argument
 (``torch.func.functional_call``), as the JAX package's graphs take their
-variables, so refreshing the weights rewrites only ``weights.npz``. The
-kernels are recorded in the programs as the ``handnet_torch::*`` ops.
+variables, so refreshing the weights rewrites only ``weights.npz``. An
+int8 config's programs also take each int8 layer's quantized weight and
+scales (``nn.quant.given_weights``), which the loader computes once from
+the float weights, as the live layers cache them: no call of a program
+quantizes a weight. The kernels are recorded in the programs as the
+``handnet_torch::*`` ops.
 
 A program is exported for one device type (the card, or the CPU) and
 records that device; the loader refuses another. On the card each bucket's
@@ -40,11 +45,12 @@ import torch.nn as nn
 
 from handnet_tpu_torch.config import HandNetConfig, load_config
 from handnet_tpu_torch.graphs import BucketGraphs, dequantize_wire, wire_dtypes, zeros
+from handnet_tpu_torch.nn.quant import QuantConv, given_weights, quantize_weight
 
 MANIFEST_NAME = "manifest.json"
 WEIGHTS_NAME = "weights.npz"
 GRAPH_DIR = "graphs"
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2
 
 # npz round-trips only dtypes numpy itself owns; anything else (bfloat16)
 # is stored as float32 and cast back on load via the manifest's dtype map
@@ -82,9 +88,18 @@ def _load_weights(path: str, dtype_map: Dict[str, str],
     return state
 
 
+QuantWeights = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _quantize_weights(state: Dict[str, torch.Tensor], layers: Iterable[str]) -> QuantWeights:
+    """``{layer: (wq, sw)}`` of the int8 layers, from their float weights."""
+    return {name: quantize_weight(state[f"{name}.weight"]) for name in layers}
+
+
 class _ExportedForward(nn.Module):
-    """What a bucket's program computes: wire frames (and ``paras``) and the
-    state dict in, the pipeline's outputs (``fields``, or all) out."""
+    """What a bucket's program computes: wire frames (and ``paras``), the
+    state dict and the int8 layers' quantized weights in, the pipeline's
+    outputs (``fields``, or all) out."""
 
     def __init__(self, pipeline: nn.Module, fields: Optional[Tuple[str, ...]]):
         super().__init__()
@@ -94,10 +109,13 @@ class _ExportedForward(nn.Module):
         self._pipeline = (pipeline,)
         self._fields = fields
 
-    def forward(self, state: Dict[str, torch.Tensor], images: torch.Tensor,
-                depth: torch.Tensor, paras: Optional[torch.Tensor] = None):
+    def forward(self, state: Dict[str, torch.Tensor], qweights: QuantWeights,
+                images: torch.Tensor, depth: torch.Tensor,
+                paras: Optional[torch.Tensor] = None):
         images, depth = dequantize_wire(images, depth)
-        out = torch.func.functional_call(self._pipeline[0], state, (images, depth, paras))
+        pipeline = self._pipeline[0]
+        with given_weights(pipeline, qweights):
+            out = torch.func.functional_call(pipeline, state, (images, depth, paras))
         return out if self._fields is None else {k: v for k, v in out.items()
                                                  if k in self._fields}
 
@@ -142,6 +160,8 @@ def export_pipeline(cfg: HandNetConfig, state_dict: Dict[str, torch.Tensor], out
         assert_calibrated(pipe)
     state = dict(pipe.state_dict())  # a plain dict, the loader's container
     device = next(iter(state.values())).device
+    qweights = _quantize_weights(state, [name for name, m in pipe.named_modules()
+                                         if isinstance(m, QuantConv)])
     fields = tuple(out_fields) if out_fields is not None else None
     forward = _ExportedForward(pipe, fields)
 
@@ -149,12 +169,12 @@ def export_pipeline(cfg: HandNetConfig, state_dict: Dict[str, torch.Tensor], out
     im_dt, d_dt = wire_dtypes(quantized_wire)
     os.makedirs(os.path.join(out_dir, GRAPH_DIR), exist_ok=True)
     for bucket in buckets:
-        args = [state, zeros((bucket, height, width, 3), im_dt, device),
+        args = [state, qweights, zeros((bucket, height, width, 3), im_dt, device),
                 zeros((bucket, height, width), d_dt, device)]
         if with_xyz:
             args.append(torch.ones((bucket, 4), dtype=torch.float32, device=device))
         program = torch.export.export(forward, tuple(args))
-        # the example inputs hold the whole state dict: not part of the artifact
+        # the example inputs hold all the weights: not part of the artifact
         program.example_inputs = None
         torch.export.save(program, os.path.join(out_dir, GRAPH_DIR, f"b{bucket}.pt2"))
 
@@ -171,6 +191,7 @@ def export_pipeline(cfg: HandNetConfig, state_dict: Dict[str, torch.Tensor], out
         "quantized_wire": bool(quantized_wire),
         "out_fields": list(fields) if fields is not None else None,
         "weights_dtypes": dtype_map,
+        "quantized_layers": list(qweights),  # the order of the programs' input spec
     }
     with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
         json.dump(manifest, f, indent=2)
@@ -201,6 +222,7 @@ class ServingArtifact:
                  programs: Dict[int, Any], device: torch.device):
         self.manifest = manifest
         self.state = state
+        self.qweights = _quantize_weights(state, manifest["quantized_layers"])
         self._programs = programs  # bucket -> the loaded program's module
         self.buckets = tuple(sorted(programs))
         self.frame_hw = tuple(manifest["frame_hw"])
@@ -211,7 +233,8 @@ class ServingArtifact:
                                    with_paras=self.with_xyz)
 
     def _forward(self, images: torch.Tensor, depth: torch.Tensor, *paras: torch.Tensor):
-        return self._programs[images.shape[0]](self.state, images, depth, *paras)
+        return self._programs[images.shape[0]](self.state, self.qweights, images, depth,
+                                               *paras)
 
     @classmethod
     def load(cls, path: str, device: Optional[torch.device | str] = None) -> "ServingArtifact":

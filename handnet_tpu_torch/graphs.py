@@ -35,9 +35,13 @@ uint8 RGB and uint16 depth in millimetres, widened on the device by
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+
+# eager calls on the capture stream before each capture
+WARMUP_CALLS = 3
 
 # float32(1 / 255) and float32(1 / 1000): XLA compiles the JAX server's
 # division by these constants as a multiply by their reciprocals
@@ -86,17 +90,17 @@ class BucketGraphs:
       device: where the forward runs. On a CUDA device every bucket is a
         CUDA graph; on the CPU the forward is called as it is.
       with_paras: the forward takes ``paras [B, 4]`` float32 too.
-      warmup: eager calls on the capture stream before each capture.
     """
 
     def __init__(self, forward: Forward, frame_hw: Tuple[int, int], quantized_wire: bool,
-                 device: torch.device | str, with_paras: bool = False, warmup: int = 3):
+                 device: torch.device | str, with_paras: bool = False):
         self.forward = forward
         self.frame_hw = tuple(frame_hw)
         self.wire = wire_dtypes(quantized_wire)
         self.device = torch.device(device)
         self.with_paras = with_paras
-        self.warmup = warmup
+        # held from a capture or a copy in to the copy out
+        self._lock = threading.Lock()
         # bucket -> (graph, static inputs, static outputs)
         self._graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, tuple, dict]] = {}
         if self.device.type == "cuda":
@@ -123,13 +127,17 @@ class BucketGraphs:
     def capture(self, bucket: int) -> None:
         """Warm the forward up on this object's stream and capture one call
         of batch ``bucket`` (a no-op on the CPU, or for a captured bucket)."""
+        with self._lock:
+            self._capture(bucket)
+
+    def _capture(self, bucket: int) -> None:
         if self.device.type != "cuda" or bucket in self._graphs:
             return
         inputs = self._static_inputs(bucket)
         with torch.cuda.device(self.device):
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(self.stream):
-                for _ in range(self.warmup):
+                for _ in range(WARMUP_CALLS):
                     self.forward(*inputs)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, stream=self.stream):
@@ -151,19 +159,21 @@ class BucketGraphs:
         if self.with_paras and paras is None:
             raise ValueError("this forward takes paras [B, 4]")
         args = (images, depth, paras) if self.with_paras else (images, depth)
-        if self.device.type != "cuda":
-            out = self.forward(*args)
-            return {k: v for k, v in out.items() if fields is None or k in fields}
-        self.capture(bucket)
-        graph, inputs, outputs = self._graphs[bucket]
-        caller = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(caller)
-        with torch.cuda.stream(self.stream):
-            for static, arg in zip(inputs, args):
-                static.copy_(arg, non_blocking=True)
-            graph.replay()
-            out = {k: v.clone() for k, v in outputs.items() if fields is None or k in fields}
-        caller.wait_stream(self.stream)
+        with self._lock:
+            if self.device.type != "cuda":
+                out = self.forward(*args)
+                return {k: v for k, v in out.items() if fields is None or k in fields}
+            self._capture(bucket)
+            graph, inputs, outputs = self._graphs[bucket]
+            caller = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                for static, arg in zip(inputs, args):
+                    static.copy_(arg, non_blocking=True)
+                graph.replay()
+                out = {k: v.clone() for k, v in outputs.items()
+                       if fields is None or k in fields}
+            caller.wait_stream(self.stream)
         for t in out.values():
             t.record_stream(caller)
         return out

@@ -6,7 +6,9 @@ float checkpoint serves int8 unchanged:
 
 * weights: symmetric per output channel, ``sw[o] = max(max|w[o]|, 1e-8) / 127``,
   quantized once from the float32 weight and cached (outside the state dict)
-  until the weight changes;
+  until the weight changes; an exported program takes them as call
+  arguments instead (:func:`given_weights`), quantized once when the
+  artifact loads;
 * every ``/ 127`` of a scale is a multiply by the float32 reciprocal of 127:
   XLA compiles the JAX package's division by the constant 127 that way, and
   the two differ by one ulp for some amaxes, enough to flip a quantized
@@ -29,7 +31,8 @@ so a calibration written by either package loads into the other.
 
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +67,14 @@ def quantize_symmetric(x: torch.Tensor, dims) -> tuple:
     return q, scale
 
 
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(wq [O, kh, kw, I] int8, sw [O] float32)`` of a float conv weight
+    ``[O, I, kh, kw]``: per output channel, in K3g's weight layout."""
+    with torch.no_grad():
+        wq, sw = quantize_symmetric(w, dims=(1, 2, 3))
+        return wq.permute(0, 2, 3, 1).contiguous(), sw.reshape(-1).contiguous()
+
+
 class QuantConv(nn.Conv2d):
     """int8 ``nn.Conv2d`` for serving (``mode`` "dynamic" or "static").
 
@@ -85,27 +96,22 @@ class QuantConv(nn.Conv2d):
         if mode == "static":
             self.register_buffer("act_amax", torch.zeros((), dtype=torch.float32))
         self._weight_cache = None
+        # (wq, sw) set by given_weights: the exported programs' arguments
+        self.given = None
 
     def quantized_weight(self):
         """``(wq [O, kh, kw, I] int8, sw [O] float32)`` of the current weight.
 
-        Cached until the weight changes. Under ``torch.export`` the weight is
-        a traced input with no storage, and the quantization goes into the
-        graph instead (the JAX package's graphs quantize their float kernels
-        in every call too)."""
+        The pair set by :func:`given_weights` if there is one (an exported
+        program's arguments: under ``torch.export`` the weight has no
+        storage to key a cache on); else cached until the weight changes."""
+        if self.given is not None:
+            return self.given
         w = self.weight
-        if torch.compiler.is_compiling():
-            return self._quantize(w)
         key = (w.device, w.data_ptr(), w._version)
         if self._weight_cache is None or self._weight_cache[0] != key:
-            with torch.no_grad():
-                self._weight_cache = (key, *self._quantize(w))
+            self._weight_cache = (key, *quantize_weight(w))
         return self._weight_cache[1:]
-
-    @staticmethod
-    def _quantize(w: torch.Tensor):
-        wq, sw = quantize_symmetric(w, dims=(1, 2, 3))
-        return wq.permute(0, 2, 3, 1).contiguous(), sw.reshape(-1).contiguous()
 
     def activation_scale(self, x: torch.Tensor) -> torch.Tensor:
         """``sx`` of NHWC ``x``: ``[B]`` per sample (dynamic, calibrating) or
@@ -140,6 +146,22 @@ def conv_layer(quant: Union[bool, str], *args, **kwargs) -> nn.Conv2d:
     if quant:
         return QuantConv(*args, mode="dynamic", **kwargs)
     return nn.Conv2d(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def given_weights(module: nn.Module, weights: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
+    """Within the block, every :class:`QuantConv` under ``module`` takes its
+    ``(wq, sw)`` from ``weights`` (by layer name) instead of quantizing its
+    weight: an exported program's graph then holds no weight quantization."""
+    layers = [(m, weights[name]) for name, m in module.named_modules()
+              if isinstance(m, QuantConv)]
+    for m, pair in layers:
+        m.given = tuple(pair)
+    try:
+        yield
+    finally:
+        for m, _ in layers:
+            m.given = None
 
 
 def _static_layers(module: nn.Module):

@@ -35,6 +35,7 @@ from handnet_tpu_torch.export import (MANIFEST_NAME, _NPZ_SAFE, ServingArtifact,
                                       _load_weights, _save_weights, export_pipeline)
 from handnet_tpu_torch.graphs import dequantize_wire
 from handnet_tpu_torch.models.pipeline import HandNetPipeline
+from handnet_tpu_torch.nn.quant import QuantConv
 from handnet_tpu_torch.ops import cuda_a2j, cuda_gn, cuda_int8_conv
 from torch_port_fixtures import assert_close
 
@@ -281,13 +282,29 @@ def test_static_int8_export_requires_calibration(tmp_path):
 
 def test_static_int8_calibrated_export_matches(int8_artifact):
     """Every output of the calibrated int8 artifact equals the live int8
-    pipeline's: the program quantizes the float weights it is given as the
-    live layers do, and the int8 steps are the ops' plain versions."""
+    pipeline's: the loader quantizes the float weights as the live layers
+    do, and the int8 steps are the ops' plain versions."""
     art, pipe = int8_artifact
     rgb, depth = _frames(4, 4, quantized=False)
     got = art.predict(rgb, depth, _paras(4))
     assert np.isfinite(got["joints_uvd"]).all() and got["found"].all()
     _assert_equal(got, _live(pipe, rgb, depth, 4, _paras(4)))
+
+
+def test_int8_program_takes_quantized_weights(int8_artifact):
+    """The int8 program quantizes no weight: the loader quantizes each int8
+    layer's float weight once, as the live layers cache theirs, and the
+    program takes the pairs as arguments (its only roundings are the int8
+    ops' own)."""
+    art, pipe = int8_artifact
+    layers = [name for name, m in pipe.named_modules() if isinstance(m, QuantConv)]
+    assert art.manifest["quantized_layers"] == layers and list(art.qweights) == layers
+    for name in layers:
+        want = pipe.get_submodule(name).quantized_weight()
+        assert all(torch.equal(g, w) for g, w in zip(art.qweights[name], want)), name
+    targets = {str(n.target) for n in art._programs[4].graph.nodes if n.op == "call_function"}
+    assert "handnet_torch.int8_conv_gemm.default" in targets
+    assert not [t for t in targets if "round" in t], targets
 
 
 def test_pad_exceeds_partial_batch(int8_artifact):

@@ -30,7 +30,7 @@ from handnet_tpu.apps.serve import PipelineServer as JaxServer
 from handnet_tpu.convert.torch_weights import convert_a2j, convert_fcos
 from handnet_tpu_torch import config as pconfig
 from handnet_tpu_torch.apps.serve import PipelineServer
-from handnet_tpu_torch.graphs import dequantize_wire
+from handnet_tpu_torch.graphs import BucketGraphs, dequantize_wire
 from handnet_tpu_torch.models.pipeline import HandNetPipeline
 from handnet_tpu_torch.nn.quant import save_calibration
 from torch_port_fixtures import assert_close
@@ -311,6 +311,39 @@ def test_mesh_is_refused():
         _server(mesh=object())
     with pytest.raises(ValueError, match="single-device"):
         PipelineServer.from_artifact("unused", mesh=object())
+
+
+def test_bucket_graphs_serializes_its_callers():
+    """Two host threads call one BucketGraphs (a server built from an
+    artifact shares the artifact's graphs with ``predict``): each gets the
+    outputs of its own frames. The fake forward stages its input in one
+    shared buffer, as a captured graph reads its static buffers, and yields
+    between the copy in and the read back: only the run lock keeps two
+    calls from reading each other's frames."""
+    staged = torch.zeros(2, 4, 6, 3)
+
+    def forward(images, depth):
+        staged.copy_(images)
+        time.sleep(0.0005)
+        return {"first": staged[:, 0, 0, 0].clone(), "depth": depth[:, 0, 0].clone()}
+
+    graphs = BucketGraphs(forward, (4, 6), False, "cpu")
+    wrong = []
+
+    def caller(value):
+        images = torch.full((2, 4, 6, 3), float(value))
+        depth = torch.full((2, 4, 6), float(value))
+        for _ in range(40):
+            out = graphs.run(2, images, depth, fields=("first",))
+            if sorted(out) != ["first"] or not bool((out["first"] == value).all()):
+                wrong.append((value, out["first"].tolist()))
+
+    threads = [threading.Thread(target=caller, args=(v,)) for v in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not wrong, wrong[:3]
 
 
 def test_server_matches_jax_server():
