@@ -83,8 +83,29 @@ serve: the serving tier at 480x640, bf16, buckets 1, 8 and 128, seeded
    latency of a batch of 8, and a profile of quant_static by kernel; then
    parity and turbo with kernels and plain versions, the fused and the
    unfused towers, in turns, parity int8, and a stage split of parity;
-   last, the share of the wall time in which no kernel runs (torch.profiler)
-   for the fast forward at B=8 and 128, eager and as a graph replay.
+   then the mesh phase below; last, the share of the wall time in which no
+   kernel runs (torch.profiler) for the fast forward at B=8 and 128, eager
+   and as a graph replay.
+mesh: the fast operating point with the fused mesh head
+   (``pipeline.with_mesh``: PoseNet 4096 wide, 2 stages, Chebyshev order 3,
+   the 6-level pyramid of the 778-vertex strip stand-in) at 480x640, seed
+   2, score threshold 0. bf16 calls of batch 8, 8 and 128 through the
+   kernels, K1 once and K2s and K2a 24 times per call; the head alone
+   (normalize + Pose2Mesh + vertex order) at B=128, device and loop time
+   against its bound (its products' FLOPs at the dense bf16 peak), and its
+   kernels by the profiler; frames/s at B=128 with and without the head,
+   in turns; a server with buckets 8 and 128 and ``"verts"`` among its
+   fields: replay == eager bit for bit at B=8 and 128, 32 frames served
+   from 2 threads, dispatches == their padded eager batch; a with_mesh
+   artifact (bucket 8) whose ``predict`` == eager bit for bit; in float32
+   the kernel path against the plain path and the CPU run on verts and
+   verts_xyz, and the head alone, card against CPU, on the same joints;
+   one calibrated quant_static batch of 8 (K3q and K3g 129); the MANO
+   layer at B=128 in float32 against its CPU run on synthetic assets, and
+   its time.
+
+The ``[card]`` line also gives scipy's version: the mesh head's graph
+pyramid is built with it, and the script fails without it.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
@@ -96,7 +117,8 @@ of phase 5.
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
 their type (1,979 TOP/s int8 in the tensor cores, 67 TFLOP/s float32
-outside them): the H100 SXM data sheet's rates at 700 W.
+outside them, 989 TFLOP/s bf16 for the mesh head's products, which are not
+a kernel of the port): the H100 SXM data sheet's rates at 700 W.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
@@ -139,6 +161,17 @@ GN_FUSED_PER_CALL = 12            # 1 fused tower x 4 GroupNorms (C=512, G=64) x
 # the parity resize: B, frame, resized, padded to the network input
 RESIZE_CASE = (128, (480, 640), (800, 1067), (800, 1088))
 STEM_SIZES = ((480, 640), (800, 1088))    # the stem's input at fast and at parity
+BF16_FLOPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak, at 700 W
+MESH_REQUESTS = (8, 8, 128)       # batch sizes of the mesh path's calls
+MESH_VERTS = 778
+# the f32 mesh path, verts against the plain path and the CPU run, as a
+# share of the verts' scale: the head is the same code on both sides, so
+# what differs is its input, the joints (1e-2 px apart at most, 5e-2 from
+# the CPU), divided by the joints' spread in the normalization
+MESH_TOL_PLAIN = 1e-2
+MESH_TOL_CPU = 5e-2
+# the head alone on the same joints, card against CPU, f32, TF32 off
+MESH_HEAD_TOL = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -1584,7 +1617,7 @@ def check_serve_outputs(out: dict, batch: int, crop: int, joints: int,
 
     shapes = {"joints_uvd": (batch, joints, 3), "joints_uvd_full": (batch, joints, 3),
               "boxes": (batch, 4), "crops": (batch, crop, crop, 1), "found": (batch,),
-              "scores": (batch,), "sides": (batch,)}
+              "scores": (batch,), "sides": (batch,), "verts": (batch, MESH_VERTS, 3)}
     for key, value in out.items():
         if tuple(value.shape) != shapes[key]:
             raise AssertionError(f"{key}: shape {tuple(value.shape)} != {shapes[key]}")
@@ -1998,6 +2031,268 @@ def free_device_memory(dev) -> None:
         torch.cuda.empty_cache()
 
 
+# --- the mesh head: pipeline.with_mesh, served, exported; the MANO layer ---
+
+def check_mesh_outputs(name: str, out: dict, batch: int) -> None:
+    """verts (and verts_xyz where paras were given): shape, finite, not
+    all zero on found frames."""
+    import torch
+
+    for key in ("verts", "verts_xyz"):
+        if key not in out:
+            continue
+        value = out[key]
+        if tuple(value.shape) != (batch, MESH_VERTS, 3) or value.dtype != torch.float32:
+            raise AssertionError(f"{name}: {key} {tuple(value.shape)} {value.dtype}")
+        if not bool(torch.isfinite(value).all()) or not bool(value.abs().amax(dim=(1, 2)).gt(0)
+                                                             .eq(out["found"]).all()):
+            raise AssertionError(f"{name}: {key} non-finite, or zero on a found frame")
+
+
+def compare_verts(name: str, got: dict, want: dict, share: float, joint_tol: float) -> tuple:
+    """verts within ``share`` of their scale, verts_xyz within 1000x that
+    plus 10x ``joint_tol`` mm (the wrist's XYZ anchors them); returns the
+    errors (m, mm) and the verts' scale."""
+    scale = want["verts"].abs().max().item()
+    err = check(f"{name} verts", got["verts"].cpu(), want["verts"].cpu(), share * scale)
+    err_xyz = check(f"{name} verts_xyz", got["verts_xyz"].cpu(), want["verts_xyz"].cpu(),
+                    1000 * share * scale + 10 * joint_tol)
+    return err, err_xyz, scale
+
+
+def mesh_head_work(pipe, joints):
+    """The head as the pipeline runs it (normalize, Pose2Mesh, vertex order)
+    on ``joints``, as a callable; and its (FLOPs, bytes): the products'
+    FLOPs as ``torch.utils.flop_counter`` counts them, and the bytes of
+    the joints read, every weight and buffer of the head read once and the
+    float32 verts written."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from handnet_tpu_torch.models.pose2mesh import normalize_joints_for_pose2mesh_batched
+
+    def head():
+        with torch.inference_mode():
+            mesh, _ = pipe.pose2mesh(normalize_joints_for_pose2mesh_batched(joints[..., :2]))
+            return mesh[:, pipe.mesh_order].float()
+
+    with FlopCounterMode(display=False) as counter:
+        verts = head()
+    n_bytes = (nbytes(joints, verts) + nbytes(*pipe.pose2mesh.parameters())
+               + nbytes(*pipe.pose2mesh.buffers()) + nbytes(pipe.mesh_order))
+    return head, counter.get_total_flops(), n_bytes
+
+
+def mesh_artifact(pipe, cfg, dev, bucket: int = 8) -> dict:
+    """Export the bf16 with_mesh pipeline (quantized wire, every field) at
+    one bucket, load it here and hold its ``predict`` against the live
+    pipeline's eager forward of the same frames, bit for bit. Returns its
+    launches per eager call (the graph's warm-up and capture)."""
+    import os
+    import shutil
+
+    from handnet_tpu_torch.export import ServingArtifact, export_pipeline
+    from handnet_tpu_torch.graphs import WARMUP_CALLS, dequantize_wire
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mesh_artifact")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    start = time.perf_counter()
+    export_pipeline(cfg, pipe.state_dict(), out_dir, buckets=(bucket,), dtype=cfg_dtype(dev),
+                    quantized_wire=True, device=dev)
+    export_s = time.perf_counter() - start
+    start = time.perf_counter()
+    art = ServingArtifact.load(out_dir, device=dev)
+    load_s = time.perf_counter() - start
+    if not (art.with_mesh and art.manifest["config"]["pipeline"]["with_mesh"]):
+        raise AssertionError("mesh artifact: the manifest does not record the head")
+    rgb, depth = wire_frames(bucket, seed=800)
+    reset_launch_counts()
+    got = art.predict(rgb, depth)
+    launches = launch_counts()
+    want = padded_eager(lambda im, d: pipe(*dequantize_wire(im, d)), rgb, depth, bucket, dev)
+    assert_equal_outputs(f"mesh artifact predict (B={bucket})", got, want)
+    calls = WARMUP_CALLS + 1
+    if launches != expected_launches(calls, GN_LAYERS_PER_CALL):
+        raise AssertionError(f"mesh artifact: launches {launches} in {calls} eager calls")
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(out_dir) for f in fs)
+    log("mesh", f"artifact (bucket {bucket}, quantized wire, every field): export {export_s:.2f} "
+        f"s, load {load_s:.2f} s, {size / 1e6:.1f} MB; predict of {bucket} frames == the live "
+        f"eager forward bit for bit on {sorted(got)}; launches {launches} in {calls} eager "
+        "calls (warm-up and capture)")
+    del art
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return per_call(launches, calls)
+
+
+def phase_mesh(dev, cfg, cfg_quant) -> dict:
+    """The fast operating point with the mesh head (``pipeline.with_mesh``)
+    at full width: bf16 calls through the kernels with their launch counts;
+    the head's stage time against its bound; frames/s with and without the
+    head in turns; graph replays == eager and ``"verts"`` served; the
+    artifact; the f32 kernel path against the plain path and the CPU; one
+    calibrated quant_static batch; the MANO layer. Returns the launches per
+    call of each mesh path."""
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps.serve import DEFAULT_FIELDS, PipelineServer
+    from handnet_tpu_torch.models.mano import ManoAssets, ManoLayer
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+    from handnet_tpu_torch.models.pose2mesh import normalize_joints_for_pose2mesh_batched
+
+    paths = {}
+    crop, joints = cfg.pipeline.crop_size, cfg.a2j.num_joints
+    start = time.perf_counter()
+    pipe = HandNetPipeline(cfg, dtype=torch.bfloat16, device=dev, seed=SEED)
+    sizes = pipe.pyramid.mesh_sizes
+    log("mesh", f"with_mesh pipeline (PoseNet {cfg.pose2mesh.posenet_hid} x "
+        f"{cfg.pose2mesh.posenet_stages} stages, Chebyshev order {cfg.pose2mesh.cheby_order}, "
+        f"strip stand-in pyramid {list(sizes)} nodes) built in {time.perf_counter() - start:.2f} "
+        f"s; head parameters {sum(p.numel() for p in pipe.pose2mesh.parameters())}")
+    frames = [make_frames(bsz, dev, seed=100 + i) for i, bsz in enumerate(MESH_REQUESTS)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    start = time.perf_counter()
+    outs = [pipe(*req) for req in frames]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    for out, bsz in zip(outs, MESH_REQUESTS):
+        check_outputs(out, bsz, crop, joints)
+        check_mesh_outputs("mesh bf16", out, bsz)
+    calls = len(MESH_REQUESTS)
+    if launches != expected_launches(calls, GN_LAYERS_PER_CALL):
+        raise AssertionError(f"mesh: launch counts {launches} for {calls} calls: expected K2s "
+                             f"and K2a {GN_LAYERS_PER_CALL} each and K1 1 per call, no K3")
+    paths["mesh"] = per_call(launches, calls)
+    log("mesh", f"bf16 calls of batch {list(MESH_REQUESTS)} in {seconds:.3f} s (first calls): "
+        f"all frames found, verts [B, {MESH_VERTS}, 3] and verts_xyz finite, non-zero; launches "
+        f"{launches}")
+
+    # the head alone at B=128: its time against its bound, its kernels
+    head, flops, n_bytes = mesh_head_work(pipe, outs[-1]["joints_uvd"])
+    head_bound = bound(n_bytes, flops, BF16_FLOPS_PER_S)
+    head_t = timed(head)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            head()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    per_call_launches = sum(n for _, _, n in rows) / 3
+    log("mesh", f"head (normalize + Pose2Mesh + vertex order), bf16 B={MESH_REQUESTS[-1]}: "
+        f"{head_t['ms']:.4f} ms on the device, {head_t['loop_ms']:.4f} ms loop; bound "
+        f"{head_bound['bound_ms']:.4f} ms by {head_bound['bound_by']} ({flops / 1e9:.1f} GFLOP "
+        f"at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} MB at 3.35 TB/s), "
+        f"{head_bound['bound_ms'] / head_t['ms'] * 100:.1f}% of it; "
+        f"{per_call_launches:.1f} kernel launches per call (profiler, 3 calls)")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        log("mesh", f"  {ms / 3:8.4f} ms/call {count / 3:6.1f} launches/call  {key[:100]}")
+
+    # frames/s at B=128 with and without the head, in turns
+    the_head = pipe.pose2mesh
+    # the same pipeline without its head: pose2mesh None skips it
+    fps = fps_in_turns([("fast + mesh head", pipe, lambda: setattr(pipe, "pose2mesh", the_head)),
+                        ("fast, no head", pipe, lambda: setattr(pipe, "pose2mesh", None))],
+                       *frames[-1], iters=10)
+    pipe.pose2mesh = the_head
+    with_head, without = (sum(v) / len(v) for v in fps.values())
+    log("mesh", f"the head costs {(1 - with_head / without) * 100:.2f}% of fast's frames/s at "
+        f"B={MESH_REQUESTS[-1]} bf16 ({with_head:.2f} vs {without:.2f}, means of the turns)")
+    del outs, frames, head
+    free_device_memory(dev)
+
+    # CUDA graphs: replay == eager at B=8 and 128; "verts" served
+    server = PipelineServer(cfg, batch_size=128, state_dict=pipe.state_dict(),
+                            frame_hw=(480, 640), dtype=torch.bfloat16, batch_buckets=(8, 128),
+                            out_fields=DEFAULT_FIELDS + ("verts",), device=dev)
+    paths["serve mesh"] = replay_against_eager("mesh", server, GN_LAYERS_PER_CALL, 0,
+                                               (480, 640), (8, 128), True)
+    server.start()
+    try:
+        serve_fed(server, (480, 640), 32, 2, True)
+    finally:
+        server.stop()
+    log("mesh", f"the server streamed {sorted(server.out_fields)}: bucket_dispatches "
+        f"{server.bucket_dispatches}, error_count {server.error_count}")
+    del server
+    free_device_memory(dev)
+    paths["artifact mesh"] = mesh_artifact(pipe, cfg, dev)
+    del pipe
+    free_device_memory(dev)
+
+    # float32, TF32 off: the kernel path against the plain path and the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, depth, paras = make_frames(8, dev, seed=200)
+    kern = HandNetPipeline(cfg, device=dev, seed=SEED)
+    out_k = kern(images, depth, paras)
+    out_p = HandNetPipeline(cfg, device=dev, seed=SEED, use_kernels=False)(images, depth, paras)
+    check_mesh_outputs("mesh f32", out_k, 8)
+    err_j = compare_outputs("mesh kernels vs plain (card, f32)", out_k, out_p, 1e-2)
+    err_v = compare_verts("mesh kernels vs plain (card, f32)", out_k, out_p, MESH_TOL_PLAIN, 1e-2)
+    log("mesh", f"f32 batch 8: kernel path == plain path on found/sides/boxes/crops; joints "
+        f"max|err| {err_j:.3e}; verts max|err| {err_v[0]:.3e} m (scale {err_v[2]:.3e}, tol "
+        f"{MESH_TOL_PLAIN} of it), verts_xyz {err_v[1]:.3e} mm")
+    cpu = HandNetPipeline(cfg, device="cpu", seed=SEED)
+    out_c = cpu(images[:2].cpu(), depth[:2].cpu(), paras[:2].cpu())
+    first2 = {k: v[:2] for k, v in out_k.items()}
+    err_j = compare_outputs("mesh card vs CPU (f32)", first2, out_c, 5e-2)
+    err_v = compare_verts("mesh card vs CPU (f32)", first2, out_c, MESH_TOL_CPU, 5e-2)
+    # the head alone on the same joints: the card's f32 head against the CPU's
+    with torch.inference_mode():
+        uv = out_k["joints_uvd"][:2, :, :2]
+        head_k = kern.pose2mesh(normalize_joints_for_pose2mesh_batched(uv))[0]
+        head_c = cpu.pose2mesh(normalize_joints_for_pose2mesh_batched(uv.cpu()))[0]
+    scale = head_c.abs().max().item()
+    err_h = check("mesh head card vs CPU (f32, same joints)", head_k.cpu(), head_c,
+                  MESH_HEAD_TOL * scale)
+    log("mesh", f"f32 2 frames: card == CPU on found/sides/boxes/crops; joints max|err| "
+        f"{err_j:.3e}; verts {err_v[0]:.3e} m (tol {MESH_TOL_CPU} of {err_v[2]:.3e}), verts_xyz "
+        f"{err_v[1]:.3e} mm; the head alone on the same joints {err_h:.3e} (tol "
+        f"{MESH_HEAD_TOL} of {scale:.3e})")
+    torch.backends.cudnn.allow_tf32 = True
+    del kern, cpu, out_k, out_p, out_c, first2
+    free_device_memory(dev)
+
+    # one calibrated quant_static batch of 8 through K3q/K3g
+    quant = calibrated_pipeline(dev, cfg_quant, torch.bfloat16)
+    req = make_frames(8, dev, seed=600)
+    reset_launch_counts()
+    out = quant(*req)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_outputs(out, 8, crop, joints)
+    check_mesh_outputs("mesh quant_static", out, 8)
+    if counts != expected_launches(1, GN_LAYERS_PER_CALL, INT8_LAUNCHES_PER_CALL):
+        raise AssertionError(f"mesh quant_static: launch counts {counts}")
+    paths["mesh quant_static"] = counts
+    log("mesh", f"quant_static bf16 batch 8 (calibrated; the head stays bf16): all frames "
+        f"found, verts finite; launches {counts}")
+    del quant, out, req
+    free_device_memory(dev)
+
+    # the MANO layer at B=128, f32, against its CPU run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assets = ManoAssets.synthetic(np.random.default_rng(SEED))
+    rng = np.random.default_rng(810)
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.normal(size=(128, 48)) * 0.5, rng.normal(size=(128, 10)), rng.normal(size=(128, 3)))]
+    mano = ManoLayer(assets, device=dev)
+    verts, joints3d = mano(*(a.to(dev) for a in args))
+    verts_c, joints_c = ManoLayer(assets, device="cpu")(*args)
+    err_v = check("MANO verts card vs CPU", verts.cpu(), verts_c,
+                  1e-5 * verts_c.abs().max().item())
+    err_j = check("MANO joints card vs CPU", joints3d.cpu(), joints_c,
+                  1e-5 * joints_c.abs().max().item())
+    dev_args = [a.to(dev) for a in args]
+    mano_t = timed(lambda: mano(*dev_args))
+    log("mesh", f"ManoLayer f32 B=128 on ManoAssets.synthetic: card == CPU run, verts max|err| "
+        f"{err_v:.3e} mm, joints {err_j:.3e} mm (tol 1e-5 of their scale); {mano_t['ms']:.4f} ms "
+        f"on the device, {mano_t['loop_ms']:.4f} ms loop")
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2010,8 +2305,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    log("card", f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    # the mesh head's graph pyramid is built on the host with scipy
+    # (handnet_tpu_torch/ops/graph.py): without it the [mesh] phase cannot run
+    import scipy
+
+    log("card", f"torch {torch.__version__}, CUDA {torch.version.cuda}, scipy "
+        f"{scipy.__version__}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
     from handnet_tpu_torch.config import FAST, QUANT, QUANT_STATIC, load_config, resolve_config
@@ -2023,9 +2322,21 @@ def main() -> int:
     for line in res.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("build", line.strip())
+    lap_start = [started]
+
+    def lap(phase: str) -> None:   # each phase's seconds: the time budget
+        now = time.perf_counter()
+        log(phase, f"the phase took {now - lap_start[0]:.1f} s")
+        lap_start[0] = now
+
+    lap("build")
 
     def found_path(cfg):  # score threshold 0: every frame takes the found path
         return dataclasses.replace(cfg, fcos=dataclasses.replace(cfg.fcos, score_thresh=0.0))
+
+    def with_mesh(cfg):   # the fused mesh head, at its full widths
+        return dataclasses.replace(cfg, pipeline=dataclasses.replace(cfg.pipeline,
+                                                                     with_mesh=True))
 
     cfg, cfg_quant, cfg_dynamic = (found_path(load_config(overrides=o))
                                    for o in (FAST, QUANT_STATIC, QUANT))
@@ -2041,6 +2352,7 @@ def main() -> int:
     by_path = phase_serve(dev, cfg, cfg_quant)
     log("serve", f"device memory after the phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    lap("serve")
     results = {"a2j_decode": phase_a2j_kernel(dev), **phase_gn_kernels(dev)}
     geos = int8_geometries(dev, cfg_dynamic)
     if (sum(map(len, geos.values())) != INT8_LAUNCHES_PER_CALL
@@ -2050,18 +2362,27 @@ def main() -> int:
     k3 = phase_int8_kernel(dev, geos)
     results["int8_quantize"], results["int8_conv_gemm"] = k3["k3q"], k3["k3g"]
     phase_encode_host_time(dev, geos)
+    lap("kernels")
 
     by_path["fast"] = phase_slice(dev, cfg)
     # the main path of this script: every kernel runs in the quant_static slice
     launches = phase_quant_slice(dev, cfg_quant, cfg_dynamic)
     by_path["quant_static"] = per_call(launches, len(SLICE_REQUESTS))
+    lap("slice")
     geometries = phase_geometries(dev, geometry_cfgs)
     by_path.update(geometries["paths"])
     for name, shapes in geometries["kernel_shapes"].items():
         results[name]["shapes"] = shapes
+    lap("geometries")
     phase_throughput(dev, cfg, cfg_quant)
     phase_geometry_throughput(dev, geometry_cfgs)
+    free_device_memory(dev)
+    lap("throughput")
+    by_path.update(phase_mesh(dev, *(with_mesh(c) for c in (cfg, cfg_quant))))
+    free_device_memory(dev)
+    lap("mesh")
     phase_idle_shares(dev, cfg)
+    lap("throughput")
 
     sources = {"a2j_decode": ("handnet_tpu_torch/csrc/a2j_decode.cu",
                               "handnet_tpu/ops/pallas_a2j.py:55"),

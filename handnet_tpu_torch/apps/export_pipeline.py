@@ -8,11 +8,17 @@ Counterpart of ``handnet_tpu/apps/export_pipeline.py``:
         [--quantized-wire] [--fields joints_uvd,boxes,found,scores] [--xyz]
         [--serve-check] [--device cpu]
 
-``--checkpoint`` reads the ``{detector,a2j}/params.npz`` + ``batch_stats.npz``
-trees that the JAX package's ``train.checkpoints.save_params_npz`` writes and
-converts them (``convert/from_flax.py``); without it the artifact carries
-seeded random weights (for plumbing and latency tests only). The artifact is
-exported for the card unless ``--device cpu`` asks for the CPU.
+``--checkpoint`` reads the ``{detector,a2j[,pose2mesh]}/params.npz`` +
+``batch_stats.npz`` trees that the JAX package's
+``train.checkpoints.save_params_npz`` writes and converts them
+(``convert/from_flax.py``); without it the artifact carries seeded random
+weights (for plumbing and latency tests only). The artifact is exported for
+the card unless ``--device cpu`` asks for the CPU.
+
+The profiles have no mesh head, and neither this CLI nor the JAX package's
+has a switch for it: a ``pipeline.with_mesh`` artifact is exported from
+Python (``export.export_pipeline`` with that config; :func:`_load_checkpoint`
+loads a ``pose2mesh/`` component into its pipeline).
 """
 
 import argparse
@@ -22,15 +28,19 @@ import numpy as np
 
 
 def _load_checkpoint(pipe, base: str) -> None:
-    """Load the flax trees under ``base`` into ``pipe``. A static-int8
-    config's ``act_amax`` buffers are not in a checkpoint: ``--calib`` sets
-    them."""
+    """Load the flax trees under ``base`` into ``pipe``: ``detector/`` and
+    ``a2j/``, and ``pose2mesh/`` where it exists (a pipeline without the
+    mesh head skips it, as the JAX package's pipeline ignores it). A
+    static-int8 config's ``act_amax`` buffers are not in a checkpoint:
+    ``--calib`` sets them."""
     from handnet_tpu_torch.convert.from_flax import (load_params_npz,
                                                      pipeline_state_dict_from_flax)
 
     variables = {}
-    for component in ("detector", "a2j"):
+    for component in ("detector", "a2j", "pose2mesh"):
         cdir = os.path.join(base, component)
+        if component == "pose2mesh" and (pipe.pose2mesh is None or not os.path.isdir(cdir)):
+            continue
         if not os.path.isdir(cdir):
             raise SystemExit(f"no {component}/ under {base}")
         tree = {"params": load_params_npz(os.path.join(cdir, "params.npz"))}

@@ -32,11 +32,17 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from handnet_tpu_torch.config import HandNetConfig
+from handnet_tpu_torch.config import HandNetConfig, load_config, pipeline_outputs
 from handnet_tpu_torch.graphs import BucketGraphs, dequantize_wire, wire_dtypes, zeros
 
 _STOP = object()
 DEFAULT_FIELDS = ("joints_uvd", "boxes", "found", "scores")
+
+
+def _check_fields(out_fields: Iterable[str], available: Iterable[str], source: str) -> None:
+    missing = sorted(set(out_fields) - set(available))
+    if missing:
+        raise ValueError(f"{source} does not emit {missing} (it emits {list(available)})")
 
 
 class PipelineServer:
@@ -50,7 +56,10 @@ class PipelineServer:
       frame_hw: static (H, W) every submitted frame must match.
       flush_timeout: seconds to wait for more frames before dispatching a
         partial batch (latency/throughput knob).
-      out_fields: which pipeline outputs to return per frame.
+      out_fields: which pipeline outputs to return per frame; a field the
+        pipeline does not produce is refused here (``"verts"`` needs a
+        ``pipeline.with_mesh`` config; the server passes no intrinsics, so
+        no ``*_xyz``).
       dtype: compute dtype of the convolutions.
       quantized_transfer: ship frames as uint8 RGB and uint16 mm depth
         (5 bytes a pixel to the card instead of float32's 16), widened there.
@@ -79,6 +88,7 @@ class PipelineServer:
                                       "more cards by running one server per card")
         from handnet_tpu_torch.models.pipeline import HandNetPipeline
 
+        _check_fields(out_fields, pipeline_outputs(cfg or HandNetConfig()), "the pipeline")
         self.pipe = HandNetPipeline(cfg, dtype=dtype, device=device)
         if state_dict is not None:
             self.pipe.load_state_dict(state_dict)
@@ -157,11 +167,8 @@ class PipelineServer:
         exported_fields = manifest.get("out_fields")
         if out_fields is None:
             out_fields = tuple(exported_fields) if exported_fields else DEFAULT_FIELDS
-        elif exported_fields is not None:
-            missing = set(out_fields) - set(exported_fields)
-            if missing:
-                raise ValueError(f"artifact does not emit {sorted(missing)} "
-                                 f"(exported: {exported_fields})")
+        _check_fields(out_fields, exported_fields or pipeline_outputs(
+            load_config(overrides=manifest["config"])), "the artifact")
         art = loaded or ServingArtifact.load(path, device=device)
         server = cls.__new__(cls)
         server.pipe = None

@@ -229,3 +229,15 @@ def resolve_config(profile: str = "quant_static", quant: Any = None) -> HandNetC
     if quant is not None:
         cfg = _replace_recursive(cfg, {"fcos": {"quant": quant}, "a2j": {"quant": quant}})
     return cfg
+
+
+def pipeline_outputs(cfg: HandNetConfig, with_xyz: bool = False) -> Tuple[str, ...]:
+    """The keys of ``HandNetPipeline.forward``'s dict under ``cfg``;
+    ``with_xyz`` when the call passes ``paras``. A server or an artifact
+    refuses to be asked for any other."""
+    keys = ["joints_uvd", "boxes", "crops", "found", "scores", "sides", "joints_uvd_full"]
+    if with_xyz:
+        keys.append("joints_xyz")
+    if cfg.pipeline.with_mesh:
+        keys += ["verts", "verts_xyz"] if with_xyz else ["verts"]
+    return tuple(keys)

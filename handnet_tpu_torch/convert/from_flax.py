@@ -1,14 +1,16 @@
 """JAX package variables -> port state dicts.
 
 The inverse of ``handnet_tpu/convert/torch_weights.py`` ``convert_fcos``
-(:122) and ``convert_a2j`` (:89): a ``{"params", "batch_stats"}`` tree of
-numpy (or jax) arrays becomes a state dict in the reference's torch names,
-which the port's modules load with ``load_state_dict(strict=True)``.
-``convert_fcos(fcos_state_dict_from_flax(v))`` gives back ``v``'s params and
-batch_stats leaf for leaf, and likewise for A2J.
+(:122), ``convert_a2j`` (:89) and ``convert_pose2mesh`` (:256): a
+``{"params", "batch_stats"}`` tree of numpy (or jax) arrays becomes a state
+dict in the reference's torch names, which the port's modules load with
+``load_state_dict(strict=True)``. ``convert_fcos(fcos_state_dict_from_flax(v))``
+gives back ``v``'s params and batch_stats leaf for leaf, and likewise for
+A2J and Pose2Mesh.
 
 Layout rules (reversed from the JAX package's converter):
   flax conv kernel [kh, kw, I, O] -> torch weight [O, I, kh, kw]
+  flax dense kernel [I, O]        -> torch weight [O, I]
   norm params scale/bias          -> weight/bias
   batch_stats mean/var            -> running_mean/running_var
   quant_stats act_amax            -> act_amax (a static QuantConv's buffer)
@@ -98,6 +100,8 @@ def _state_dict(variables, module_name: Callable[[Tuple[str, ...]], str]
             value = np.asarray(value)
             if path[-1] == "kernel" and value.ndim == 4:
                 value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            elif path[-1] == "kernel" and value.ndim == 2:
+                value = value.T                      # [in, out] -> [out, in]
             key = f"{module_name(path[:-1])}.{_LEAF[(collection, path[-1])]}"
             out[key] = torch.from_numpy(np.array(value, order="C"))
     return out
@@ -141,6 +145,29 @@ def _a2j_path(name: str) -> Tuple[str, ...]:
     raise KeyError(f"unmapped a2j module: {name}")
 
 
+_POSENET_SUB = {"bn1": "batch_norm1", "bn2": "batch_norm2"}
+
+
+def _pose2mesh_name(path: Tuple[str, ...]) -> str:
+    """flax Pose2Mesh path -> the reference's FlatPose2Mesh name:
+    ``pose_lifter/stage0/bn1`` -> ``pose_lifter.linear_stages.0.batch_norm1``,
+    ``pose2mesh/cl3/bn`` -> ``pose2mesh.bn.3``, ``pose2mesh/cl3`` ->
+    ``pose2mesh.cl.3``."""
+    top, *rest = path
+    if top == "pose_lifter":
+        m = re.fullmatch(r"stage(\d+)", rest[0])
+        if m:
+            return ".".join(["pose_lifter.linear_stages", m.group(1),
+                             *(_POSENET_SUB.get(p, p) for p in rest[1:])])
+        return ".".join(path)
+    if top == "pose2mesh":
+        m = re.fullmatch(r"cl(\d+)", rest[0])
+        if m:
+            return f"pose2mesh.{'bn' if rest[1:] == ['bn'] else 'cl'}.{m.group(1)}"
+        return ".".join(path)
+    raise KeyError(f"unmapped pose2mesh path: {'/'.join(path)}")
+
+
 _MODELS = {"detector": (_fcos_name, _fcos_path), "a2j": (_a2j_name, _a2j_path)}
 
 
@@ -173,13 +200,22 @@ def a2j_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     return _state_dict(variables, _a2j_name)
 
 
+def pose2mesh_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Pose2Mesh variables -> port ``Pose2Mesh`` state dict."""
+    return _state_dict(variables, _pose2mesh_name)
+
+
 def pipeline_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """``{"detector": ..., "a2j": ...}`` (``HandNetPipeline.init``) -> port
-    ``HandNetPipeline`` state dict (``detector.*``, ``a2j.*``)."""
+    """``{"detector": ..., "a2j": ...[, "pose2mesh": ...]}``
+    (``HandNetPipeline.init``) -> port ``HandNetPipeline`` state dict
+    (``detector.*``, ``a2j.*`` and, when given, ``pose2mesh.*``)."""
     out = {f"detector.{k}": v
            for k, v in fcos_state_dict_from_flax(variables["detector"]).items()}
     out.update({f"a2j.{k}": v
                 for k, v in a2j_state_dict_from_flax(variables["a2j"]).items()})
+    if "pose2mesh" in variables:
+        out.update({f"pose2mesh.{k}": v for k, v in
+                    pose2mesh_state_dict_from_flax(variables["pose2mesh"]).items()})
     return out
 
 

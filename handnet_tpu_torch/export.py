@@ -12,7 +12,7 @@ Layout::
 
     <dir>/manifest.json      format and torch version, device type, config,
                              frame geometry, buckets, wire, output fields,
-                             the int8 layers
+                             the int8 layers, the mesh head
     <dir>/weights.npz        the pipeline's state dict under its torch names
                              (bfloat16 stored as float32, see the manifest's
                              ``weights_dtypes``)
@@ -20,7 +20,12 @@ Layout::
 
 The programs take the state dict as a call argument
 (``torch.func.functional_call``), as the JAX package's graphs take their
-variables, so refreshing the weights rewrites only ``weights.npz``. An
+variables, so refreshing the weights rewrites only ``weights.npz``. The
+pipeline's non-persistent buffers are constants of each program: the anchor
+tables, the normalization constants and, with the mesh head, the graph
+pyramid's Laplacians, residual resize matrices and vertex order (they come
+from the mesh's faces, not from a checkpoint). As in the JAX package's
+export, a mesh head is built on the strip stand-in's pyramid. An
 int8 config's programs also take each int8 layer's quantized weight and
 scales (``nn.quant.given_weights``), which the loader computes once from
 the float weights, as the live layers cache them: no call of a program
@@ -192,6 +197,7 @@ def export_pipeline(cfg: HandNetConfig, state_dict: Dict[str, torch.Tensor], out
         "out_fields": list(fields) if fields is not None else None,
         "weights_dtypes": dtype_map,
         "quantized_layers": list(qweights),  # the order of the programs' input spec
+        "with_mesh": bool(cfg.pipeline.with_mesh),
     }
     with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
         json.dump(manifest, f, indent=2)
@@ -227,6 +233,7 @@ class ServingArtifact:
         self.buckets = tuple(sorted(programs))
         self.frame_hw = tuple(manifest["frame_hw"])
         self.with_xyz = manifest["with_xyz"]
+        self.with_mesh = manifest.get("with_mesh", False)
         self.quantized_wire = manifest["quantized_wire"]
         self.device = device
         self.graphs = BucketGraphs(self._forward, self.frame_hw, self.quantized_wire, device,

@@ -15,23 +15,31 @@ With ``quant`` configs the backbones, FPN and towers run int8 convolutions
 :meth:`HandNetPipeline.calibrate` (or ``nn.quant.load_calibration``) before it
 serves.
 
-Not ported yet: the Pose2Mesh mesh head (``pipeline.with_mesh``, ROADMAP
-item 10).
+With ``pipeline.with_mesh`` the forward goes on from the joints to a
+778-vertex hand mesh in the same call (``handnet_tpu/models/pipeline.py:49-69,
+176-195``): the crop-frame UV joints are normalized on the device and run
+through Pose2Mesh (``models/pose2mesh.py``) over the graph pyramid of the
+mesh (``ops/graph.py``), built once at construction. Without ``mesh_faces``
+the pyramid is that of a same-size strip stand-in for the licensed MANO
+triangulation, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from handnet_tpu_torch.config import HandNetConfig
 from handnet_tpu_torch.models.a2j import A2JSystem
 from handnet_tpu_torch.models.fcos import FCOSSystem
+from handnet_tpu_torch.models.pose2mesh import Pose2Mesh, normalize_joints_for_pose2mesh_batched
 from handnet_tpu_torch.nn.quant import QuantConv, apply_margin, set_calibrating
 from handnet_tpu_torch.ops.crop_resize import crop_resize_nearest, pad_box
 from handnet_tpu_torch.ops.geometry import convert_joints, crop_uvd_to_image_uvd
+from handnet_tpu_torch.ops.graph import HAND_SKELETON, build_graph_pyramid, strip_faces
 
 
 class HandNetPipeline(nn.Module):
@@ -54,15 +62,17 @@ class HandNetPipeline(nn.Module):
       seed: seed of the ``torch.Generator`` for the random init (weights
         usually come from ``load_state_dict`` afterwards, see
         ``convert/from_flax.py``).
+      mesh_faces: ``[F, 3]`` triangles of the mesh the ``with_mesh`` head
+        predicts (the MANO triangulation); None is the strip stand-in.
 
-    The state dict is ``detector.*`` (FCOS) and ``a2j.*`` (A2J), in the
-    reference's torch names.
+    The state dict is ``detector.*`` (FCOS), ``a2j.*`` (A2J) and, with the
+    mesh head, ``pose2mesh.*`` (Pose2Mesh), in the reference's torch names.
     """
 
     def __init__(self, cfg: Optional[HandNetConfig] = None,
                  dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device | str] = None,
-                 use_kernels: bool = True, seed: int = 0):
+                 use_kernels: bool = True, seed: int = 0, mesh_faces=None):
         super().__init__()
         if device is None:
             if not torch.cuda.is_available():
@@ -72,8 +82,6 @@ class HandNetPipeline(nn.Module):
                     "run on the CPU.")
             device = "cuda"
         self.cfg = cfg or HandNetConfig()
-        if self.cfg.pipeline.with_mesh:
-            raise NotImplementedError("HandNetPipeline: the mesh head is ROADMAP item 10")
         self.detector = FCOSSystem(self.cfg.fcos, use_kernels)
         self.a2j = A2JSystem(self.cfg.a2j, use_kernels)
         hand_label = self.cfg.pipeline.hand_label
@@ -83,9 +91,21 @@ class HandNetPipeline(nn.Module):
         # the crop's gather in bounds
         self.register_buffer("fallback_box", torch.tensor([0, 0, 175, 175], dtype=torch.int32),
                              persistent=False)
+        self.pose2mesh = None
+        if self.cfg.pipeline.with_mesh:
+            faces = strip_faces() if mesh_faces is None else mesh_faces
+            self.mesh_faces = np.asarray(faces, np.int64)
+            self.pyramid = build_graph_pyramid(self.mesh_faces, self.cfg.pose2mesh.num_joints,
+                                               HAND_SKELETON, levels=6)
+            self.pose2mesh = Pose2Mesh(self.pyramid, self.cfg.pose2mesh, dtype)
+            # padded GCN node -> mesh vertex order
+            order = self.pyramid.perm_reverse[:self.cfg.pose2mesh.num_mesh_verts]
+            self.register_buffer("mesh_order", torch.from_numpy(order), persistent=False)
         generator = torch.Generator().manual_seed(seed)
         self.detector.init_weights_(generator)
         self.a2j.init_weights_(generator)
+        if self.pose2mesh is not None:
+            self.pose2mesh.init_weights_(generator)
         self.to(device)
         for m in self.modules():
             if isinstance(m, QuantConv):
@@ -144,7 +164,10 @@ class HandNetPipeline(nn.Module):
         ``[B, 4]`` padded crop boxes, crops ``[B, S, S, C]``, found ``[B]``,
         scores ``[B]``, sides ``[B]``, joints_uvd_full ``[B, P, 3]``
         (frame UV + depth), and joints_xyz ``[B, P, 3]`` when paras is
-        given. Frames without a hand have found False and zeroed joints.
+        given. With ``pipeline.with_mesh`` also verts ``[B, 778, 3]``
+        (root-relative metres, float32) and, when paras is given, verts_xyz
+        ``[B, 778, 3]`` (camera frame, mm). Frames without a hand have found
+        False and zeroed joints and vertices.
         """
         cfg = self.cfg
         stage = self._detect_and_crop(images, depth_images)
@@ -165,6 +188,16 @@ class HandNetPipeline(nn.Module):
         }
         if paras is not None:
             out["joints_xyz"] = convert_joints(joints_uvd, boxes, paras, size, size) * keep
+        if self.pose2mesh is not None:
+            # the normalization is similarity-invariant: crop-frame UV feeds
+            # the lifter as frame UV would (ros_demo.py:148-160)
+            mesh, _ = self.pose2mesh(normalize_joints_for_pose2mesh_batched(joints_uvd[..., :2]))
+            verts = mesh[:, self.mesh_order].float()
+            out["verts"] = verts * keep
+            if paras is not None:
+                # camera-frame mm, anchored at the predicted wrist
+                # (ros_demo.py:334: mesh * 1000 + joints3d)
+                out["verts_xyz"] = (verts * 1000.0 + out["joints_xyz"][:, :1]) * keep
         return out
 
     @torch.inference_mode()
@@ -194,6 +227,7 @@ class HandNetPipeline(nn.Module):
         batches. At the end every amax is widened by ``1 + margin`` (default
         ``cfg.pipeline.quant_margin``): pass all batches in one call, since
         repeated calls compound it. A no-op for float and dynamic configs.
+        The mesh head has no int8 layer and does not run here.
         """
         if not self.needs_calibration():
             return

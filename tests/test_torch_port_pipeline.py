@@ -109,6 +109,45 @@ def test_slice_no_hand_path_zeros(weights):
     assert not got["joints_uvd"].any() and not got["joints_xyz"].any()
 
 
+def test_rgbd_slice_matches_jax():
+    """RGBD mode (``A2JConfig(in_channels=4)``, ``PipelineConfig(rgbd=True)``):
+    BGR+D frames, reordered to RGB+D after the crop, feed a 4-channel A2J
+    stem. Against JAX at score threshold 0: found, sides, boxes and crops
+    exact, scores to 1e-5, joints to 1e-4 px (a probe saw 1.7e-5)."""
+    def cfg(module):
+        return module.HandNetConfig(
+            a2j=module.A2JConfig(crop_h=CROP, crop_w=CROP, in_channels=4),
+            fcos=module.FCOSConfig(image_h=H, image_w=W, max_detections=8, num_classes=3,
+                                   ext=False, score_thresh=0.0),
+            pipeline=module.PipelineConfig(crop_size=CROP, rgbd=True))
+
+    port = HandNetPipeline(cfg(pconfig), seed=3, device="cpu")
+    sd = {k: v.numpy() for k, v in port.state_dict().items()}
+    assert sd["a2j.Backbone.model.conv1.weight"].shape[1] == 4
+    flax_vars = {
+        "detector": randomize_norms(convert_fcos(
+            {k[len("detector."):]: v for k, v in sd.items() if k.startswith("detector.")}), 4),
+        "a2j": randomize_norms(convert_a2j(
+            {k[len("a2j."):]: v for k, v in sd.items() if k.startswith("a2j.")}), 5)}
+    port.load_state_dict(pipeline_state_dict_from_flax(flax_vars), strict=True)
+    rng = np.random.default_rng(8)
+    images = rng.uniform(size=(2, H, W, 3)).astype(np.float32)
+    rgbd = np.concatenate([rng.uniform(size=(2, H, W, 3)),
+                           rng.uniform(0.3, 1.0, size=(2, H, W, 1))], -1).astype(np.float32)
+    got = {k: v.numpy() for k, v in port(torch.from_numpy(images), torch.from_numpy(rgbd)).items()}
+    jax_pipe = JaxPipeline(cfg(jconfig))
+    want = jax.jit(lambda v, im, d: jax_pipe(v, im, d))(
+        jax.tree_util.tree_map(jnp.asarray, flax_vars), jnp.asarray(images), jnp.asarray(rgbd))
+    want = {k: np.asarray(v) for k, v in want.items()}
+    assert sorted(got) == sorted(want) and want["found"].all()
+    assert got["crops"].shape == (2, CROP, CROP, 4)
+    for key in ("found", "sides", "boxes", "crops"):
+        assert np.array_equal(got[key], want[key]), key
+    assert_close(got["scores"], want["scores"], rtol=1e-5, atol=1e-6)
+    for key in ("joints_uvd", "joints_uvd_full"):
+        assert_close(got[key], want[key], rtol=0, atol=1e-4, err_msg=key)
+
+
 def test_fast_profile_without_yaml():
     """The port's config tree is the JAX package's, field for field, and the
     FAST dict builds the same config as configs/fast.yaml."""
@@ -151,7 +190,16 @@ pipe = HandNetPipeline(static, device="cpu")
 pipe.calibrate(*frames)
 assert bool(torch.isfinite(pipe(*frames)["joints_uvd"]).all())
 HandNetPipeline(C.load_config(overrides=C.QUANT_STATIC), device="cpu")
+import dataclasses
+mesh = dataclasses.replace(cfg, pipeline=C.PipelineConfig(crop_size=48, with_mesh=True),
+                           pose2mesh=C.Pose2MeshConfig(posenet_hid=64))
+out = HandNetPipeline(mesh, device="cpu")(*frames)
+assert tuple(out["verts"].shape) == (2, 778, 3) and bool(torch.isfinite(out["verts"]).all())
+from handnet_tpu_torch.models.mano import ManoAssets, ManoLayer
+verts, _ = ManoLayer(ManoAssets.synthetic(rng), device="cpu")(torch.zeros(1, 48))
+assert tuple(verts.shape) == (1, 778, 3)
 import handnet_tpu_torch.apps.export_pipeline, handnet_tpu_torch.apps.serve, handnet_tpu_torch.export
+import handnet_tpu_torch.ops.rotation
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "handnet_tpu"))
 print("LOADED", loaded)
@@ -161,9 +209,10 @@ print("LOADED", loaded)
 def test_port_imports_no_jax():
     """A fresh interpreter runs the slice through the port, float and
     calibrated static int8, detects on frames that it resamples, builds the
-    full-width QUANT_STATIC pipeline, imports the server, the artifact
-    module and the export CLI, and has loaded neither jax nor the JAX
-    package (a subprocess: tests/conftest.py imports jax into this one)."""
+    full-width QUANT_STATIC pipeline, runs the mesh head (``with_mesh``) and
+    the MANO layer, imports the server, the artifact module, the export CLI
+    and the rotations, and has loaded neither jax nor the JAX package (a
+    subprocess: tests/conftest.py imports jax into this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
