@@ -104,6 +104,25 @@ mesh: the fast operating point with the fused mesh head
    layer at B=128 in float32 against its CPU run on synthetic assets, and
    its time.
 
+train (after mesh, before the idle shares): ``FCOSTrainer`` at the width of
+   the 100DOH training run (800x1088, ResNet-34, FPN 256, 4-conv GN(32)
+   towers, the extension heads, 3 classes; batch 8, SGD lr 1.25e-3 with
+   warmup, bf16, a batch-norm backbone) on a seeded synthetic batch (480x640
+   frames with 1-4 boxes each, padded to 8, through ``preprocess``).
+   GroupNorm + ReLU at the P3 train shape [8, 100, 136, 256], float32 and
+   bf16: K2s + K2a and the ops' registered backward against autograd
+   through the plain versions (dx, dscale, dbias), and forward + backward
+   timed beside ``F.group_norm`` + autograd; the matcher at 800x1088 with a
+   float32 area tie, card == CPU; one step of two trainers from one seed
+   with the kernels and with their plain versions, bf16 and float32 (TF32
+   off): every loss term and every parameter's gradient; 20 steps on the
+   repeated batch (K2s and K2a 24 launches per step, K1 and K3 none; every
+   loss finite, the last total below half the first, master weights
+   float32), ms per step by the loop clock after 3 steps, images/s, peak
+   memory, and a profile of one step by kernel (top 10, K2s/K2a's share, the
+   GroupNorm backward's share from its profiler ranges); one step with a
+   frozen backbone (running statistics unchanged, its affine moved).
+
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it.
 
@@ -111,8 +130,8 @@ In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
 the quant_static run's, ``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
-wrapper), and K2s's and K2a's ``shapes`` hold their numbers at the shapes
-of phase 5.
+wrapper; ``train_fcos`` per train step), and K2s's and K2a's ``shapes``
+hold their numbers at the shapes of phase 5.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
@@ -172,6 +191,35 @@ MESH_TOL_PLAIN = 1e-2
 MESH_TOL_CPU = 5e-2
 # the head alone on the same joints, card against CPU, f32, TF32 off
 MESH_HEAD_TOL = 1e-4
+# training (apps/train_fcos.py on 100DOH: FCOSConfig's defaults, 3 classes,
+# batch 8, lr 1.25e-3, SGD, a one-epoch warmup, bf16, a batch-norm backbone)
+TRAIN_BATCH = 8
+TRAIN_LR = 1.25e-3
+TRAIN_MAX_BOXES = 8               # DetectDataSource's max_boxes (data/detect_data.py:86)
+TRAIN_FRAME = (480, 640)
+TRAIN_STEPS = 20                  # the learning run, on one repeated batch
+TRAIN_WARM_STEPS = 3              # steps before the loop clock starts
+TRAIN_STEPS_PER_EPOCH = 5         # so the warmup ends at step 5 and the run learns at lr
+# the last total loss of the learning run below half the first (measured on
+# an H100 80GB HBM3 at 700 W: 0.141 of the first)
+TRAIN_LEARN_SHARE = 0.5
+GN_TRAIN_SHAPE = (8, 100, 136, 256)   # P3 of a train step at 800x1088, G=32
+# K2s + K2a and the registered backward against autograd through the plain
+# versions at GN_TRAIN_SHAPE, as a share of each gradient's largest |value|:
+# float32 differs by the statistics' summation order; bf16 rounds dx to
+# bf16 (an ulp is 2^-8 of a value) in two terms, each path after its own
+# float32 arithmetic (measured: dx 1.9e-7 f32, 1.5e-3 bf16; dscale 3.5e-7)
+GN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the train step with kernels against the plain versions (same seed, same
+# batch): each loss term (relative) and each parameter's gradient (norm of
+# the difference over the norm), bf16 and float32 with TF32 off. The two
+# differ by the statistics' last bits in the forward and by the gradient's
+# formula (registered against autograd's through the plain ops), and cuDNN's
+# weight gradients sum in no fixed order (measured: bf16 losses 1.4e-4,
+# gradients median 1.7e-2, max 3.6e-2; f32 losses equal, gradients median
+# 2.4e-4, max 4.4e-4)
+TRAIN_KERNEL_TOL = {"bfloat16": {"loss": 2e-3, "grad": 0.15},
+                    "float32": {"loss": 1e-5, "grad": 5e-3}}
 
 
 def log(phase: str, msg: str) -> None:
@@ -2293,6 +2341,333 @@ def phase_mesh(dev, cfg, cfg_quant) -> dict:
     return paths
 
 
+# --- training: FCOSTrainer at the full width of the 100DOH training run ---
+
+def train_batch(dev, cfg, seed: int) -> dict:
+    """``TRAIN_BATCH`` seeded 480x640 frames, each with 1-4 boxes (labels 1
+    or 2, box_info = contact 0-4, side 0-1, magnitude, dx, dy), padded to
+    ``TRAIN_MAX_BOXES`` as the data source pads (label 0, box_info -1 with
+    field 4 zeroed), then through the port's ``preprocess`` to the
+    detector's input, the boxes scaled as apps/train_fcos.py:136-150 scales
+    them."""
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.models.fcos import preprocess
+
+    rng = np.random.default_rng(seed)
+    h, w = TRAIN_FRAME
+    m = TRAIN_MAX_BOXES
+    boxes = np.zeros((TRAIN_BATCH, m, 4), np.float32)
+    labels = np.zeros((TRAIN_BATCH, m), np.int32)
+    valid = np.zeros((TRAIN_BATCH, m), bool)
+    info = np.full((TRAIN_BATCH, m, 5), -1.0, np.float32)
+    info[..., 4] = 0.0
+    for i in range(TRAIN_BATCH):
+        n = int(rng.integers(1, 5))
+        for j in range(n):
+            bw, bh = rng.uniform(0.05, 0.6) * w, rng.uniform(0.05, 0.6) * h
+            x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            boxes[i, j] = [x1, y1, x1 + bw, y1 + bh]
+            labels[i, j] = rng.integers(1, 3)
+            info[i, j] = [rng.integers(0, 5), rng.integers(0, 2), rng.uniform(0, 1),
+                          rng.uniform(-1, 1), rng.uniform(-1, 1)]
+        valid[i, :n] = True
+    frames = torch.from_numpy(rng.uniform(size=(TRAIN_BATCH, h, w, 3)).astype(np.float32))
+    image, _ = preprocess(frames.to(dev), cfg)
+    scale = min(cfg.image_h / h, cfg.image_w / w)
+    targets = {"boxes": boxes * scale, "labels": labels, "valid": valid, "box_info": info}
+    return {"image": image, "targets": {k: torch.from_numpy(v).to(dev)
+                                        for k, v in targets.items()}}
+
+
+def set_gn_kernels(model, on: bool) -> None:
+    """The towers' GroupNorms through K2s/K2a (True) or their plain versions."""
+    for mod in model.modules():
+        if hasattr(mod, "use_kernel"):
+            mod.use_kernel = on
+
+
+def gn_train_gradient(dev) -> None:
+    """GroupNorm + ReLU at the P3 train shape, float32 and bf16: K2s and K2a
+    (one launch each) with the registered backward against autograd through
+    the plain versions, on dx, dscale and dbias. Elements whose ReLU mask
+    differs between the two outputs (the statistics differ in the last
+    bits) are counted and left out of dx."""
+    import torch
+
+    from handnet_tpu_torch.ops.cuda_gn import group_norm, group_norm_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, h, w, c = GN_TRAIN_SHAPE
+    x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
+    scale = torch.rand(c, device=dev, generator=gen) + 0.5
+    bias = torch.randn(c, device=dev, generator=gen)
+    dy = torch.randn(b, h, w, c, device=dev, generator=gen)
+    for dtype in (torch.float32, torch.bfloat16):
+        def grads(fn):
+            xs = x.to(dtype).requires_grad_()
+            sc, bi = scale.clone().requires_grad_(), bias.clone().requires_grad_()
+            y = fn(xs, sc, bi)
+            return (y.detach(), *torch.autograd.grad(y, (xs, sc, bi), dy.to(dtype)))
+
+        reset_launch_counts()
+        got = grads(lambda a, s, t: group_norm(a, s, t, 32, relu=True))
+        counts = launch_counts()
+        if (counts["gn_group_stats"], counts["gn_apply"]) != (1, 1):
+            raise AssertionError(f"GroupNorm forward + backward launched {counts}: expected "
+                                 "K2s and K2a once each")
+        want = grads(lambda a, s, t: group_norm_reference(a, s, t, 32, relu=True))
+        agree = (got[0] > 0) == (want[0] > 0)
+        flips = int((~agree).sum())
+        if flips > 1e-6 * agree.numel():
+            raise AssertionError(f"GN gradient {dtype}: {flips} ReLU masks differ")
+        tol = GN_GRAD_TOL[str(dtype).split(".")[-1]]
+        errs = {}
+        for name, g, r in zip(("dx", "dscale", "dbias"), got[1:], want[1:]):
+            g, r = g.float(), r.float()
+            if name == "dx":
+                g, r = g[agree], r[agree]
+            errs[name] = ((g - r).abs().max() / r.abs().max()).item()
+            if not errs[name] <= tol:
+                raise AssertionError(f"GN gradient {dtype} {name}: max|err| {errs[name]:.3e} "
+                                     f"of its scale > {tol:.1e}")
+        log("train", f"GN gradient {list(GN_TRAIN_SHAPE)} G=32 ReLU {dtype}: K2s + K2a + the "
+            "registered backward vs autograd through the plain versions: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" of scale (tol {tol:g}); {flips} ReLU masks differ (left out of dx)")
+        del got, want, agree
+
+
+def gn_train_yardstick(dev) -> None:
+    """Forward + backward of GroupNorm + ReLU at the P3 train shape in bf16:
+    K2s + K2a with the registered backward, against ``F.group_norm`` +
+    ``F.relu`` with autograd's own backward (which the port never calls),
+    on the device and by loop; and their byte bound (the pair's inputs x
+    and dy read once, its outputs y and dx written once)."""
+    import torch
+    import torch.nn.functional as F
+
+    from handnet_tpu_torch.ops.cuda_gn import group_norm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, h, w, c = GN_TRAIN_SHAPE
+    x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2).to(torch.bfloat16)
+    dy = torch.randn(b, h, w, c, device=dev, generator=gen).to(torch.bfloat16)
+    # float32 parameters, as the trainer holds them; F.group_norm on the card
+    # takes them only in x's type
+    sc = (torch.rand(c, device=dev, generator=gen) + 0.5).requires_grad_()
+    bi = torch.randn(c, device=dev, generator=gen).requires_grad_()
+    sc16, bi16 = (t.detach().to(torch.bfloat16).requires_grad_() for t in (sc, bi))
+    xk = x.clone().requires_grad_()
+    xc = x.permute(0, 3, 1, 2).detach().requires_grad_()   # NCHW view, channels_last bytes
+    dyc = dy.permute(0, 3, 1, 2)
+
+    def ours():
+        torch.autograd.grad(group_norm(xk, sc, bi, 32, relu=True), (xk, sc, bi), dy)
+
+    def library():
+        torch.autograd.grad(F.relu(F.group_norm(xc, 32, sc16, bi16, 1e-5)), (xc, sc16, bi16),
+                            dyc)
+
+    t_ours, t_lib = timed(ours), timed(library)
+    b_ms = bound(4 * nbytes(x), 0, F32_FLOPS_PER_S)["bound_ms"]
+    log("train", f"GroupNorm + ReLU forward + backward at {list(GN_TRAIN_SHAPE)} bf16: K2s + K2a "
+        f"+ registered backward {t_ours['ms']:.4f} ms on the device (loop {t_ours['loop_ms']:.4f}); "
+        f"F.group_norm + F.relu + autograd {t_lib['ms']:.4f} (loop {t_lib['loop_ms']:.4f}); "
+        f"byte bound {b_ms:.4f} ms")
+
+
+def train_kernels_vs_plain(dev, cfg, tcfg, batch) -> None:
+    """One step of two trainers from one seed, K2s/K2a on and off, in bf16
+    and in float32 (TF32 off): every loss term and every parameter's
+    gradient within ``TRAIN_KERNEL_TOL``."""
+    import torch
+
+    from handnet_tpu_torch.train.trainer import FCOSTrainer
+
+    for bf16 in (True, False):
+        kind = "bfloat16" if bf16 else "float32"
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = bf16
+        runs = []
+        for on in (True, False):
+            trainer = FCOSTrainer(cfg, dataclasses.replace(tcfg, bf16=bf16),
+                                  steps_per_epoch=TRAIN_STEPS_PER_EPOCH,
+                                  backbone_norm="batch", device=dev)
+            state = trainer.init_state(SEED)
+            set_gn_kernels(state.model, on)
+            reset_launch_counts()
+            state, metrics = trainer.train_step(state, batch)
+            counts = launch_counts()
+            want = GN_LAYERS_PER_CALL if on else 0
+            if (counts["gn_group_stats"], counts["gn_apply"]) != (want, want):
+                raise AssertionError(f"train step kernels={on}: launches {counts}")
+            runs.append(({k: v.item() for k, v in metrics.items()},
+                         {n: p.grad.detach().float().clone()
+                          for n, p in state.model.named_parameters()}))
+            del trainer, state
+            free_device_memory(dev)
+        (mk, gk), (mp, gp) = runs
+        tol = TRAIN_KERNEL_TOL[kind]
+        loss_err = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+        grad_err = {n: ((gk[n] - gp[n]).norm() / gp[n].norm().clamp(min=1e-30)).item()
+                    for n in gp}
+        worst = max(grad_err, key=grad_err.get)
+        ranked = sorted(grad_err.values())
+        log("train", f"{kind} step, kernels vs plain: losses max rel err "
+            f"{max(loss_err.values()):.3e} (tol {tol['loss']:g}); gradients, |g_k - g_p| / |g_p| "
+            f"per tensor: median {ranked[len(ranked) // 2]:.3e}, max {grad_err[worst]:.3e} "
+            f"({worst}; tol {tol['grad']:g})")
+        if max(loss_err.values()) > tol["loss"] or grad_err[worst] > tol["grad"]:
+            raise AssertionError(f"{kind} train step: kernels vs plain outside tolerance "
+                                 f"({loss_err}, {worst} {grad_err[worst]:.3e})")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def train_step_profile(trainer, state, batch) -> None:
+    """One step under torch.profiler: the top 10 kernels by device time, the
+    share of K2s and K2a (the forward's GroupNorms) and of the GroupNorm
+    backward (the ops' registered gradients, read from their profiler
+    ranges)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from handnet_tpu_torch.ops.cuda_gn import GN_BACKWARD_RANGES
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = sorted(((e.key, getattr(e, "self_device_time_total",
+                                      getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count)
+                      for e in events
+                      if "CUDA" in str(getattr(e, "device_type", ""))
+                      and not getattr(e, "is_user_annotation", False)
+                      and e.key not in GN_BACKWARD_RANGES), key=lambda r: -r[1])
+    total = sum(ms for _, ms, _ in kernels)
+    gn_fwd = sum(ms for key, ms, _ in kernels if "gn_stats_kernel" in key
+                 or "gn_apply_kernel" in key)
+    gn_bwd = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+                 for e in events if e.key in GN_BACKWARD_RANGES
+                 and "CPU" in str(getattr(e, "device_type", "")))
+    if total <= 0:
+        log("train", "profile of one step: the profiler recorded no device time (not measured)")
+        return
+    log("train", f"profile of one step: kernels {total:.3f} ms on the device; K2s + K2a "
+        f"(forward) {gn_fwd:.3f} ms = {100 * gn_fwd / total:.2f}%; GroupNorm backward (the "
+        f"registered gradients' kernels) {gn_bwd:.3f} ms = {100 * gn_bwd / total:.2f}%"
+        + ("" if gn_bwd > 0 else " (not measured: the ranges recorded no kernels)"))
+    for key, ms, count in kernels[:10]:
+        log("train", f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
+
+
+def phase_train(dev, cfg) -> dict:
+    """``FCOSTrainer`` at the full width of the 100DOH run (800x1088,
+    ResNet-34, FPN 256, 4-conv GN towers, ext heads, 3 classes; batch 8,
+    SGD lr 1.25e-3 with warmup, bf16, batch-norm backbone) on a seeded
+    synthetic batch. Returns K1..K3's launches per train step."""
+    import torch
+
+    from handnet_tpu_torch.config import TrainConfig
+    from handnet_tpu_torch.models.fcos import anchors_for, match_anchors
+    from handnet_tpu_torch.train.trainer import FCOSTrainer
+
+    gn_train_gradient(dev)
+    gn_train_yardstick(dev)
+    free_device_memory(dev)
+    batch = train_batch(dev, cfg, seed=SEED)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, optimizer="sgd",
+                       warmup_epochs=1, bf16=True)
+
+    # the matcher on the card equals its CPU run, exactly, with a pair of
+    # GTs whose areas (96 x 96 and 97 x 95) tie in float32 in image 0
+    targets = {k: v.clone() for k, v in batch["targets"].items()}
+    targets["boxes"][0, 6:] = torch.tensor([[100.0, 100.0, 196.0, 196.0],
+                                            [100.0, 100.0, 197.0, 195.0]], device=dev)
+    targets["valid"][0, 6:] = True
+    anchors, sizes, slices = anchors_for(cfg)
+    anchors, sizes = torch.from_numpy(anchors), torch.from_numpy(sizes)
+    on_card = match_anchors(anchors.to(dev), sizes.to(dev), slices, targets["boxes"],
+                            targets["valid"]).cpu()
+    on_cpu = match_anchors(anchors, sizes, slices, targets["boxes"].cpu(),
+                           targets["valid"].cpu())
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError("match_anchors: card and CPU differ")
+    log("train", f"match_anchors at {cfg.image_h}x{cfg.image_w} ({anchors.shape[0]} anchors, "
+        f"B={TRAIN_BATCH}, M={TRAIN_MAX_BOXES}, a float32 area tie in image 0): card == CPU; "
+        f"{int((on_cpu >= 0).sum())} foreground anchors")
+
+    train_kernels_vs_plain(dev, cfg, tcfg, batch)
+
+    # the learning run: 20 steps on the repeated batch, the loop clock after 3
+    trainer = FCOSTrainer(cfg, tcfg, steps_per_epoch=TRAIN_STEPS_PER_EPOCH,
+                          backbone_norm="batch", device=dev)
+    state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARM_STEPS:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    want = expected_launches(TRAIN_STEPS, GN_LAYERS_PER_CALL)
+    want["a2j_decode"] = 0
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} over {TRAIN_STEPS} steps: expected K2s "
+                             f"and K2a {GN_LAYERS_PER_CALL} per step, no K1 or K3")
+    peak = torch.cuda.max_memory_allocated()
+    losses = {k: torch.stack([m[k] for m in metrics]).cpu() for k in metrics[0]}
+    if not all(bool(torch.isfinite(v).all()) for v in losses.values()):
+        raise AssertionError(f"train: non-finite losses {losses}")
+    total = losses["total_loss"]
+    if not total[-1] < TRAIN_LEARN_SHARE * total[0]:
+        raise AssertionError(f"train: total loss {total[0]:.4f} -> {total[-1]:.4f}, not below "
+                             f"{TRAIN_LEARN_SHARE} x the first")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError("train: master parameters are not float32")
+    ms = seconds / (TRAIN_STEPS - TRAIN_WARM_STEPS) * 1e3
+    log("train", f"{TRAIN_STEPS} bf16 steps at {cfg.image_h}x{cfg.image_w}, batch {TRAIN_BATCH}: "
+        f"{ms:.3f} ms per step (loop clock over steps {TRAIN_WARM_STEPS + 1}-{TRAIN_STEPS}), "
+        f"{TRAIN_BATCH / ms * 1e3:.2f} images/s; peak memory "
+        f"{peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); launches per step "
+        f"{per_call(launches, TRAIN_STEPS)}; master parameters float32")
+    log("train", "total loss by step: " + ", ".join(f"{v:.4f}" for v in total.tolist())
+        + f" ({total[-1] / total[0]:.4f} of the first; tol < {TRAIN_LEARN_SHARE})")
+    log("train", "last step's terms: " + ", ".join(f"{k} {v[-1]:.4f}" for k, v in losses.items()))
+    train_step_profile(trainer, state, batch)
+    del trainer, state, metrics
+    free_device_memory(dev)
+
+    # a frozen backbone: eval-mode statistics, a trainable affine
+    trainer = FCOSTrainer(cfg, tcfg, steps_per_epoch=TRAIN_STEPS_PER_EPOCH,
+                          backbone_norm="frozen", device=dev)
+    state = trainer.init_state(SEED)
+    body = state.model.backbone["body"]
+    before = {k: v.clone() for k, v in body.state_dict().items()}
+    state, m = trainer.train_step(state, batch)
+    after = body.state_dict()
+    stats_same = all(torch.equal(before[k], after[k]) for k in before
+                     if k.endswith(("running_mean", "running_var")))
+    affine_moved = sum(not torch.equal(before[k], after[k]) for k in before
+                       if k.endswith(("bn1.weight", "bn1.bias")))
+    if not (all(bool(torch.isfinite(v)) for v in m.values()) and stats_same and affine_moved):
+        raise AssertionError(f"frozen step: finite {[float(v) for v in m.values()]}, statistics "
+                             f"unchanged {stats_same}, bn1 affines moved {affine_moved}")
+    log("train", f"frozen backbone, one step: total loss {m['total_loss'].item():.4f}, finite; "
+        f"running statistics unchanged; {affine_moved} bn1 weight/bias tensors moved")
+    del trainer, state, batch
+    free_device_memory(dev)
+    return per_call(launches, TRAIN_STEPS)
+
+
 def main() -> int:
     import torch
 
@@ -2381,6 +2756,11 @@ def main() -> int:
     by_path.update(phase_mesh(dev, *(with_mesh(c) for c in (cfg, cfg_quant))))
     free_device_memory(dev)
     lap("mesh")
+    # apps/train_fcos.py's 100DOH run: FCOSConfig's defaults with 3 classes
+    by_path["train_fcos"] = phase_train(dev, load_config().fcos)
+    log("train", f"device memory after the phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated")
+    lap("train")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

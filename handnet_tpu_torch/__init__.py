@@ -20,6 +20,10 @@ Serving: ``apps.serve.PipelineServer`` (the streaming server, one CUDA
 graph per batch bucket from ``graphs``) and ``export`` (the deployment
 artifact: one ``torch.export`` program per bucket, loaded without model
 code), with the CLIs ``apps.serve`` and ``apps.export_pipeline``.
+
+Training: ``train.trainer.FCOSTrainer`` (the detector's train step, K2s and
+K2a in its forward, their ops' registered gradients in its backward),
+``train.schedules`` and ``train.checkpoints``.
 """
 
 __version__ = "0.1.0"

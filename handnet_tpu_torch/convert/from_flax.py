@@ -1,4 +1,4 @@
-"""JAX package variables -> port state dicts.
+"""JAX package variables <-> port state dicts.
 
 The inverse of ``handnet_tpu/convert/torch_weights.py`` ``convert_fcos``
 (:122), ``convert_a2j`` (:89) and ``convert_pose2mesh`` (:256): a
@@ -6,7 +6,10 @@ The inverse of ``handnet_tpu/convert/torch_weights.py`` ``convert_fcos``
 dict in the reference's torch names, which the port's modules load with
 ``load_state_dict(strict=True)``. ``convert_fcos(fcos_state_dict_from_flax(v))``
 gives back ``v``'s params and batch_stats leaf for leaf, and likewise for
-A2J and Pose2Mesh.
+A2J and Pose2Mesh. The other way, :func:`fcos_variables_from_state_dict`
+gives a port detector's state dict (a trained one: frozen or batch-norm
+backbone) as the flax tree, which ``train/checkpoints.py`` writes as the
+JAX package's params npz.
 
 Layout rules (reversed from the JAX package's converter):
   flax conv kernel [kh, kw, I, O] -> torch weight [O, I, kh, kw]
@@ -58,6 +61,14 @@ def _resnet_name(path: Tuple[str, ...]) -> str:
     return ".".join([f"layer{m.group(1)}", m.group(2)] + [_RESNET_SUB.get(p, p) for p in rest])
 
 
+_FCOS_OUTPUTS = {"cls_logits": "classification_head.cls_logits",
+                 "hand_lr": "classification_head.hand_lr_layer",
+                 "hand_contact": "classification_head.hand_contact_state_layer",
+                 "hand_dxdy": "classification_head.hand_dydx_layer",
+                 "bbox_reg": "regression_head.bbox_reg",
+                 "bbox_ctrness": "regression_head.bbox_ctrness"}
+
+
 def _fcos_name(path: Tuple[str, ...]) -> str:
     top, *rest = path
     if top == "backbone":
@@ -73,13 +84,7 @@ def _fcos_name(path: Tuple[str, ...]) -> str:
             m = re.fullmatch(r"(conv|gn)(\d+)", rest[1])
             idx = 3 * int(m.group(2)) + (0 if m.group(1) == "conv" else 1)
             return f"head.{branch}_head.conv.{idx}"
-        out = {"cls_logits": "classification_head.cls_logits",
-               "hand_lr": "classification_head.hand_lr_layer",
-               "hand_contact": "classification_head.hand_contact_state_layer",
-               "hand_dxdy": "classification_head.hand_dydx_layer",
-               "bbox_reg": "regression_head.bbox_reg",
-               "bbox_ctrness": "regression_head.bbox_ctrness"}
-        return "head." + out[name]
+        return "head." + _FCOS_OUTPUTS[name]
     raise KeyError(f"unmapped fcos path: {'/'.join(path)}")
 
 
@@ -120,17 +125,20 @@ def _resnet_path(name: str) -> Tuple[str, ...]:
 
 
 def _fcos_path(name: str) -> Tuple[str, ...]:
-    """Inverse of :func:`_fcos_name` for the int8 convs (backbone, FPN,
-    tower convs): port module name -> flax path."""
+    """Inverse of :func:`_fcos_name`: port module name -> flax path."""
     if name.startswith("backbone.body."):
         return ("backbone",) + _resnet_path(name[len("backbone.body."):])
     m = re.fullmatch(r"backbone\.fpn\.(inner|layer)_blocks\.(\d+)", name)
     if m:
         return ("fpn", f"{'lateral' if m.group(1) == 'inner' else 'output'}_{m.group(2)}")
     m = re.fullmatch(r"head\.(classification|regression)_head\.conv\.(\d+)", name)
-    if m and int(m.group(2)) % 3 == 0:  # [Conv, GN, ReLU] triplets
+    if m and int(m.group(2)) % 3 < 2:  # [Conv, GN, ReLU] triplets
         tower = "cls_tower" if m.group(1) == "classification" else "reg_tower"
-        return ("head", tower, f"conv{int(m.group(2)) // 3}")
+        layer, kind = divmod(int(m.group(2)), 3)
+        return ("head", tower, f"{('conv', 'gn')[kind]}{layer}")
+    for flax_name, torch_name in _FCOS_OUTPUTS.items():
+        if name == f"head.{torch_name}":
+            return ("head", flax_name)
     raise KeyError(f"unmapped fcos module: {name}")
 
 
@@ -193,6 +201,39 @@ def port_calibration_name(key: str) -> str:
 def fcos_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """FCOS variables (``FCOSSystem.init``) -> port ``FCOS`` state dict."""
     return _state_dict(variables, _fcos_name)
+
+
+def _variables(state_dict: Dict[str, torch.Tensor],
+               module_path: Callable[[str], Tuple[str, ...]]) -> dict:
+    """Inverse of :func:`_state_dict`: torch names -> ``{"params",
+    "batch_stats"[, "quant_stats"]}`` of float32 numpy arrays."""
+    leaf_to_flax = {v: k for k, v in _LEAF.items() if k[1] != "scale"}
+    out: dict = {}
+    for key, tensor in state_dict.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":   # ignored, as convert_fcos ignores it
+            continue
+        value = tensor.detach().float().cpu().numpy()
+        collection, name = leaf_to_flax[leaf]
+        if leaf == "weight" and value.ndim == 4:
+            value = value.transpose(2, 3, 1, 0)      # OIHW -> HWIO
+        elif leaf == "weight" and value.ndim == 2:
+            value = value.T                          # [out, in] -> [in, out]
+        elif leaf == "weight":
+            name = "scale"                           # a norm layer's
+        node = out.setdefault(collection, {})
+        for part in module_path(module):
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(value)
+    return out
+
+
+def fcos_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Port ``FCOS`` state dict -> the JAX package's FCOS variables
+    (``{"params", "batch_stats"}``, numpy): what ``convert_fcos`` gives for
+    the same state dict. ``fcos_state_dict_from_flax`` of the result gives
+    the state dict back."""
+    return _variables(state_dict, _fcos_path)
 
 
 def a2j_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:

@@ -1,7 +1,8 @@
-"""FCOS hand detector, serving forward.
+"""FCOS hand detector: the serving forward and the training loss.
 
 Counterpart of ``handnet_tpu/models/fcos.py`` (``ConvTower``, ``FCOSHead``,
-``FCOS``, ``preprocess``, ``decode_detections``, ``FCOSSystem.detect``).
+``FCOS``, ``preprocess``, ``decode_detections``, ``match_anchors``,
+``fcos_loss``, ``FCOSSystem.detect`` and ``.loss``).
 Parameter names follow the reference's torch state dict
 (``backbone.body.*``, ``backbone.fpn.*``,
 ``head.{classification,regression}_head.*``), so the JAX package's
@@ -13,7 +14,10 @@ as in the JAX package. ``cfg.ext`` adds the 100DOH extension heads (contact
 state, offset vector), ``cfg.s2d_stem`` the space-to-depth stem
 (``nn/resnet.py`` ``StemConv``), and ``FCOSHead.fused_towers`` runs the two
 towers as one grouped-conv tower. ``preprocess`` resizes frames of another
-size than the network input (``ops/resize.py``).
+size than the network input (``ops/resize.py``). ``backbone_norm`` is the
+backbone's norm (``nn/resnet.py`` ``make_norm``): ``"frozen"`` serves and
+fine-tunes, ``"batch"`` trains from scratch, its statistics taken from
+the batch in ``module.train()`` mode.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ from handnet_tpu_torch.nn.fpn import FPN
 from handnet_tpu_torch.nn.quant import conv_layer
 from handnet_tpu_torch.nn.resnet import init_conv_weights_, resnet34
 from handnet_tpu_torch.ops.anchors import fcos_anchor_pyramid
-from handnet_tpu_torch.ops.boxes import linear_decode
+from handnet_tpu_torch.ops.boxes import giou_loss, linear_decode, linear_encode
 from handnet_tpu_torch.ops.cuda_gn import group_norm
+from handnet_tpu_torch.ops.focal import bce_with_logits, sigmoid_focal_loss
 from handnet_tpu_torch.ops.nms import batched_nms_fixed
 from handnet_tpu_torch.ops.resize import resize_bilinear_matmul
 
@@ -186,17 +191,18 @@ class FCOSHead(nn.Module):
 
 
 class FCOS(nn.Module):
-    """ResNet-34 (frozen BN) + FPN + head. ``forward`` takes preprocessed
-    NHWC frames and returns the raw flat head outputs."""
+    """ResNet-34 + FPN + head. ``forward`` takes preprocessed NHWC frames
+    and returns the raw flat head outputs."""
 
-    def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
+    def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True,
+                 backbone_norm: str = "frozen"):
         super().__init__()
         cfg = cfg or FCOSConfig()
         if cfg.backbone != "resnet34":
             raise NotImplementedError(f"FCOS: backbone {cfg.backbone!r}")
         self.cfg = cfg
         self.backbone = nn.ModuleDict({
-            "body": resnet34(quant=cfg.quant, s2d_stem=cfg.s2d_stem),
+            "body": resnet34(quant=cfg.quant, s2d_stem=cfg.s2d_stem, norm=backbone_norm),
             "fpn": FPN((128, 256, 512), cfg.fpn_channels, quant=cfg.quant),
         })
         self.head = FCOSHead(cfg, use_kernels)
@@ -314,18 +320,135 @@ def decode_detections(head: Dict[str, torch.Tensor], anchors: torch.Tensor,
     return out
 
 
+def _one_hot(labels: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 one-hot with ``jax.nn.one_hot``'s meaning: a label outside
+    ``[0, n)`` (the padding's -1) gives a row of zeros."""
+    return (labels[..., None] == torch.arange(n, device=labels.device)).float()
+
+
+def _take_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``values [B, M, ...]`` at ``idx [B, N]`` -> ``[B, N, ...]``."""
+    return values[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
+
+
+def match_anchors(anchors: torch.Tensor, anchor_sizes: torch.Tensor, level_slices,
+                  gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                  center_sampling_radius: float = 1.5) -> torch.Tensor:
+    """Center-sampling matcher (reference fcos.py:530-568;
+    ``handnet_tpu/models/fcos.py:314``), batched: ``anchors [N, 4]`` and
+    ``anchor_sizes [N]``, padded ``gt_boxes [B, M, 4]`` and ``gt_valid
+    [B, M]`` -> the matched GT index per anchor ``[B, N]``, -1 for
+    background.
+
+    An anchor takes the GTs whose centre lies within ``radius * size`` of
+    it, that contain its centre, and whose largest (l, t, r, b) distance
+    falls in its level's range ``(4 size, 8 size)`` (open at the pyramid's
+    ends); of those, the smallest area wins. The quality ``1e8 - area`` is
+    float32, as in the JAX package: its ulp there is 8, so GTs whose areas
+    differ by a few pixels tie, and the first of them wins (``argmax``'s
+    first maximal index). Computing it in float64 would pick others.
+    """
+    n = anchors.shape[0]
+    gt_centers = (gt_boxes[..., :2] + gt_boxes[..., 2:]) / 2                 # [B, M, 2]
+    anchor_centers = (anchors[:, :2] + anchors[:, 2:]) / 2                   # [N, 2]
+    dist = (anchor_centers[None, :, None, :] - gt_centers[:, None]).abs().amax(dim=-1)
+    pairwise = dist < center_sampling_radius * anchor_sizes[:, None]         # [B, N, M]
+
+    x = anchor_centers[None, :, 0:1]
+    y = anchor_centers[None, :, 1:2]
+    ltrb = torch.stack([x - gt_boxes[:, None, :, 0], y - gt_boxes[:, None, :, 1],
+                        gt_boxes[:, None, :, 2] - x, gt_boxes[:, None, :, 3] - y],
+                       dim=-1)                                               # [B, N, M, 4]
+    pairwise &= ltrb.amin(dim=-1) > 0
+
+    idx = torch.arange(n, device=anchors.device)
+    lower = torch.where(idx < level_slices[0][1], 0.0, anchor_sizes * 4)
+    upper = torch.where(idx >= level_slices[-1][0], math.inf, anchor_sizes * 8)
+    max_dist = ltrb.amax(dim=-1)
+    pairwise &= (max_dist > lower[:, None]) & (max_dist < upper[:, None])
+    pairwise &= gt_valid[:, None, :]
+
+    gt_areas = ((gt_boxes[..., 2] - gt_boxes[..., 0])
+                * (gt_boxes[..., 3] - gt_boxes[..., 1])).float()
+    quality = pairwise.float() * (1e8 - gt_areas[:, None, :])
+    best, matched = quality.max(dim=-1)
+    return torch.where(best < 1e-5, -1, matched)
+
+
+def fcos_loss(head: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
+              anchors: torch.Tensor, anchor_sizes: torch.Tensor, level_slices,
+              cfg: FCOSConfig) -> Dict[str, torch.Tensor]:
+    """All FCOS losses (reference ``FCOSHead.compute_loss``, fcos.py:44-178;
+    ``handnet_tpu/models/fcos.py:362``), in float32 whatever the head's dtype.
+
+    ``targets`` are fixed-shape and padded: boxes ``[B, M, 4]``, labels
+    ``[B, M]``, valid ``[B, M]`` bool and, for the extension heads, box_info
+    ``[B, M, 5]`` = (contact state, hand side, magnitude, dx, dy). Every term
+    is divided by the number of foreground anchors over the whole batch;
+    ``hand_dxdy`` is a mean over all anchors before that division, as in the
+    reference. Keys in the JAX package's order.
+    """
+    cls_logits = head["cls_logits"].float()
+    reg = head["bbox_regression"].float()
+    ctrness = head["bbox_ctrness"].float()[..., 0]
+    hand_lr = head["hand_lr"].float()
+
+    matched = match_anchors(anchors, anchor_sizes, level_slices, targets["boxes"],
+                            targets["valid"], cfg.center_sampling_radius)    # [B, N]
+    fg = matched >= 0
+    num_fg = fg.sum().clamp(min=1).float()
+    midx = matched.clamp(min=0)
+    gt_boxes_at = _take_rows(targets["boxes"], midx)                         # [B, N, 4]
+    fg_col = fg[..., None]
+
+    cls_targets = _one_hot(_take_rows(targets["labels"], midx), cfg.num_classes) * fg_col
+    loss_cls = sigmoid_focal_loss(cls_logits, cls_targets).sum()
+    box_info = targets.get("box_info")
+    if box_info is not None:
+        side = _take_rows(box_info[..., 1], midx).to(torch.int32)
+        loss_hand_lr = sigmoid_focal_loss(hand_lr, _one_hot(side, 2) * fg_col).sum() * 2e-2
+    else:
+        loss_hand_lr = torch.zeros((), device=cls_logits.device)
+
+    giou = giou_loss(linear_decode(reg, anchors[None]), gt_boxes_at)
+    loss_reg = torch.where(fg, giou, 0.0).sum()
+
+    ltrb = linear_encode(anchors[None], gt_boxes_at)
+    lr_, tb = ltrb[..., 0::2], ltrb[..., 1::2]
+
+    def ratio(pair):
+        top = pair.amax(dim=-1)
+        return pair.amin(dim=-1) / torch.where(top == 0, 1.0, top)
+
+    ctr_target = torch.sqrt((ratio(lr_) * ratio(tb)).abs())
+    loss_ctr = torch.where(fg, bce_with_logits(ctrness, ctr_target), 0.0).sum()
+
+    losses = {"classification": loss_cls / num_fg, "bbox_regression": loss_reg / num_fg,
+              "bbox_ctrness": loss_ctr / num_fg, "hand_lr": loss_hand_lr / num_fg}
+    if cfg.ext and "hand_contact_state" in head and box_info is not None:
+        contact = _take_rows(box_info[..., 0], midx).to(torch.int32)
+        losses["hand_contact_state"] = sigmoid_focal_loss(
+            head["hand_contact_state"].float(), _one_hot(contact, 5) * fg_col).sum() * 1e-2 / num_fg
+        gt_dxdy = _take_rows(box_info[..., 2:5], midx)
+        losses["hand_dxdy"] = (head["hand_dxdy"].float() - gt_dxdy).square().mean() * 10.0 / num_fg
+    return losses
+
+
 class FCOSSystem(FCOS):
-    """The FCOS module plus its anchor table and the ``detect`` entry.
+    """The FCOS module plus its anchor table and the ``detect`` and ``loss``
+    entries.
 
     (The JAX package pairs a flax module with its anchors in a plain class;
-    here the anchors, and the normalization's mean and std, are
+    here the anchors, their sizes, and the normalization's mean and std are
     non-persistent buffers, so the state dict is FCOS's own.)
     """
 
-    def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True):
-        super().__init__(cfg, use_kernels)
-        anchors, _, self.level_slices = anchors_for(self.cfg)
+    def __init__(self, cfg: Optional[FCOSConfig] = None, use_kernels: bool = True,
+                 backbone_norm: str = "frozen"):
+        super().__init__(cfg, use_kernels, backbone_norm)
+        anchors, anchor_sizes, self.level_slices = anchors_for(self.cfg)
         self.register_buffer("anchors", torch.from_numpy(anchors), persistent=False)
+        self.register_buffer("anchor_sizes", torch.from_numpy(anchor_sizes), persistent=False)
         for name, value in (("image_mean", self.cfg.image_mean),
                             ("image_std", self.cfg.image_std)):
             self.register_buffer(name, torch.tensor(value, dtype=torch.float32),
@@ -342,3 +465,11 @@ class FCOSSystem(FCOS):
         head = self(net_in)
         return decode_detections(head, self.anchors, self.cfg,
                                  scale_to_original=scale)
+
+    def loss(self, net_images: torch.Tensor,
+             targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """:func:`fcos_loss` of this detector's forward on preprocessed frames,
+        in the module's mode: ``train()`` takes a ``"batch"`` backbone's
+        statistics from the batch and moves its running statistics."""
+        return fcos_loss(self(net_images), targets, self.anchors, self.anchor_sizes,
+                         self.level_slices, self.cfg)

@@ -1,9 +1,14 @@
-"""ResNet backbones for the port, serving forward only.
+"""ResNet backbones for the port.
 
-Counterpart of ``handnet_tpu/nn/resnet.py``: FCOS's ResNet-34 with frozen BN
-and A2J's ResNet-50 whose layer4 has stride 1 and dilation 2. Parameter
-names follow torchvision (``conv1``, ``bn1``, ``layer{L}.{B}.conv{N}``,
+Counterpart of ``handnet_tpu/nn/resnet.py``: FCOS's ResNet-34 and A2J's
+ResNet-50 whose layer4 has stride 1 and dilation 2. Parameter names follow
+torchvision (``conv1``, ``bn1``, ``layer{L}.{B}.conv{N}``,
 ``...downsample.{0,1}``), the names the JAX package's converters read.
+
+``norm`` picks the norm layers as ``make_norm`` does there: ``"frozen"``
+(the default; fixed statistics, trainable affine) or ``"batch"`` (flax's
+trainable BatchNorm). Both hold ``weight``, ``bias``, ``running_mean`` and
+``running_var``, so the state dict is the same either way.
 
 Tensors are NCHW in ``torch.channels_last`` memory: the same bytes as the JAX
 package's NHWC, and the layout in which cuDNN runs bf16 convolutions.
@@ -29,10 +34,12 @@ from handnet_tpu_torch.nn.quant import conv_layer
 class FrozenBatchNorm2d(nn.Module):
     """BatchNorm with fixed statistics: ``x * mul + add`` per channel.
 
-    Serves both the FCOS backbone's frozen BN and A2J's BatchNorm in eval mode
-    (the port has no training path yet). ``mul``/``add`` are formed in
-    float32 and cast to the activation dtype, as ``handnet_tpu`` does
-    (nn/resnet.py:52-54). eps is 1e-5.
+    Serves both the FCOS backbone's frozen BN and A2J's BatchNorm in eval
+    mode. ``mul``/``add`` are formed in float32 and cast to the activation
+    dtype, as ``handnet_tpu`` does (nn/resnet.py:52-54). eps is 1e-5. The
+    statistics are buffers that nothing updates; ``weight`` and ``bias``
+    are parameters, which a trainer updates, as optax updates the JAX
+    package's (``self.param``, nn/resnet.py:47-48).
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
@@ -49,6 +56,59 @@ class FrozenBatchNorm2d(nn.Module):
         mul = scale / std
         add = self.bias.float() - self.running_mean.float() * scale / std
         return x * mul.to(x.dtype)[:, None, None] + add.to(x.dtype)[:, None, None]
+
+
+class BatchNorm2d(nn.Module):
+    """Trainable BatchNorm with the meaning of flax's ``nn.BatchNorm(momentum
+    =0.9, epsilon=1e-5, param_dtype=float32)`` (``make_norm("batch")``).
+
+    In training mode it normalizes by the batch's statistics over (N, H, W),
+    taken in float32 as ``E[x]`` and ``max(E[x^2] - E[x]^2, 0)`` (flax's fast
+    variance), and moves the running statistics by ``0.9 * running + 0.1 *
+    batch`` with the *biased* batch variance: ``torch.nn.BatchNorm2d``
+    would store the unbiased one. In eval mode it normalizes by the running
+    statistics. Either way ``(x - mean) * (rsqrt(var + eps) * weight) +
+    bias`` is computed in float32 and cast to x's dtype.
+    """
+
+    momentum = 0.9   # flax's: the running statistics keep 0.9 of themselves
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
+NORMS = {"frozen": FrozenBatchNorm2d, "batch": BatchNorm2d}
+
+
+def make_norm(norm: str):
+    """The norm layer class for ``norm`` (``handnet_tpu/nn/resnet.py:57-70``).
+    ``"batch_sync"`` (statistics across cards) and ``"group"`` are not
+    ported."""
+    if norm in NORMS:
+        return NORMS[norm]
+    if norm in ("batch_sync", "group"):
+        raise NotImplementedError(f"ResNet: norm {norm!r} is not ported (frozen or batch)")
+    raise ValueError(f"unknown norm {norm!r}")
 
 
 class StemConv(nn.Conv2d):
@@ -84,24 +144,24 @@ class StemConv(nn.Conv2d):
                         k8.contiguous(memory_format=torch.channels_last))
 
 
-def _downsample(cin: int, cout: int, stride: int, quant: Any) -> nn.Sequential:
+def _downsample(cin: int, cout: int, stride: int, quant: Any, norm) -> nn.Sequential:
     return nn.Sequential(conv_layer(quant, cin, cout, 1, stride=stride, bias=False),
-                         FrozenBatchNorm2d(cout))
+                         norm(cout))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
-                 quant: Any = False):
+                 quant: Any = False, norm=FrozenBatchNorm2d):
         super().__init__()
         self.conv1 = conv_layer(quant, cin, planes, 3, stride=stride, padding=dilation,
                                 dilation=dilation, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = norm(planes)
         self.conv2 = conv_layer(quant, planes, planes, 3, padding=dilation,
                                 dilation=dilation, bias=False)
-        self.bn2 = FrozenBatchNorm2d(planes)
-        self.downsample = (_downsample(cin, planes, stride, quant)
+        self.bn2 = norm(planes)
+        self.downsample = (_downsample(cin, planes, stride, quant, norm)
                            if stride != 1 or cin != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -117,16 +177,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, planes: int, stride: int = 1, dilation: int = 1,
-                 quant: Any = False):
+                 quant: Any = False, norm=FrozenBatchNorm2d):
         super().__init__()
         self.conv1 = conv_layer(quant, cin, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm2d(planes)
+        self.bn1 = norm(planes)
         self.conv2 = conv_layer(quant, planes, planes, 3, stride=stride, padding=dilation,
                                 dilation=dilation, bias=False)
-        self.bn2 = FrozenBatchNorm2d(planes)
+        self.bn2 = norm(planes)
         self.conv3 = conv_layer(quant, planes, planes * 4, 1, bias=False)
-        self.bn3 = FrozenBatchNorm2d(planes * 4)
-        self.downsample = (_downsample(cin, planes * 4, stride, quant)
+        self.bn3 = norm(planes * 4)
+        self.downsample = (_downsample(cin, planes * 4, stride, quant, norm)
                            if stride != 1 or cin != planes * 4 else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -143,16 +203,19 @@ class ResNet(nn.Module):
     ``stage_strides``/``stage_dilations`` give A2J's layer4 stride 1 and
     dilation 2. The first block of a dilated stage keeps the previous stage's
     dilation (a2j/resnet.py:133-145; ``handnet_tpu/nn/resnet.py:216-221``).
-    ``s2d_stem`` computes the stem by space-to-depth (:class:`StemConv`).
+    ``s2d_stem`` computes the stem by space-to-depth (:class:`StemConv`);
+    ``norm`` names the norm layers (:func:`make_norm`).
     """
 
     def __init__(self, block, stage_sizes: Sequence[int], width: int = 64,
                  stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
                  stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
-                 in_channels: int = 3, quant: Any = False, s2d_stem: bool = False):
+                 in_channels: int = 3, quant: Any = False, s2d_stem: bool = False,
+                 norm: str = "frozen"):
         super().__init__()
+        norm_layer = make_norm(norm)
         self.conv1 = StemConv(in_channels, width, s2d=s2d_stem)
-        self.bn1 = FrozenBatchNorm2d(width)
+        self.bn1 = norm_layer(width)
         cin = width
         for i, num_blocks in enumerate(stage_sizes):
             planes = width * 2 ** i
@@ -161,7 +224,7 @@ class ResNet(nn.Module):
                 dilation = (stage_dilations[i] if j > 0
                             else stage_dilations[i - 1] if i > 0 else 1)
                 stride = stage_strides[i] if j == 0 else 1
-                blocks.append(block(cin, planes, stride, dilation, quant))
+                blocks.append(block(cin, planes, stride, dilation, quant, norm_layer))
                 cin = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)

@@ -18,7 +18,14 @@ CPU test can hold it against the plain version.
 Each kernel is a ``torch.library`` op (``handnet_torch::gn_group_stats``,
 ``handnet_torch::gn_apply``): the CPU implementation is the plain version,
 the CUDA one checks the input and launches the kernel, and the fake one
-gives ``torch.export`` the output's shape.
+gives ``torch.export`` the output's shape. Each op has a registered
+gradient (``torch.library.register_autograd``) in plain PyTorch, so the
+training forward runs K2s and K2a and its backward runs no kernel of this
+module: the JAX package's ``pallas_gn`` defines no gradient, and its
+training towers are flax ``GroupNorm``s that XLA differentiates. The two
+gradients compose into GroupNorm's backward; each works in float32 from
+the saved input and statistics (float64 for a float64 input, which only
+the plain versions take) and returns ``dx`` in x's dtype.
 """
 
 from __future__ import annotations
@@ -66,16 +73,22 @@ def row_plan(batch: int, hw: int, channels: int, itemsize: int, sm_count: int,
     return RowPlan(cp, rows, -(-hw // per_split), per_split)
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic type: float32, or float64 for a float64
+    ``x`` (the gradient checks)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def gn_group_stats_reference(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     """Plain version of K2s: ``[B, H, W, C]`` -> ``[B, 2, G]`` float32 (group
-    means, biased group variances).
+    means, biased group variances); float64 for a float64 ``x``.
 
     The corrected two-pass form in float32: the deviations from a first
     mean give both the variance and a correction of that mean, so neither
     loses precision when mean >> std.
     """
     b, h, w, c = x.shape
-    g = x.float().reshape(b, h * w, num_groups, c // num_groups)
+    g = x.to(_acc_dtype(x)).reshape(b, h * w, num_groups, c // num_groups)
     mean = g.mean(dim=(1, 3))
     dev = g - mean[:, None, :, None]
     correction = dev.mean(dim=(1, 3))
@@ -155,13 +168,14 @@ def gn_apply_reference(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor
                        bias: torch.Tensor, eps: float = 1e-5,
                        relu: bool = False) -> torch.Tensor:
     """Plain version of K2a: ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
-    in float32 with ``stats [B, 2, G]`` (means, biased variances), cast to
-    ``x.dtype``, then the ReLU."""
+    in float32 (float64 for a float64 ``x``) with ``stats [B, 2, G]`` (means,
+    biased variances), cast to ``x.dtype``, then the ReLU."""
+    acc = _acc_dtype(x)
     k = x.shape[-1] // stats.shape[-1]
-    mean = stats[:, 0].repeat_interleave(k, dim=-1)[:, None, None, :]
-    inv = torch.rsqrt(stats[:, 1] + eps).repeat_interleave(k, dim=-1)
-    mul = (inv * scale.float())[:, None, None, :]
-    y = (x.float() - mean).mul_(mul).add_(bias.float()).to(x.dtype)
+    mean = stats[:, 0].to(acc).repeat_interleave(k, dim=-1)[:, None, None, :]
+    inv = torch.rsqrt(stats[:, 1].to(acc) + eps).repeat_interleave(k, dim=-1)
+    mul = (inv * scale.to(acc))[:, None, None, :]
+    y = (x.to(acc) - mean).mul_(mul).add_(bias.to(acc)).to(x.dtype)
     return torch.relu_(y) if relu else y
 
 
@@ -224,7 +238,7 @@ _LIB.impl("gn_group_stats", gn_group_stats_reference, "CPU")
 _LIB.impl("gn_group_stats", _gn_group_stats_cuda, "CUDA")
 torch.library.register_fake(
     "handnet_torch::gn_group_stats",
-    lambda x, num_groups: x.new_empty((x.shape[0], 2, num_groups), dtype=torch.float32),
+    lambda x, num_groups: x.new_empty((x.shape[0], 2, num_groups), dtype=_acc_dtype(x)),
     lib=_LIB)
 _LIB.define("gn_apply(Tensor x, Tensor stats, Tensor scale, Tensor bias, float eps, "
             "bool relu) -> Tensor")
@@ -233,6 +247,79 @@ _LIB.impl("gn_apply", _gn_apply_cuda, "CUDA")
 torch.library.register_fake(
     "handnet_torch::gn_apply", lambda x, stats, scale, bias, eps, relu: torch.empty_like(x),
     lib=_LIB)
+
+
+# profiler ranges around the two gradients: a profile of a train step reads
+# the GroupNorm backward's device time from them
+GN_BACKWARD_RANGES = ("handnet_torch::gn_group_stats_backward",
+                      "handnet_torch::gn_apply_backward")
+
+
+def _per_channel(t: torch.Tensor, k: int) -> torch.Tensor:
+    """``[B, G]`` per-group values -> ``[B, 1, 1, C]``, broadcast over NHWC."""
+    return t.repeat_interleave(k, dim=-1)[:, None, None, :]
+
+
+def _group_sum(t: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """``[B, H, W, C]`` -> ``[B, G]``: the sum over each image's group."""
+    return t.sum(dim=(1, 2)).unflatten(-1, (num_groups, -1)).sum(dim=-1)
+
+
+def _stats_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(inputs[0], output)
+
+
+def _stats_backward(ctx, grad_stats):
+    """d mean / dx = 1/n and d var / dx = 2 (x - mean) / n over each group's
+    n = H·W·C/G values (the biased variance's derivative through its mean
+    vanishes, since the deviations sum to zero)."""
+    x, stats = ctx.saved_tensors
+    acc = _acc_dtype(x)
+    b, h, w, c = x.shape
+    num_groups = stats.shape[-1]
+    k = c // num_groups
+    n = h * w * k
+    with torch.profiler.record_function(GN_BACKWARD_RANGES[0]):
+        grad_stats = grad_stats.to(acc)
+        centred = x.to(acc) - _per_channel(stats[:, 0].to(acc), k)
+        dx = _per_channel(grad_stats[:, 0] / n, k) + centred * _per_channel(
+            grad_stats[:, 1] * (2.0 / n), k)
+        return dx.to(x.dtype), None
+
+
+def _apply_setup(ctx, inputs, output) -> None:
+    x, stats, scale, _, ctx.eps, ctx.relu = inputs
+    ctx.bias_dtype = inputs[3].dtype
+    ctx.save_for_backward(x, stats, scale, output if ctx.relu else None)
+
+
+def _apply_backward(ctx, grad_y):
+    """The gradients of ``y = relu((x - mean) * rsqrt(var + eps) * scale +
+    bias)`` with respect to x, the statistics, scale and bias. The ReLU's
+    mask is ``y > 0``: the cast output, as flax's ``nn.relu`` sees it."""
+    x, stats, scale, y = ctx.saved_tensors
+    acc = _acc_dtype(x)
+    num_groups = stats.shape[-1]
+    k = x.shape[-1] // num_groups
+    with torch.profiler.record_function(GN_BACKWARD_RANGES[1]):
+        g = grad_y.to(acc)
+        if ctx.relu:
+            g = torch.where(y > 0, g, 0.0)
+        inv = torch.rsqrt(stats[:, 1].to(acc) + ctx.eps)                    # [B, G]
+        centred = x.to(acc) - _per_channel(stats[:, 0].to(acc), k)
+        g_scaled = g * scale.to(acc)
+        d_mean = -_group_sum(g_scaled, num_groups) * inv
+        d_var = -0.5 * _group_sum(g_scaled * centred, num_groups) * inv ** 3
+        d_scale = (g * centred * _per_channel(inv, k)).sum(dim=(0, 1, 2))
+        return ((g_scaled * _per_channel(inv, k)).to(x.dtype),
+                torch.stack([d_mean, d_var], dim=1).to(stats.dtype),
+                d_scale.to(scale.dtype), g.sum(dim=(0, 1, 2)).to(ctx.bias_dtype), None, None)
+
+
+torch.library.register_autograd("handnet_torch::gn_group_stats", _stats_backward,
+                                setup_context=_stats_setup, lib=_LIB)
+torch.library.register_autograd("handnet_torch::gn_apply", _apply_backward,
+                                setup_context=_apply_setup, lib=_LIB)
 
 
 def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

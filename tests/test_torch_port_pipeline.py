@@ -200,8 +200,24 @@ verts, _ = ManoLayer(ManoAssets.synthetic(rng), device="cpu")(torch.zeros(1, 48)
 assert tuple(verts.shape) == (1, 778, 3)
 import handnet_tpu_torch.apps.export_pipeline, handnet_tpu_torch.apps.serve, handnet_tpu_torch.export
 import handnet_tpu_torch.ops.rotation
+import handnet_tpu_torch.train
+from handnet_tpu_torch.train.checkpoints import CheckpointManager, save_params_npz
+from handnet_tpu_torch.train.trainer import FCOSTrainer
+trainer = FCOSTrainer(C.FCOSConfig(image_h=64, image_w=96, fpn_channels=64, num_convs=2),
+                      C.TrainConfig(optimizer="sgd", lr=1e-3, warmup_epochs=1),
+                      steps_per_epoch=4, backbone_norm="batch", device="cpu")
+state = trainer.init_state(0)
+boxes = torch.tensor([[[8.0, 8.0, 40.0, 48.0]] + [[0.0] * 4] * 7] * 2)
+valid = torch.zeros(2, 8, dtype=torch.bool)
+valid[:, 0] = True
+info = torch.full((2, 8, 5), -1.0)
+info[:, 0] = torch.tensor([1.0, 0.0, 0.5, 0.1, -0.2])
+targets = {"boxes": boxes, "labels": valid.int() * 2, "valid": valid, "box_info": info}
+image = torch.from_numpy(rng.normal(size=(2, 64, 96, 3)).astype(np.float32))
+state, metrics = trainer.train_step(state, {"image": image, "targets": targets})
+assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "handnet_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu"))
 print("LOADED", loaded)
 """
 
@@ -211,8 +227,10 @@ def test_port_imports_no_jax():
     calibrated static int8, detects on frames that it resamples, builds the
     full-width QUANT_STATIC pipeline, runs the mesh head (``with_mesh``) and
     the MANO layer, imports the server, the artifact module, the export CLI
-    and the rotations, and has loaded neither jax nor the JAX package (a
-    subprocess: tests/conftest.py imports jax into this one)."""
+    and the rotations, imports the training package and takes one CPU train
+    step of ``FCOSTrainer``, and has loaded neither jax, optax, orbax nor the
+    JAX package (a subprocess: tests/conftest.py imports jax into this
+    one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
