@@ -123,6 +123,29 @@ train (after mesh, before the idle shares): ``FCOSTrainer`` at the width of
    GroupNorm backward's share from its profiler ranges); one step with a
    frozen backbone (running statistics unchanged, its affine moved).
 
+train_a2j (after train): ``A2JTrainer`` at apps/train_a2j.py's recipe
+   (176^2 depth crops, dilated ResNet-50, three 256-wide 4-conv towers, 16
+   anchors, 21 joints; batch 64, AdamW 3.5e-4, bf16, batch-norm A2J) on a
+   seeded synthetic batch (a hand of discs nearer than the background, in
+   build_a2j_sample's ranges). One float32 step (TF32 off) at batch 8,
+   card against CPU from one seed: every loss term and every parameter's
+   gradient; 20 steps on the repeated batch (no kernel of the port launched;
+   every loss finite, the last total below half the first, master weights
+   float32), ms per step by the loop clock after 3 steps, samples/s, peak
+   memory; a profile of one step (top 10) and the 65 BatchNorm layers'
+   forward + backward alone, as a share of the step; the eval step through
+   K1 (one launch) twice, bit-equal, against the same step with the plain
+   decode (pred and rmse).
+
+train_mesh (after train_a2j): the Pose2Mesh app (apps/train_pose2mesh.py,
+   PoseNet 4096 x 2, Chebyshev order 3, the strip stand-in's pyramid with
+   the app's HORI joint graph; batch 32, Adam 1e-4, float32, TF32 off):
+   one step card against CPU on one batch and init (every loss term), then
+   ``main`` with ``--synthetic --steps 20 --device cuda`` into a temporary
+   directory: no kernel of the port launched, params.npz in the flax keys,
+   ms per step by the loop clock, peak memory, and the loss on the first
+   batch after the 20 steps below the first step's.
+
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it.
 
@@ -130,7 +153,8 @@ In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
 the quant_static run's, ``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
-wrapper; ``train_fcos`` per train step), and K2s's and K2a's ``shapes``
+wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
+``eval_a2j`` per eval step), and K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
@@ -149,6 +173,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -220,6 +245,37 @@ GN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # 2.4e-4, max 4.4e-4)
 TRAIN_KERNEL_TOL = {"bfloat16": {"loss": 2e-3, "grad": 0.15},
                     "float32": {"loss": 1e-5, "grad": 5e-3}}
+
+
+# A2J training (apps/train_a2j.py: A2JConfig's defaults, batch 64, AdamW lr
+# 3.5e-4 and wd 1e-4, StepLR 0.2 every 10 epochs, bf16, batch-norm A2J)
+A2J_TRAIN_BATCH = 64
+A2J_CHECK_BATCH = 8               # the float32 step held against the CPU
+A2J_EVAL_CALLS = 3                # K1 twice (same bits), then the plain decode
+# one float32 step (TF32 off), card against CPU from one seed: each loss
+# term relative, and each parameter's gradient by the norm of the
+# difference over the norm of the CPU's, median and worst over the tensors.
+# This random ResNet-50 in train mode amplifies rounding: on the CPU, the
+# port against itself on crops changed by 1e-6 relative gives losses 3e-7
+# apart and gradients 2.3% apart (median) and 3.5% (worst), so the two
+# devices, whose convolutions round differently, are held to twice and
+# three times that. The biases of the head convs before a BatchNorm have an
+# exact gradient of 0 (the norm removes them) and a computed one of
+# rounding noise (1.5e-8 of the conv weight's): both sides must keep them
+# below A2J_ZERO_GRAD of their weight's.
+A2J_CPU_TOL = {"loss": 1e-4, "grad_median": 0.05, "grad_max": 0.1}
+A2J_ZERO_GRAD = 1e-5
+# the eval step through K1 against the same step with the plain decode:
+# pred to 1e-4 of its scale (K1's own tolerance), rmse relative
+A2J_EVAL_TOL = 1e-4
+A2J_RMSE_TOL = 1e-5
+# the Pose2Mesh app (apps/train_pose2mesh.py's defaults: batch 32, Adam
+# 1e-4, float32): 20 steps of new batches through main(); one step card
+# against CPU, every loss term to 1e-4 relative (f32, TF32 off)
+MESH_TRAIN_STEPS = 20
+MESH_TRAIN_BATCH = 32
+MESH_TRAIN_LR = 1e-4
+MESH_CPU_TOL = 1e-4
 
 
 def log(phase: str, msg: str) -> None:
@@ -2668,6 +2724,325 @@ def phase_train(dev, cfg) -> dict:
     return per_call(launches, TRAIN_STEPS)
 
 
+# --- training: A2JTrainer (apps/train_a2j.py's recipe) and the Pose2Mesh app ---
+
+def a2j_train_batch(batch: int, seed: int, crop: int = 176, joints: int = 21) -> dict:
+    """``batch`` seeded A2J samples on the host, in the ranges of
+    ``build_a2j_sample`` (data/a2j_data.py): a depth crop in metres, a
+    background at 0.9-1.2 m with 5 mm of noise and, nearer, a hand of
+    ``joints`` discs (radius 7 px) at 0.4-0.8 m around joints scattered
+    about a centre of the crop; ``jt_uvd`` is the joints' u, v in crop
+    pixels and d in metres."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(0.35, 0.65, size=(batch, 1, 2)) * crop
+    uv = np.clip(centre + rng.normal(0.0, 0.15 * crop, size=(batch, joints, 2)), 2, crop - 3)
+    d = rng.uniform(0.4, 0.8, size=(batch, 1, 1)) + rng.normal(0.0, 0.02, size=(batch, joints, 1))
+    depth = (rng.uniform(0.9, 1.2, size=(batch, 1, 1))
+             + rng.normal(0.0, 0.005, size=(batch, crop, crop)))
+    yy, xx = np.mgrid[0:crop, 0:crop]
+    for j in range(joints):
+        u, v, dj = (a[:, j, k, None, None] for a, k in ((uv, 0), (uv, 1), (d, 0)))
+        disc = (xx - u) ** 2 + (yy - v) ** 2 <= 49
+        depth = np.where(disc & (dj < depth), dj, depth)
+    return {"image": torch.from_numpy(depth[..., None].astype(np.float32)),
+            "jt_uvd": torch.from_numpy(np.concatenate([uv, d], axis=-1).astype(np.float32))}
+
+
+def a2j_card_vs_cpu(dev, cfg, tcfg) -> None:
+    """One float32 step (TF32 off) of two trainers from one seed, on the
+    card and on the CPU, on ``A2J_CHECK_BATCH`` samples: every loss term
+    and every parameter's gradient within ``A2J_CPU_TOL``."""
+    import torch
+
+    from handnet_tpu_torch.train.trainer import A2JTrainer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    batch = a2j_train_batch(A2J_CHECK_BATCH, SEED + 1, cfg.crop_h, cfg.num_joints)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        trainer = A2JTrainer(cfg, dataclasses.replace(tcfg, bf16=False), device=device)
+        state, metrics = trainer.train_step(trainer.init_state(SEED),
+                                            {k: v.to(device) for k, v in batch.items()})
+        runs.append(({k: v.item() for k, v in metrics.items()},
+                     {n: p.grad.detach().double().cpu() for n, p in
+                      state.model.named_parameters()}))
+        del trainer, state
+    free_device_memory(dev)
+    torch.backends.cudnn.allow_tf32 = True
+    (m_card, g_card), (m_cpu, g_cpu) = runs
+    loss_err = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    zero, grad_err = {}, {}
+    for name in g_cpu:
+        if re.fullmatch(r"\w+Model\.conv[1-4]\.bias", name):
+            weight = name[:-len("bias")] + "weight"
+            zero[name] = max((g[name].norm() / g[weight].norm()).item() for g in (g_card, g_cpu))
+        else:
+            grad_err[name] = ((g_card[name] - g_cpu[name]).norm()
+                              / g_cpu[name].norm().clamp(min=1e-30)).item()
+    ranked = sorted(grad_err.values())
+    worst = max(grad_err, key=grad_err.get)
+    median = ranked[len(ranked) // 2]
+    log("train_a2j", f"float32 step (TF32 off), batch {A2J_CHECK_BATCH}, card vs CPU: losses "
+        + ", ".join(f"{k} {m_card[k]:.6f} / {m_cpu[k]:.6f} ({loss_err[k]:.2e})" for k in m_cpu)
+        + f" (tol {A2J_CPU_TOL['loss']:g}); gradients |g_card - g_cpu| / |g_cpu| over "
+        f"{len(grad_err)} tensors: median {median:.3e} (tol {A2J_CPU_TOL['grad_median']:g}), "
+        f"max {grad_err[worst]:.3e} ({worst}; tol {A2J_CPU_TOL['grad_max']:g}); the "
+        f"{len(zero)} head-conv biases before a BatchNorm: gradient at most "
+        f"{max(zero.values()):.2e} of their weight's (tol {A2J_ZERO_GRAD:g})")
+    if (max(loss_err.values()) > A2J_CPU_TOL["loss"] or median > A2J_CPU_TOL["grad_median"]
+            or grad_err[worst] > A2J_CPU_TOL["grad_max"] or max(zero.values()) > A2J_ZERO_GRAD):
+        raise AssertionError("train_a2j: the card's float32 step differs from the CPU's "
+                             "beyond the tolerances above")
+
+
+def batch_norm_share(trainer, state, batch, kernel_ms: float) -> None:
+    """The BatchNorm passes alone: every ``BatchNorm2d`` of a train step,
+    forward and backward, on inputs of the shape, dtype and layout it saw
+    in the step (recorded by hooks in one more step), in fresh layers of
+    its width, timed on the device; and their share of the step's
+    ``kernel_ms``."""
+    import torch
+
+    from handnet_tpu_torch.nn.resnet import BatchNorm2d
+
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: seen.append(args[0].detach()))
+             for m in state.model.modules() if isinstance(m, BatchNorm2d)]
+    trainer.train_step(state, batch)
+    for hook in hooks:
+        hook.remove()
+    gen = torch.Generator(device=batch["image"].device).manual_seed(SEED)
+    cases = []
+    for x in seen:
+        xs = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        cases.append((BatchNorm2d(x.shape[1]).to(x.device).train(), xs, torch.randn_like(xs)))
+    del seen
+
+    def passes():
+        for bn, x, dy in cases:
+            torch.autograd.grad(bn(x), (x, bn.weight, bn.bias), dy)
+
+    ms = device_ms(passes, iters=3, warmup=1)
+    elements = sum(x.numel() for _, x, _ in cases)
+    log("train_a2j", f"the {len(cases)} BatchNorm2d layers alone (forward + backward, "
+        f"{elements / 1e6:.1f} M activations in {cases[0][1].dtype}, channels_last): "
+        f"{ms:.3f} ms on the device = {100 * ms / kernel_ms:.2f}% of the step's "
+        f"{kernel_ms:.3f} ms of kernels")
+    del cases
+
+
+def a2j_step_profile(trainer, state, batch) -> float:
+    """One train step under torch.profiler: the top 10 kernels by device
+    time; returns the step's kernel ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+    kernels = sorted(device_rows(prof), key=lambda r: -r[1])
+    total = sum(ms for _, ms, _ in kernels)
+    if total <= 0:
+        log("train_a2j", "profile of one step: the profiler recorded no device time "
+            "(not measured)")
+        return float("nan")
+    log("train_a2j", f"profile of one step: kernels {total:.3f} ms on the device, "
+        f"{sum(n for _, _, n in kernels)} launches")
+    for key, ms, count in kernels[:10]:
+        log("train_a2j", f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
+    return total
+
+
+def phase_train_a2j(dev) -> dict:
+    """``A2JTrainer`` at apps/train_a2j.py's recipe (176^2 depth crops,
+    dilated ResNet-50, three 256-wide 4-conv towers, 16 anchors, 21 joints;
+    batch 64, AdamW 3.5e-4, bf16, batch-norm A2J) on a seeded synthetic
+    batch. Returns K1..K3's launches per train step and per eval step."""
+    import torch
+
+    from handnet_tpu_torch.config import A2JConfig, TrainConfig
+    from handnet_tpu_torch.train.trainer import A2JTrainer
+
+    cfg, tcfg = A2JConfig(), TrainConfig(batch_size=A2J_TRAIN_BATCH)
+    a2j_card_vs_cpu(dev, cfg, tcfg)
+
+    # the learning run: 20 steps on the repeated batch, the loop clock after 3
+    batch = {k: v.to(dev) for k, v in
+             a2j_train_batch(A2J_TRAIN_BATCH, SEED, cfg.crop_h, cfg.num_joints).items()}
+    trainer = A2JTrainer(cfg, tcfg, device=dev)
+    state = trainer.init_state(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARM_STEPS:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    train_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(train_launches.values()):
+        raise AssertionError(f"train_a2j: launches {train_launches} over {TRAIN_STEPS} steps: "
+                             "a train step launches no kernel of the port")
+    losses = {k: torch.stack([m[k] for m in metrics]).cpu() for k in metrics[0]}
+    if not all(bool(torch.isfinite(v).all()) for v in losses.values()):
+        raise AssertionError(f"train_a2j: non-finite losses {losses}")
+    total = losses["total_loss"]
+    if not total[-1] < TRAIN_LEARN_SHARE * total[0]:
+        raise AssertionError(f"train_a2j: total loss {total[0]:.4f} -> {total[-1]:.4f}, not "
+                             f"below {TRAIN_LEARN_SHARE} x the first")
+    if any(p.dtype != torch.float32 for p in state.model.parameters()):
+        raise AssertionError("train_a2j: master parameters are not float32")
+    ms = seconds / (TRAIN_STEPS - TRAIN_WARM_STEPS) * 1e3
+    log("train_a2j", f"{TRAIN_STEPS} bf16 steps at {cfg.crop_h}x{cfg.crop_w}, batch "
+        f"{A2J_TRAIN_BATCH}: {ms:.3f} ms per step (loop clock over steps "
+        f"{TRAIN_WARM_STEPS + 1}-{TRAIN_STEPS}), {A2J_TRAIN_BATCH / ms * 1e3:.1f} samples/s; "
+        f"peak memory {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); launches per "
+        f"step {per_call(train_launches, TRAIN_STEPS)}; master parameters float32")
+    log("train_a2j", "total loss by step: " + ", ".join(f"{v:.4f}" for v in total.tolist())
+        + f" ({total[-1] / total[0]:.4f} of the first; tol < {TRAIN_LEARN_SHARE})")
+    log("train_a2j", "last step's terms: "
+        + ", ".join(f"{k} {v[-1]:.4f}" for k, v in losses.items()))
+    kernel_ms = a2j_step_profile(trainer, state, batch)
+    if kernel_ms == kernel_ms:
+        batch_norm_share(trainer, state, batch, kernel_ms)
+
+    # the eval step: K1 twice (the same bits), then the plain decode
+    reset_launch_counts()
+    pred, rmse = trainer.eval_step(state, batch)
+    pred2, rmse2 = trainer.eval_step(state, batch)
+    eval_launches = launch_counts()
+    state.model.use_kernels = False
+    plain, rmse_plain = trainer.eval_step(state, batch)
+    state.model.use_kernels = True
+    if eval_launches != {**{k: 0 for k in eval_launches}, "a2j_decode": 2}:
+        raise AssertionError(f"eval_a2j: launches {eval_launches} over 2 eval steps: expected "
+                             "K1 once per step and nothing else")
+    if not (torch.equal(pred, pred2) and torch.equal(rmse, rmse2)):
+        raise AssertionError("eval_a2j: two eval steps through K1 differ")
+    scale = plain.abs().max().item()
+    err = check("eval_a2j K1 vs plain decode", pred, plain, A2J_EVAL_TOL * scale)
+    rmse_err = abs(rmse.item() - rmse_plain.item()) / rmse_plain.item()
+    if not rmse_err <= A2J_RMSE_TOL:
+        raise AssertionError(f"eval_a2j: rmse {rmse.item()} vs plain {rmse_plain.item()}")
+    log("train_a2j", f"eval step (running statistics, bf16 forward, batch {A2J_TRAIN_BATCH}): "
+        f"pred {tuple(pred.shape)} through K1 == the plain decode within {err:.3e} (tol "
+        f"{A2J_EVAL_TOL:g} of {scale:.1f}), two runs bit-equal; rmse {rmse.item():.4f} vs "
+        f"{rmse_plain.item():.4f} ({rmse_err:.2e}, tol {A2J_RMSE_TOL:g}); launches per eval "
+        f"step {per_call(eval_launches, 2)}")
+    del trainer, state, batch, metrics
+    free_device_memory(dev)
+    return {"train_a2j": per_call(train_launches, TRAIN_STEPS),
+            "eval_a2j": per_call(eval_launches, 2)}
+
+
+def phase_train_mesh(dev) -> dict:
+    """The Pose2Mesh app (``apps/train_pose2mesh.py``) at its defaults,
+    float32 with TF32 off: one step card against CPU on one batch and init,
+    then ``main(["--synthetic", "--steps", "20", "--device", "cuda"])`` into
+    a temporary directory; the loss must fall on the first batch. Returns
+    K1..K3's launches per step (none)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps import train_pose2mesh as app
+    from handnet_tpu_torch.convert.from_flax import _leaves, pose2mesh_variables_from_state_dict
+    from handnet_tpu_torch.models.mano import ManoLayer
+    from handnet_tpu_torch.train.checkpoints import load_params_npz
+    from handnet_tpu_torch.train.pose2mesh_loss import pose2mesh_losses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log("train_mesh", f"float32; torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+
+    # one step on one batch from one init, card against CPU
+    rng = np.random.default_rng(0)
+    assets = app.load_assets(None, True, rng)
+    faces = app.training_faces(assets)
+    pyramid = app.build_pyramid(faces)
+    batch = app.make_batch(rng, ManoLayer(assets, flat_hand_mean=True, device="cpu"),
+                           MESH_TRAIN_BATCH)
+    order = torch.from_numpy(pyramid.perm_reverse[:faces.max() + 1])
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        state = app.init_state(pyramid, MESH_TRAIN_LR, device)
+        losses = app.train_step(state, order.to(device), torch.from_numpy(faces).to(device),
+                                *(t.to(device) for t in batch))
+        runs.append({k: v.item() for k, v in losses.items()})
+        del state
+    errs = {k: abs(runs[0][k] - runs[1][k]) / abs(runs[1][k]) for k in runs[1]}
+    log("train_mesh", f"one step at batch {MESH_TRAIN_BATCH}, card vs CPU: "
+        + ", ".join(f"{k} {runs[0][k]:.6f} / {runs[1][k]:.6f} ({errs[k]:.2e})" for k in errs)
+        + f" (tol {MESH_CPU_TOL:g})")
+    if max(errs.values()) > MESH_CPU_TOL:
+        raise AssertionError(f"train_mesh: card vs CPU losses {errs}")
+    free_device_memory(dev)
+
+    # the entry point at its defaults
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        res = app.main(["--synthetic", "--steps", str(MESH_TRAIN_STEPS), "--batch",
+                        str(MESH_TRAIN_BATCH), "--device", "cuda", "--output", out])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        saved = {"/".join(p) for p, _ in _leaves(load_params_npz(res["params_npz"]))}
+    model = res["state"].model
+    want = {"/".join(p) for p, _ in
+            _leaves(pose2mesh_variables_from_state_dict(model.state_dict())["params"])}
+    if saved != want or "pose_lifter/stage1/bn2/scale" not in saved:
+        raise AssertionError(f"train_mesh: params.npz keys {sorted(saved ^ want)} differ")
+    if any(launches.values()):
+        raise AssertionError(f"train_mesh: launches {launches}: the path runs no kernel of ours")
+    # each step draws a new batch, whose loss moves by about 1% from batch to
+    # batch, more than 20 steps at lr 1e-4 learn; so the fall is read on the
+    # first batch, made again as main() made it: the trained model's losses
+    # against the first step's (the initial model's) on the same batch
+    rng = np.random.default_rng(0)
+    first = app.make_batch(rng, ManoLayer(app.load_assets(None, True, rng), flat_hand_mean=True,
+                                          device=dev), MESH_TRAIN_BATCH)
+    with torch.no_grad():
+        mesh, pose3d = model(first[0])
+        trained = {k: v.item() for k, v in pose2mesh_losses(
+            mesh[:, order.to(dev)], first[1], pose3d, first[2],
+            faces=torch.from_numpy(faces).to(dev)).items()}
+    totals = [step["total_loss"] for step in res["losses"]]
+    if not (np.isfinite([list(step.values()) for step in res["losses"]]).all()
+            and trained["total_loss"] < totals[0]):
+        raise AssertionError(f"train_mesh: total loss {totals}; on the first batch after "
+                             f"training {trained}")
+    ends = res["step_end_s"]
+    ms = (ends[-1] - ends[TRAIN_WARM_STEPS - 1]) / (MESH_TRAIN_STEPS - TRAIN_WARM_STEPS) * 1e3
+    log("train_mesh", f"main() at its defaults (PoseNet 4096 x 2, Chebyshev order 3, the "
+        f"{'/'.join(map(str, pyramid.mesh_sizes))}-node pyramid with the HORI joint graph), "
+        f"{MESH_TRAIN_STEPS} steps of batch {MESH_TRAIN_BATCH}: {ms:.3f} ms per step (loop "
+        f"clock over steps {TRAIN_WARM_STEPS + 1}-{MESH_TRAIN_STEPS}, MANO and the batch "
+        f"included), {MESH_TRAIN_BATCH / ms * 1e3:.1f} samples/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; params.npz holds the {len(saved)} flax keys; launches "
+        f"{launches}")
+    log("train_mesh", "total loss by step (a new batch each step): "
+        + ", ".join(f"{v:.2f}" for v in totals))
+    log("train_mesh", "on the first batch, before -> after the 20 steps: " + ", ".join(
+        f"{k} {res['losses'][0][k]:.4f} -> {trained[k]:.4f}" for k in trained)
+        + f" ({trained['total_loss'] / totals[0]:.4f} of the first; gate < 1)")
+    del res, model
+    free_device_memory(dev)
+    return per_call(launches, MESH_TRAIN_STEPS)
+
+
 def main() -> int:
     import torch
 
@@ -2761,6 +3136,11 @@ def main() -> int:
     log("train", f"device memory after the phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB allocated")
     lap("train")
+    # apps/train_a2j.py's recipe, then the Pose2Mesh app at its defaults
+    by_path.update(phase_train_a2j(dev))
+    lap("train_a2j")
+    by_path["train_mesh"] = phase_train_mesh(dev)
+    lap("train_mesh")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

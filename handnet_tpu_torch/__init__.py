@@ -23,7 +23,9 @@ code), with the CLIs ``apps.serve`` and ``apps.export_pipeline``.
 
 Training: ``train.trainer.FCOSTrainer`` (the detector's train step, K2s and
 K2a in its forward, their ops' registered gradients in its backward),
-``train.schedules`` and ``train.checkpoints``.
+``train.trainer.A2JTrainer`` (A2J's train step; its eval step decodes
+through K1), ``apps.train_pose2mesh`` (Pose2Mesh's, with
+``train.pose2mesh_loss``), ``train.schedules`` and ``train.checkpoints``.
 """
 
 __version__ = "0.1.0"

@@ -6,10 +6,11 @@ The inverse of ``handnet_tpu/convert/torch_weights.py`` ``convert_fcos``
 dict in the reference's torch names, which the port's modules load with
 ``load_state_dict(strict=True)``. ``convert_fcos(fcos_state_dict_from_flax(v))``
 gives back ``v``'s params and batch_stats leaf for leaf, and likewise for
-A2J and Pose2Mesh. The other way, :func:`fcos_variables_from_state_dict`
-gives a port detector's state dict (a trained one: frozen or batch-norm
-backbone) as the flax tree, which ``train/checkpoints.py`` writes as the
-JAX package's params npz.
+A2J and Pose2Mesh. The other way, :func:`fcos_variables_from_state_dict`,
+:func:`a2j_variables_from_state_dict` and
+:func:`pose2mesh_variables_from_state_dict` give a port model's state dict
+(a trained one too) as the flax tree, which ``train/checkpoints.py`` writes
+as the JAX package's params npz.
 
 Layout rules (reversed from the JAX package's converter):
   flax conv kernel [kh, kw, I, O] -> torch weight [O, I, kh, kw]
@@ -143,7 +144,7 @@ def _fcos_path(name: str) -> Tuple[str, ...]:
 
 
 def _a2j_path(name: str) -> Tuple[str, ...]:
-    """Inverse of :func:`_a2j_name` for the int8 convs."""
+    """Inverse of :func:`_a2j_name`: port module name -> flax path."""
     if name.startswith("Backbone.model."):
         return ("backbone",) + _resnet_path(name[len("Backbone.model."):])
     top, _, rest = name.partition(".")
@@ -174,6 +175,20 @@ def _pose2mesh_name(path: Tuple[str, ...]) -> str:
             return f"pose2mesh.{'bn' if rest[1:] == ['bn'] else 'cl'}.{m.group(1)}"
         return ".".join(path)
     raise KeyError(f"unmapped pose2mesh path: {'/'.join(path)}")
+
+
+def _pose2mesh_path(name: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_pose2mesh_name`: port module name -> flax path."""
+    m = re.fullmatch(r"pose_lifter\.linear_stages\.(\d+)\.(\w+)", name)
+    if m:
+        sub = {v: k for k, v in _POSENET_SUB.items()}.get(m.group(2), m.group(2))
+        return ("pose_lifter", f"stage{m.group(1)}", sub)
+    m = re.fullmatch(r"pose2mesh\.(cl|bn)\.(\d+)", name)
+    if m:
+        return ("pose2mesh", f"cl{m.group(2)}") + (("bn",) if m.group(1) == "bn" else ())
+    if name in ("pose_lifter.w1", "pose_lifter.w2", "pose2mesh.fc"):
+        return tuple(name.split("."))
+    raise KeyError(f"unmapped pose2mesh module: {name}")
 
 
 _MODELS = {"detector": (_fcos_name, _fcos_path), "a2j": (_a2j_name, _a2j_path)}
@@ -241,9 +256,23 @@ def a2j_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     return _state_dict(variables, _a2j_name)
 
 
+def a2j_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Port ``A2J`` state dict (frozen or batch norms) -> the JAX package's
+    A2J variables: what ``convert_a2j`` gives; the inverse of
+    :func:`a2j_state_dict_from_flax`."""
+    return _variables(state_dict, _a2j_path)
+
+
 def pose2mesh_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """Pose2Mesh variables -> port ``Pose2Mesh`` state dict."""
     return _state_dict(variables, _pose2mesh_name)
+
+
+def pose2mesh_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Port ``Pose2Mesh`` state dict -> the JAX package's Pose2Mesh
+    variables: what ``convert_pose2mesh`` gives; the inverse of
+    :func:`pose2mesh_state_dict_from_flax`."""
+    return _variables(state_dict, _pose2mesh_path)
 
 
 def pipeline_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:

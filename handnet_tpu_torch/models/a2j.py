@@ -1,7 +1,8 @@
-"""A2J anchor-to-joint regressor, serving forward.
+"""A2J anchor-to-joint regressor: the forward, the decode and the loss.
 
 Counterpart of ``handnet_tpu/models/a2j.py`` (``A2JHead``, ``A2J``,
-``anchors_for``, ``a2j_postprocess``, ``A2JSystem.predict``). Parameter names
+``anchors_for``, ``a2j_postprocess``, ``a2j_loss``, ``A2JSystem.predict``
+and ``loss_and_predict``). Parameter names
 follow the reference's A2JModel state dict (``Backbone.model.*``,
 ``classificationModel.*``, ``regressionModel.*``, ``DepthRegressionModel.*``),
 so the JAX package's ``convert_a2j`` reads them.
@@ -10,11 +11,16 @@ The heads' NCHW outputs go to NHWC *before* the ``[B, N, P]`` reshape: the
 anchor table is in (h, w, a) order (``ops/anchors.py``). ``cfg.quant`` makes
 the backbone's residual blocks and the heads' ``conv1..4`` int8
 (``nn/quant.py``); the stem and each head's ``output`` conv stay float.
+
+``norm`` names the norm layers of the backbone and the three towers, as
+``make_norm`` does (``nn/resnet.py``): ``"frozen"`` (serving: fixed
+statistics) or ``"batch"`` (training: batch statistics in ``train()`` mode,
+the running ones in ``eval()`` mode). Both hold the same state-dict keys.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,22 +29,24 @@ import torch.nn.functional as F
 
 from handnet_tpu_torch.config import A2JConfig
 from handnet_tpu_torch.nn.quant import conv_layer
-from handnet_tpu_torch.nn.resnet import FrozenBatchNorm2d, init_conv_weights_, resnet50_dilated
+from handnet_tpu_torch.nn.resnet import init_conv_weights_, make_norm, resnet50_dilated
 from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
 from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_reference
+from handnet_tpu_torch.ops.focal import smooth_l1
 
 
 class A2JHead(nn.Module):
-    """4 x (conv3x3 + BN + ReLU) + output conv3x3 (a2j/a2j.py:44-181); BN in
-    eval mode."""
+    """4 x (conv3x3 + BN + ReLU) + output conv3x3 (a2j/a2j.py:44-181), the
+    norm layers named by ``norm``."""
 
     def __init__(self, in_channels: int, out_channels: int, features: int = 256,
-                 quant: Any = False):
+                 quant: Any = False, norm: str = "frozen"):
         super().__init__()
+        norm_layer = make_norm(norm)
         for i in range(1, 5):
             setattr(self, f"conv{i}", conv_layer(quant, in_channels if i == 1 else features,
                                                  features, 3, padding=1))
-            setattr(self, f"bn{i}", FrozenBatchNorm2d(features))
+            setattr(self, f"bn{i}", norm_layer(features))
         self.output = nn.Conv2d(features, out_channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,21 +59,21 @@ class A2J(nn.Module):
     """Dilated ResNet-50 + the classification, regression and depth heads.
     ``forward`` returns the raw flat head tensors."""
 
-    def __init__(self, cfg: Optional[A2JConfig] = None):
+    def __init__(self, cfg: Optional[A2JConfig] = None, norm: str = "frozen"):
         super().__init__()
         cfg = cfg or A2JConfig()
         if cfg.backbone != "resnet50" or not cfg.is_3d:
             raise NotImplementedError(
                 f"A2J: backbone {cfg.backbone!r}, is_3d={cfg.is_3d} (only the 3D "
-                "ResNet-50 model is ported)")
+                "ResNet-50 model is ported; the 2D A2J has no depth head)")
         self.cfg = cfg
         stem_in = 3 if cfg.in_channels == 1 else cfg.in_channels
-        body = resnet50_dilated(in_channels=stem_in, quant=cfg.quant)
+        body = resnet50_dilated(in_channels=stem_in, quant=cfg.quant, norm=norm)
         self.Backbone = nn.ModuleDict({"model": body})
         a, p, f = cfg.num_anchors, cfg.num_joints, cfg.head_features
-        self.classificationModel = A2JHead(1024, a * p, f, cfg.quant)
-        self.regressionModel = A2JHead(2048, a * p * 2, f, cfg.quant)
-        self.DepthRegressionModel = A2JHead(2048, a * p, f, cfg.quant)
+        self.classificationModel = A2JHead(1024, a * p, f, cfg.quant, norm)
+        self.regressionModel = A2JHead(2048, a * p * 2, f, cfg.quant, norm)
+        self.DepthRegressionModel = A2JHead(2048, a * p, f, cfg.quant, norm)
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """Seeded random init (conv kernels LeCun-normal)."""
@@ -106,15 +114,80 @@ def a2j_postprocess(heads: Dict[str, torch.Tensor], anchors: torch.Tensor,
     return decode(heads["cls"], heads["reg"], heads["depth"], anchors)
 
 
+def a2j_loss(heads: Dict[str, torch.Tensor], gt_uvd: torch.Tensor, anchors: torch.Tensor,
+             spatial_factor: float = 0.5, depth_beta: float = 3.0,
+             reference_depth_quirk: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A2J anchor-surrogate and offset losses (reference a2j/anchor.py:84-153;
+    ``handnet_tpu/models/a2j.py:156-199``): ``(cls_loss, reg_loss)``, scalar
+    means over the batch; the caller scales ``reg_loss`` by
+    ``reg_loss_factor``.
+
+    * classification: smooth-L1 (beta 1) between the GT (u, v) and the
+      softmax-weighted anchors;
+    * regression: smooth-L1 (beta 1) of the softmax-weighted ``anchor +
+      offset``, times ``spatial_factor``, plus the depth term: the *raw L1
+      mean* of the weighted depth's error where ``reference_depth_quirk``
+      (the reference computes a smooth-L1 and adds the L1, anchor.py:145-150),
+      else its smooth-L1 with ``beta=depth_beta``.
+
+    Everything runs in float32 with autocast off, whatever the heads' dtype
+    and the caller's region: the three einsums are matrix products, which
+    autocast would run in bf16, where the JAX package computes them in
+    float32 on float32 inputs.
+    """
+    with torch.autocast(heads["cls"].device.type, enabled=False):
+        w = torch.softmax(heads["cls"].float(), dim=1)                  # [B, N, P]
+        anchors = anchors.float()
+        gt_xy = gt_uvd[..., :2].float()                                 # [B, P, 2]
+        anchor_pos = torch.einsum("bnp,nc->bpc", w, anchors)
+        anchor_loss = smooth_l1(gt_xy - anchor_pos, beta=1.0).mean(dim=(1, 2))
+        pos = anchors[None, :, None, :] + heads["reg"].float()          # [B, N, P, 2]
+        pred_xy = torch.einsum("bnp,bnpc->bpc", w, pos)
+        reg_loss = smooth_l1(gt_xy - pred_xy, beta=1.0).mean(dim=(1, 2)) * spatial_factor
+        pred_d = torch.einsum("bnp,bnp->bp", w, heads["depth"].float())
+        diff_d = gt_uvd[..., 2].float() - pred_d
+        if reference_depth_quirk:
+            depth_term = diff_d.abs().mean(dim=1)                       # anchor.py:150
+        else:
+            depth_term = smooth_l1(diff_d, beta=depth_beta).mean(dim=1)
+        return anchor_loss.mean(), (reg_loss + depth_term).mean()
+
+
 class A2JSystem(A2J):
     """The A2J module plus its anchor table (a non-persistent buffer) and the
-    ``predict`` entry: depth crops in, UVD out."""
+    ``predict``, ``losses`` and ``loss_and_predict`` entries. ``use_kernels``
+    decodes through K1 (else its plain version); ``norm`` as :class:`A2J`."""
 
-    def __init__(self, cfg: Optional[A2JConfig] = None, use_kernels: bool = True):
-        super().__init__(cfg)
+    def __init__(self, cfg: Optional[A2JConfig] = None, use_kernels: bool = True,
+                 norm: str = "frozen"):
+        super().__init__(cfg, norm)
         self.use_kernels = use_kernels
         self.register_buffer("anchors", torch.from_numpy(anchors_for(self.cfg)),
                              persistent=False)
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         return a2j_postprocess(self(x), self.anchors, use_kernel=self.use_kernels)
+
+    def losses(self, heads: Dict[str, torch.Tensor], gt_uvd: torch.Tensor,
+               reg_loss_factor: float = 3.0) -> Dict[str, torch.Tensor]:
+        """:func:`a2j_loss` with ``reg_loss`` times ``reg_loss_factor`` (the
+        reference's loss = cls + 3 * reg, a2j/a2j.py:224-238), as the
+        ``classification``, ``regression`` and ``total_loss`` entries."""
+        cls_loss, reg_loss = a2j_loss(heads, gt_uvd, self.anchors, self.cfg.spatial_factor)
+        reg_loss = reg_loss * reg_loss_factor
+        return {"classification": cls_loss, "regression": reg_loss,
+                "total_loss": cls_loss + reg_loss}
+
+    def loss_and_predict(self, x: torch.Tensor, gt_uvd: torch.Tensor,
+                         reg_loss_factor: float = 3.0
+                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The losses of this module's forward on depth crops ``x`` and its
+        decoded UVD ``[B, P, 3]``, in the module's mode: ``train()`` takes a
+        ``"batch"`` model's statistics from the batch and moves its running
+        statistics (the JAX package returns them as ``updates``). The
+        prediction carries no gradient."""
+        heads = self(x)
+        with torch.no_grad():
+            pred = a2j_postprocess({k: v.detach() for k, v in heads.items()}, self.anchors,
+                                   use_kernel=self.use_kernels)
+        return self.losses(heads, gt_uvd, reg_loss_factor), pred

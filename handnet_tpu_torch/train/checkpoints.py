@@ -4,11 +4,11 @@ The JAX package saves its whole ``TrainState`` with orbax, which the card's
 machine does not have. :class:`CheckpointManager` keeps its API and its
 keep-per-epoch semantics over ``torch.save`` of ``{step, model, optimizer}``
 (the model's state dict holds the running statistics, the optimizer's its
-momenta), one file per epoch. :func:`save_params_npz` writes a detector's
-parameters under the flax tree's keys, the JAX package's
-``save_params_npz`` format, so that ``handnet_tpu``'s ``load_params_npz``
-reads a detector trained here; :func:`load_params_npz` reads such a file
-back into the nested tree.
+momenta), one file per epoch. :func:`save_params_npz` writes the params (or
+the batch statistics) of a trainable model, FCOS, A2J or Pose2Mesh, under
+the flax tree's keys, the JAX package's ``save_params_npz`` format, so that
+``handnet_tpu``'s ``load_params_npz`` reads a model trained here;
+:func:`load_params_npz` reads such a file back into the nested tree.
 """
 
 from __future__ import annotations
@@ -21,8 +21,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from handnet_tpu_torch.convert.from_flax import (_leaves, fcos_variables_from_state_dict,
-                                                 load_params_npz)
+from handnet_tpu_torch.convert.from_flax import (_leaves, a2j_variables_from_state_dict,
+                                                 fcos_variables_from_state_dict, load_params_npz,
+                                                 pose2mesh_variables_from_state_dict)
+from handnet_tpu_torch.models.a2j import A2J
+from handnet_tpu_torch.models.fcos import FCOS
+from handnet_tpu_torch.models.pose2mesh import Pose2Mesh
 
 __all__ = ["CheckpointManager", "save_params_npz", "load_params_npz"]
 
@@ -76,10 +80,20 @@ class CheckpointManager:
         return state
 
 
-def save_params_npz(path: str, model: nn.Module) -> None:
-    """A port FCOS detector's parameters as a flat npz of the flax params
-    tree (keys ``backbone/conv1/kernel``, ...), as the JAX package's
-    ``save_params_npz`` writes them. Like it, the file holds the params
-    only, not the batch statistics."""
-    params = fcos_variables_from_state_dict(model.state_dict())["params"]
-    np.savez(path, **{"/".join(p): v for p, v in _leaves(params)})
+_VARIABLES = ((FCOS, fcos_variables_from_state_dict), (A2J, a2j_variables_from_state_dict),
+              (Pose2Mesh, pose2mesh_variables_from_state_dict))
+
+
+def save_params_npz(path: str, model: nn.Module, collection: str = "params") -> None:
+    """A port FCOS, A2J or Pose2Mesh model's ``collection`` of the flax tree
+    (``"params"``, or ``"batch_stats"``: the running statistics) as a flat
+    npz (keys ``backbone/conv1/kernel``, ...), as the JAX package's
+    ``save_params_npz(path, tree)`` writes ``state.params`` and
+    ``state.batch_stats`` (apps/train_a2j.py:146-149)."""
+    for cls, variables_of in _VARIABLES:
+        if isinstance(model, cls):
+            tree = variables_of(model.state_dict())[collection]
+            np.savez(path, **{"/".join(p): v for p, v in _leaves(tree)})
+            return
+    raise TypeError(f"save_params_npz: {type(model).__name__} is not a trainable model of "
+                    "the port (FCOS, A2J or Pose2Mesh)")

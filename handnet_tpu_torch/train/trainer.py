@@ -1,12 +1,26 @@
-"""FCOS training on the card: the counterpart of ``handnet_tpu/train/trainer.py``
-(``TrainState``, ``make_optimizer``, ``FCOSTrainer``).
+"""Training on the card: the counterpart of ``handnet_tpu/train/trainer.py``
+(``TrainState``, ``make_optimizer``, ``A2JTrainer``, ``FCOSTrainer``).
 
 The JAX package jits one pure step ``state -> state``; here the step runs
 eagerly and updates the model and the optimizer in place (the JAX step
-donates its state, so no caller keeps the old one either). The forward runs
-the head towers' GroupNorms through kernels K2s and K2a (24 launches of
-each per step); their gradients are the plain PyTorch formulas that
-``ops/cuda_gn.py`` registers with the ops.
+donates its state, so no caller keeps the old one either).
+
+* ``FCOSTrainer``: the forward runs the head towers' GroupNorms through
+  kernels K2s and K2a (24 launches of each per step); their gradients are
+  the plain PyTorch formulas that ``ops/cuda_gn.py`` registers with the ops.
+* ``A2JTrainer``: the train step launches no kernel of the port (A2J has
+  BatchNorm, and its loss is einsums); the eval step decodes through K1,
+  one launch per call.
+
+bf16 (``train_cfg.bf16``) has flax's ``dtype=bfloat16, param_dtype=float32``
+meaning: the parameters and the optimizer state stay float32, convolutions
+compute in bf16, GroupNorm and BatchNorm reduce in float32, and the losses
+read the head outputs as float32. The trainers get it from
+``torch.autocast(dtype=bfloat16)`` around the forward, not from per-layer
+casts: autocast casts each float32 weight to bf16 where a convolution uses
+it (once per forward) and sends the gradient back to the float32 master,
+which is flax's split, and it leaves the serving modules unchanged; the
+serving pipeline's in-place bf16 weights would lose the master copy.
 """
 
 from __future__ import annotations
@@ -17,10 +31,11 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from handnet_tpu_torch.config import FCOSConfig, TrainConfig
+from handnet_tpu_torch.config import A2JConfig, FCOSConfig, TrainConfig
+from handnet_tpu_torch.models.a2j import A2JSystem, a2j_postprocess
 from handnet_tpu_torch.models.fcos import FCOSSystem
 from handnet_tpu_torch.nn.resnet import make_norm
-from handnet_tpu_torch.train.schedules import Schedule, multistep_with_warmup
+from handnet_tpu_torch.train.schedules import Schedule, multistep_with_warmup, step_decay
 
 
 @dataclasses.dataclass
@@ -44,6 +59,18 @@ class TrainState:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
+
+    def update(self, total: torch.Tensor) -> None:
+        """Back-propagate ``total`` into fresh gradients and apply them.
+        optax moves every parameter (the decay at least), and torch's
+        optimizers skip one whose grad is None, so such a parameter gets a
+        zero gradient."""
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        for p in self.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.apply_gradients()
 
 
 def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
@@ -69,6 +96,97 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]) -> torch.op
     raise ValueError(cfg.optimizer)
 
 
+def resolve_device(name: str, device, mesh=None) -> torch.device:
+    """The training entry points' device: None means the card, and raises
+    where there is none instead of training on the CPU. A ``mesh`` (data
+    parallel over several cards) is not ported and raises."""
+    if mesh is not None:
+        raise NotImplementedError(f"{name}: mesh (data parallel over several cards) "
+                                  "is not ported; the port trains on one card")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{name}: no CUDA device (torch.cuda.is_available() is False). "
+                "It trains on the card by default; pass device=\"cpu\" to train on "
+                "the CPU.")
+        device = "cuda"
+    return torch.device(device)
+
+
+class A2JTrainer:
+    """A2J training: AdamW lr 3.5e-4, wd 1e-4, StepLR 0.2 every 10 epochs,
+    batch 64 (config/a2j.yaml:8-30); loss = cls + 3 * reg
+    (a2j/a2j.py:224-238; ``handnet_tpu/train/trainer.py:68-156``).
+
+    The model is ``A2JSystem(norm="batch")``: the backbone's and the three
+    towers' BatchNorms take the batch's statistics in the train step and
+    the running ones in the eval step. ``quant`` is serving-only and forced
+    off, as in the JAX package; a ``mesh`` and the 2D A2J (``is_3d=False``)
+    are not ported and raise ``NotImplementedError``.
+
+    ``device``: None (the default) is the card and raises where there is
+    none; pass ``"cpu"`` to train there. The batch must be on that device:
+    ``{"image": [B, H, W, C] depth crops (metres), "jt_uvd": [B, P, 3]}``
+    float32.
+
+    Under bf16 the forward runs in the autocast region and the loss outside
+    it (:func:`a2j_loss` also turns autocast off itself): its einsums are
+    matrix products, which autocast would lower to bf16.
+    """
+
+    def __init__(self, model_cfg: Optional[A2JConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None, mesh=None,
+                 steps_per_epoch: int = 1000, device=None):
+        self.device = resolve_device("A2JTrainer", device, mesh)
+        # int8 is a serving-only path: round() has no useful gradient
+        self.model_cfg = dataclasses.replace(model_cfg or A2JConfig(), quant=False)
+        if not self.model_cfg.is_3d:
+            raise NotImplementedError("A2JTrainer: the 2D A2J (is_3d=False: no depth head, "
+                                      "an xy-only decode and loss) is not ported")
+        self.train_cfg = train_cfg or TrainConfig()
+        self.schedule = step_decay(self.train_cfg.lr, steps_per_epoch, self.train_cfg.lr_step,
+                                   self.train_cfg.lr_gamma)
+
+    def _autocast(self):
+        return torch.autocast(self.device.type, dtype=torch.bfloat16,
+                              enabled=self.train_cfg.bf16)
+
+    def init_state(self, seed: int) -> TrainState:
+        """An A2J with seeded random weights (``A2J.init_weights_``) and
+        batch-norm layers on the trainer's device, channels_last, and a
+        fresh optimizer."""
+        model = A2JSystem(self.model_cfg, norm="batch")
+        model.init_weights_(torch.Generator().manual_seed(seed))
+        model.to(self.device, memory_format=torch.channels_last)
+        return TrainState(0, model, make_optimizer(self.train_cfg, model.parameters()),
+                          self.schedule)
+
+    def train_step(self, state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One update on ``batch``. Returns ``state`` (updated in place) and
+        the ``classification``, ``regression`` (times ``reg_loss_factor``)
+        and ``total_loss`` entries, detached."""
+        model = state.model.train()
+        with self._autocast():
+            heads = model(batch["image"])
+        losses = model.losses(heads, batch["jt_uvd"], self.model_cfg.reg_loss_factor)
+        state.update(losses["total_loss"])
+        return state, {k: v.detach() for k, v in losses.items()}
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval-mode forward (running statistics), the decode through K1
+        (its plain version where ``state.model.use_kernels`` is False, or on
+        the CPU), and ``rmse = sqrt(mean((jt_uvd - pred)^2))`` over u, v and
+        d together, as the JAX package mixes them. Returns ``(pred [B, P, 3]
+        float32, rmse)``; the decode runs outside the autocast region."""
+        model = state.model.eval()
+        with self._autocast():
+            heads = model(batch["image"])
+        pred = a2j_postprocess(heads, model.anchors, use_kernel=model.use_kernels)
+        return pred, torch.sqrt(torch.mean((batch["jt_uvd"] - pred) ** 2))
+
+
 class FCOSTrainer:
     """FCOS training: SGD or AdamW, MultiStepLR with a one-epoch linear
     warmup, the loss dict summed (reference trainval_net_fcos.py:55-77,
@@ -87,19 +205,10 @@ class FCOSTrainer:
     ``device``: None (the default) is the card and raises where there is
     none; pass ``"cpu"`` to train there. The batch must be on that device.
 
-    bf16 (``train_cfg.bf16``) has flax's ``dtype=bfloat16,
-    param_dtype=float32`` meaning: the parameters and the optimizer state
-    stay float32, convolutions compute in bf16, GroupNorm and BatchNorm
-    reduce in float32, and the loss reads the head outputs as float32. The
-    trainer gets it from ``torch.autocast(dtype=bfloat16)`` around the
-    forward, not from per-layer casts: autocast casts each float32 weight
-    to bf16 where a convolution uses it (once per forward) and sends the
-    gradient back to the float32 master, which is flax's split, and it
-    leaves the serving modules unchanged; the serving pipeline's in-place
-    bf16 weights would lose the master copy. Autocast also runs a few
-    reductions in float32 where flax stays in bf16 (the ``hand_dxdy``
-    head's norm). The loss runs inside the same region: it has no op that
-    autocast lowers, and it reads the head outputs as float32.
+    Under bf16 autocast also runs a few reductions in float32 where flax
+    stays in bf16 (the ``hand_dxdy`` head's norm). The loss runs inside the
+    autocast region: it has no op that autocast lowers, and it reads the
+    head outputs as float32.
     """
 
     def __init__(self, model_cfg: Optional[FCOSConfig] = None,
@@ -107,18 +216,8 @@ class FCOSTrainer:
                  steps_per_epoch: int = 1000,
                  milestones_epochs: Sequence[int] = (20, 35),
                  backbone_norm: str = "frozen", device=None):
-        if mesh is not None:
-            raise NotImplementedError("FCOSTrainer: mesh (data parallel over several cards) "
-                                      "is not ported; the port trains on one card")
+        self.device = resolve_device("FCOSTrainer", device, mesh)
         make_norm(backbone_norm)   # raises for a norm the port has not
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "FCOSTrainer: no CUDA device (torch.cuda.is_available() is False). "
-                    "The trainer runs on the card by default; pass device=\"cpu\" to "
-                    "train on the CPU.")
-            device = "cuda"
-        self.device = torch.device(device)
         model_cfg = model_cfg or FCOSConfig()
         # serving-only, as in the JAX package: round() has no useful
         # gradient, and the E[x^2] - E[x]^2 variance NaNs gradients
@@ -154,14 +253,7 @@ class FCOSTrainer:
                             enabled=self.train_cfg.bf16):
             losses = model.loss(batch["image"], batch["targets"])
         total = sum(losses.values())
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        for p in model.parameters():
-            # optax moves every parameter (the decay at least); torch's
-            # optimizers skip one whose grad is None
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        state.apply_gradients()
+        state.update(total)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         return state, metrics

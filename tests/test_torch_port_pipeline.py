@@ -216,6 +216,24 @@ targets = {"boxes": boxes, "labels": valid.int() * 2, "valid": valid, "box_info"
 image = torch.from_numpy(rng.normal(size=(2, 64, 96, 3)).astype(np.float32))
 state, metrics = trainer.train_step(state, {"image": image, "targets": targets})
 assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
+from handnet_tpu_torch.train.trainer import A2JTrainer
+a2j = A2JTrainer(C.A2JConfig(crop_h=32, crop_w=32, num_joints=3, head_features=32),
+                 C.TrainConfig(bf16=False), device="cpu")
+a2j_state = a2j.init_state(0)
+a2j_batch = {"image": torch.from_numpy(rng.uniform(0.3, 1.2, size=(2, 32, 32, 1)).astype(np.float32)),
+             "jt_uvd": torch.from_numpy(rng.uniform(0.3, 30, size=(2, 3, 3)).astype(np.float32))}
+a2j_state, metrics = a2j.train_step(a2j_state, a2j_batch)
+pred, rmse = a2j.eval_step(a2j_state, a2j_batch)
+assert a2j_state.step == 1 and tuple(pred.shape) == (2, 3, 3) and bool(torch.isfinite(rmse))
+from handnet_tpu_torch.apps import train_pose2mesh as p2m
+from handnet_tpu_torch.config import Pose2MeshConfig
+mano = ManoLayer(ManoAssets.synthetic(rng), flat_hand_mean=True, device="cpu")
+faces = p2m.training_faces(ManoAssets.synthetic(rng))
+pyramid = p2m.build_pyramid(faces)
+p2m_state = p2m.init_state(pyramid, 1e-4, torch.device("cpu"), Pose2MeshConfig(posenet_hid=64))
+losses = p2m.train_step(p2m_state, torch.from_numpy(pyramid.perm_reverse[:778]),
+                        torch.from_numpy(faces), *p2m.make_batch(rng, mano, 2))
+assert p2m_state.step == 1 and bool(torch.isfinite(losses["total_loss"]))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu"))
 print("LOADED", loaded)
@@ -228,9 +246,10 @@ def test_port_imports_no_jax():
     full-width QUANT_STATIC pipeline, runs the mesh head (``with_mesh``) and
     the MANO layer, imports the server, the artifact module, the export CLI
     and the rotations, imports the training package and takes one CPU train
-    step of ``FCOSTrainer``, and has loaded neither jax, optax, orbax nor the
-    JAX package (a subprocess: tests/conftest.py imports jax into this
-    one)."""
+    step of ``FCOSTrainer``, one train and one eval step of ``A2JTrainer``
+    and one step of the Pose2Mesh app's ``train_step``, and has loaded
+    neither jax, optax, orbax nor the JAX package (a subprocess:
+    tests/conftest.py imports jax into this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
