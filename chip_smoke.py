@@ -146,15 +146,34 @@ train_mesh (after train_a2j): the Pose2Mesh app (apps/train_pose2mesh.py,
    ms per step by the loop clock, peak memory, and the loss on the first
    batch after the 20 steps below the first step's.
 
+a2j_apps (after train_mesh, before the idle shares): the A2J apps through
+   their entry points. The port's synthetic DexYCB tree (64 sequences x 4
+   frames, 480x640: 208 s0-train samples, also the eval set); one host
+   core's cost of decoding a depth PNG with each filter and of building a
+   sample (and, where cv2 is installed, the port's resamplers against it,
+   printed only); ``train_a2j.main`` at the recipe (crop 176, batch 64,
+   bf16, 3 epochs, an eval sweep after each, 8 loader threads): per epoch
+   ms per step, samples/s and the share spent waiting on the loader, K1
+   ceil(208 / 64) = 4 times per sweep and no other launch, 64-field
+   result lines, finite HPE numbers, params.npz and batch_stats.npz, the
+   last epoch's mean loss below the first's; a train step alone and beside
+   8 busy loader threads; ``eval_hpe.main`` on the last result file ==
+   the CLI's numbers; ``a2j_infer.main`` twice over 256 of the tree's PNGs
+   at batch 64 with the CLI's params.npz (K1 4 launches each; all_joints_
+   uvd [256, 21, 3] finite, == the plain decode within 1e-2 px), frames/s
+   with the host decode.
+
 The ``[card]`` line also gives scipy's version: the mesh head's graph
-pyramid is built with it, and the script fails without it.
+pyramid is built with it, and the script fails without it; and the host's
+decoders (cv2, PIL, yaml, g++, libnvjpeg), which the port does not use.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
 the quant_static run's, ``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
 wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
-``eval_a2j`` per eval step), and K2s's and K2a's ``shapes``
+``eval_a2j`` per eval step, ``a2j_apps_eval`` per batch of the CLI's eval
+sweeps, ``a2j_infer`` per batch of the app), and K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
@@ -269,6 +288,18 @@ A2J_ZERO_GRAD = 1e-5
 # pred to 1e-4 of its scale (K1's own tolerance), rmse relative
 A2J_EVAL_TOL = 1e-4
 A2J_RMSE_TOL = 1e-5
+# the A2J apps: apps/train_a2j.py at its recipe on the port's synthetic
+# tree (--synthetic 64 at 480x640, 4 frames each: 52 s0-train sequences,
+# 208 samples, which are also the eval set), then eval_hpe on its result
+# file and a2j_infer over 256 of the tree's depth PNGs with its params.npz;
+# a2j_infer's UVD through K1 against the same frames through the plain
+# decode, in pixels
+A2J_APPS_SEQUENCES = 64
+A2J_APPS_CROP = 176
+A2J_APPS_EPOCHS = 3
+A2J_APPS_WORKERS = 8
+A2J_INFER_FRAMES = 256
+A2J_INFER_TOL = 1e-2
 # the Pose2Mesh app (apps/train_pose2mesh.py's defaults: batch 32, Adam
 # 1e-4, float32): 20 steps of new batches through main(); one step card
 # against CPU, every loss term to 1e-4 relative (f32, TF32 off)
@@ -3043,6 +3074,269 @@ def phase_train_mesh(dev) -> dict:
     return per_call(launches, MESH_TRAIN_STEPS)
 
 
+def host_data_costs(root: str, crop: int) -> None:
+    """One host core's cost of the A2J data path on the tree at ``root``:
+    decoding a 480x640 depth frame re-encoded with each PNG filter, and
+    building one augmented and one plain sample (``A2JDataSource``: the
+    PNG, the label npz, the RLE box, the crop, the rotation). Where ``cv2``
+    is installed, the port's resamplers against it (printed, not a gate:
+    the port does not use it)."""
+    import glob
+    import threading
+
+    import numpy as np
+
+    from handnet_tpu_torch.data import a2j_data, image_io
+    from handnet_tpu_torch.data.dexycb import DexYCBDataset, refine_indices
+
+    others = [t.name for t in threading.enumerate() if t is not threading.current_thread()]
+    log("a2j_apps", f"other Python threads alive: {len(others)} {sorted(others)[:8]}")
+    frame = image_io.read_png(sorted(glob.glob(f"{root}/**/*.png", recursive=True))[0])
+    costs = []
+    for kind in range(5):
+        data = image_io.encode_png(frame, kind)
+        image_io.decode_png(data)   # the unfilter library's build, at first use
+        start = time.perf_counter()
+        for _ in range(20):
+            got = image_io.decode_png(data)
+        costs.append((time.perf_counter() - start) / 20 * 1e3)
+        if not np.array_equal(got, frame):
+            raise AssertionError(f"a2j_apps: PNG filter {kind} does not round-trip")
+    log("a2j_apps", "host decode of one 480x640 16-bit depth PNG (ms, one core; numpy for "
+        "None/Sub/Up, the C++ unfilter for Average/Paeth): " + ", ".join(
+            f"{image_io.FILTER_NAMES[k]} {ms:.3f}" for k, ms in enumerate(costs))
+        + " (the tree's files are Sub)")
+    ds = DexYCBDataset("s0", "train", root)
+    idx = refine_indices(ds)[:32]
+    cfg = a2j_data.A2JSampleConfig(crop_w=crop, crop_h=crop)
+    for augment in (True, False):
+        source = a2j_data.A2JDataSource(ds, idx, augment=augment, cfg=cfg)
+        start = time.perf_counter()
+        for i in range(len(idx)):
+            source[i]
+        ms = (time.perf_counter() - start) / len(idx) * 1e3
+        log("a2j_apps", f"one {crop}x{crop} sample on one core, augment={augment}: {ms:.3f} ms "
+            f"(PNG, npz, RLE box, crop{', rotation' if augment else ''}), "
+            f"{ms * A2J_TRAIN_BATCH:.1f} ms for a batch of {A2J_TRAIN_BATCH}")
+    try:
+        import cv2
+    except ImportError:
+        return
+    rng = np.random.default_rng(SEED)
+    img = np.full((crop, crop), 2.0, np.float32)
+    img[crop // 4:crop // 2, crop // 3:2 * crop // 3] = 0.6
+    img += rng.uniform(0, 0.02, img.shape).astype(np.float32)
+    worst = 0.0
+    for angle in range(-180, 180, 10):
+        m = a2j_data._rotation_matrix(crop / 2, crop / 2, angle)
+        worst = max(worst, float(np.abs(a2j_data.warp_affine_bilinear(img, m, crop, crop)
+                                        - cv2.warpAffine(img, m, (crop, crop))).max()))
+    same = np.array_equal(a2j_data.resize_nearest(frame, crop, crop),
+                          cv2.resize(frame, (crop, crop), interpolation=cv2.INTER_NEAREST))
+    log("a2j_apps", f"cv2 {cv2.__version__} on this host (not used by the port): "
+        f"warp_affine_bilinear (OpenCV 4's 1/32-pixel grid) vs cv2.warpAffine over 36 "
+        f"angles max |diff| {worst:.3e} m; resize_nearest == cv2 INTER_NEAREST: {same}")
+
+
+def loader_contention(dev, root: str, crop: int) -> None:
+    """``A2JTrainer.train_step`` at the recipe on one device batch, 5 steps
+    alone and 5 while ``A2J_APPS_WORKERS`` loader threads build augmented
+    samples of the tree (host clock; each step ends in reading its loss):
+    what the loader's threads cost the thread that launches the step."""
+    import threading
+
+    import torch
+
+    from handnet_tpu_torch.config import A2JConfig, TrainConfig
+    from handnet_tpu_torch.data.a2j_data import A2JDataSource, A2JSampleConfig
+    from handnet_tpu_torch.data.dexycb import DexYCBDataset, refine_indices
+    from handnet_tpu_torch.data.loader import PrefetchLoader, collate_stack
+    from handnet_tpu_torch.train.trainer import A2JTrainer
+
+    ds = DexYCBDataset("s0", "train", root)
+    source = A2JDataSource(ds, refine_indices(ds), augment=True,
+                           cfg=A2JSampleConfig(crop_w=crop, crop_h=crop))
+    host = collate_stack([source[i] for i in range(A2J_TRAIN_BATCH)])
+    batch = {"image": torch.from_numpy(host["depth"]).to(dev),
+             "jt_uvd": torch.from_numpy(host["jt_uvd"]).to(dev)}
+    trainer = A2JTrainer(A2JConfig(crop_h=crop, crop_w=crop),
+                         TrainConfig(batch_size=A2J_TRAIN_BATCH), device=dev)
+    state = trainer.init_state(SEED)
+
+    def steps(n: int) -> float:
+        start = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(state, batch)[1]["total_loss"].item()
+        return (time.perf_counter() - start) / n * 1e3
+
+    steps(TRAIN_WARM_STEPS)
+    alone = steps(5)
+    stop = threading.Event()
+    built = []
+
+    def drain():
+        loader = PrefetchLoader(source, A2J_TRAIN_BATCH, shuffle=True,
+                                num_workers=A2J_APPS_WORKERS)
+        while not stop.is_set():
+            for _ in loader:
+                built.append(1)
+                if stop.is_set():
+                    return
+
+    feeder = threading.Thread(target=drain, daemon=True)
+    feeder.start()
+    time.sleep(0.5)
+    beside = steps(5)
+    stop.set()
+    feeder.join()
+    log("a2j_apps", f"a train step at batch {A2J_TRAIN_BATCH} on one device batch: "
+        f"{alone:.3f} ms alone, {beside:.3f} ms while {A2J_APPS_WORKERS} loader threads build "
+        f"samples ({len(built)} batches built meanwhile; host clock, each step reads its loss)")
+    del trainer, state, batch
+
+
+def phase_a2j_apps(dev) -> dict:
+    """The A2J apps on the card, through their entry points: the port's
+    synthetic tree, ``train_a2j.main`` at the recipe (crop 176, batch 64,
+    bf16, AdamW 3.5e-4, 8 loader threads, an eval sweep after each epoch
+    through K1), ``eval_hpe.main`` on its last result file, and
+    ``a2j_infer.main`` over 256 of the tree's PNGs with its params.npz,
+    then the same frames through the plain decode. Returns K1..K3's
+    launches per eval batch and per a2j_infer batch."""
+    import argparse
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps import a2j_infer, eval_hpe, train_a2j
+    from handnet_tpu_torch.data.synthetic import make_synthetic_dexycb
+
+    crop, batch = A2J_APPS_CROP, A2J_TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as work:
+        root, out = os.path.join(work, "tree"), os.path.join(work, "a2j")
+        start = time.perf_counter()
+        make_synthetic_dexycb(root, n_sequences=A2J_APPS_SEQUENCES, n_frames=4)
+        log("a2j_apps", f"synthetic tree ({A2J_APPS_SEQUENCES} sequences x 4 frames, 480x640) "
+            f"in {time.perf_counter() - start:.2f} s")
+        host_data_costs(root, crop)
+
+        reset_launch_counts()
+        res = train_a2j.main(["--data-dir", root, "--synthetic", str(A2J_APPS_SEQUENCES),
+                              "--crop", str(crop), "--batch", str(batch), "--epochs",
+                              str(A2J_APPS_EPOCHS), "--eval-every", "1", "--workers",
+                              str(A2J_APPS_WORKERS), "--output", out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for e in res["epochs"]:
+            log("a2j_apps", f"epoch {e['epoch']}: {e['steps']} steps of batch {batch}, "
+                f"{e['ms_per_step']:.3f} ms per step, {e['samples_per_s']:.1f} samples/s, "
+                f"{100 * e['loader_wait_share']:.2f}% of the epoch waiting on the loader "
+                f"({e['seconds']:.3f} s; loop clock), mean loss "
+                f"{e['losses']['total_loss']:.4f}")
+        sweeps = res["evals"]
+        n_test = sweeps[-1]["samples"]
+        eval_batches = sum(s["batches"] for s in sweeps)
+        want = {**{k: 0 for k in launches}, "a2j_decode": len(sweeps) * math.ceil(n_test / batch)}
+        log("a2j_apps", f"{len(sweeps)} eval sweeps of {n_test} samples, "
+            f"{eval_batches} batches: launches {launches} (K1 "
+            f"{launches['a2j_decode'] / len(sweeps):g} per sweep = ceil({n_test} / {batch}))")
+        if launches != want or any(s["batches"] != math.ceil(n_test / batch) for s in sweeps):
+            raise AssertionError(f"a2j_apps: launches {launches}, expected {want}")
+        res_file = sweeps[-1]["res_file"]
+        with open(res_file) as f:
+            fields = {len(line.split(",")) for line in f.read().split()}
+        results = sweeps[-1]["results"]
+        finite = all(np.isfinite(list(v.values())).all() for s in sweeps
+                     for v in s["results"].values())
+        first, last = (res["epochs"][i]["losses"]["total_loss"] for i in (0, -1))
+        if (fields != {64} or not finite or not os.path.exists(res["params_npz"])
+                or not os.path.exists(res["batch_stats_npz"]) or not last < first):
+            raise AssertionError(f"a2j_apps: result fields {fields}, finite {finite}, mean "
+                                 f"loss {first} -> {last}")
+        log("a2j_apps", "HPE after the last epoch: " + ", ".join(
+            f"{k} MPJPE {v['mpjpe']:.2f} mm AUC {v['auc']:.4f}" for k, v in results.items())
+            + f"; mean loss {first:.4f} -> {last:.4f}; every result line has 64 fields; "
+            "params.npz and batch_stats.npz written")
+        del res
+        free_device_memory(dev)
+        loader_contention(dev, root, crop)
+        free_device_memory(dev)
+
+        again = eval_hpe.main(["--res-file", res_file, "--data-dir", root, "--split",
+                               "s0_train"])
+        if again != results:
+            raise AssertionError(f"a2j_apps: eval_hpe {again} != the CLI's {results}")
+        log("a2j_apps", "eval_hpe on the last result file and the tree == the CLI's numbers")
+
+        pngs = sorted(os.path.join(d, f) for d, _, files in os.walk(root)
+                      for f in files if f.endswith(".png"))[:A2J_INFER_FRAMES]
+        folder = os.path.join(work, "pngs")
+        os.makedirs(folder)
+        for i, path in enumerate(pngs):
+            os.symlink(path, os.path.join(folder, f"{i:04d}.png"))
+        args = ["--input", folder, "--output", os.path.join(work, "uvd"), "--checkpoint", out,
+                "--batch", str(batch), "--crop", str(crop), "--device", "cuda"]
+        runs = []
+        for _ in range(2):
+            reset_launch_counts()
+            runs.append(a2j_infer.main(args))
+            torch.cuda.synchronize()
+            infer_launches = launch_counts()
+            want = {**{k: 0 for k in infer_launches},
+                    "a2j_decode": math.ceil(len(pngs) / batch)}
+            if infer_launches != want:
+                raise AssertionError(f"a2j_infer: launches {infer_launches}, expected {want}")
+        uvd = runs[-1]["uvd"]
+        if uvd.shape != (len(pngs), 21, 3) or not np.isfinite(uvd).all():
+            raise AssertionError(f"a2j_infer: UVD {uvd.shape}, finite {np.isfinite(uvd).all()}")
+        system = a2j_infer.build_system(argparse.Namespace(
+            crop=crop, checkpoint=out, torch_checkpoint=None), dev)
+        system.use_kernels = False
+        plain = a2j_infer.predict_frames(system, a2j_infer.read_frames(pngs, crop), batch)
+        err = float(np.abs(uvd - plain).max())
+        if not err <= A2J_INFER_TOL:
+            raise AssertionError(f"a2j_infer: K1 vs plain decode {err} px")
+        for i, r in enumerate(runs):
+            total = r["read_s"] + r["predict_s"]
+            log("a2j_infer", f"run {i + 1}: {len(pngs)} frames at batch {batch}: "
+                f"{len(pngs) / total:.1f} frames/s with the host decode "
+                f"({r['read_s'] / len(pngs) * 1e3:.3f} ms per frame to read and resize, "
+                f"{r['predict_s'] / r['batches'] * 1e3:.3f} ms per batch of {batch} on the "
+                "card, float32)")
+        log("a2j_infer", f"all_joints_uvd {uvd.shape} finite; K1 launches per run "
+            f"{infer_launches['a2j_decode']}; == the plain decode within {err:.3e} px "
+            f"(tol {A2J_INFER_TOL:g})")
+        del system
+    free_device_memory(dev)
+    return {"a2j_apps_eval": per_call(launches, eval_batches),
+            "a2j_infer": per_call(infer_launches, runs[-1]["batches"])}
+
+
+def host_decoders() -> str:
+    """What the host could decode images with: the versions of ``cv2``, PIL
+    and ``yaml`` (or ``absent``), whether ``g++`` is on the PATH, and the
+    ``libnvjpeg.so*`` files under ``/usr/local/cuda``. The port's data path
+    uses none of the three modules; ``g++`` builds its PNG unfilter and RLE
+    libraries."""
+    import glob
+    import importlib
+    import shutil
+
+    found = []
+    for module, label in (("cv2", "cv2"), ("PIL", "PIL"), ("yaml", "yaml")):
+        try:
+            found.append(f"{label} {importlib.import_module(module).__version__}")
+        except ImportError:
+            found.append(f"{label} absent")
+    gxx = shutil.which("g++")
+    nvjpeg = sorted({p.rsplit("/", 1)[-1] for p in
+                     glob.glob("/usr/local/cuda/**/libnvjpeg.so*", recursive=True)})
+    return (", ".join(found) + f", g++ {'at ' + gxx if gxx else 'absent'}, libnvjpeg under "
+            f"/usr/local/cuda: {', '.join(nvjpeg) if nvjpeg else 'absent'}")
+
+
 def main() -> int:
     import torch
 
@@ -3061,6 +3355,7 @@ def main() -> int:
 
     log("card", f"torch {torch.__version__}, CUDA {torch.version.cuda}, scipy "
         f"{scipy.__version__}, {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log("card", f"host decoders: {host_decoders()}")
     dev = torch.device("cuda", 0)
 
     from handnet_tpu_torch.config import FAST, QUANT, QUANT_STATIC, load_config, resolve_config
@@ -3141,6 +3436,9 @@ def main() -> int:
     lap("train_a2j")
     by_path["train_mesh"] = phase_train_mesh(dev)
     lap("train_mesh")
+    # the A2J apps through their entry points
+    by_path.update(phase_a2j_apps(dev))
+    lap("a2j_apps")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

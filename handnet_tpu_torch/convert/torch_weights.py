@@ -1,0 +1,39 @@
+"""Reference torch checkpoints -> the port's state dicts.
+
+The port's modules carry the reference's torch names, so a reference
+checkpoint needs no key map, only unwrapping. :func:`load_torch_checkpoint`
+unwraps as ``handnet_tpu/convert/torch_weights.py:316-329`` does (a
+``model_state_dict`` entry, then ``model``, then a Lightning
+``state_dict`` whose ``a2j.`` prefix is dropped) and keeps the tensors;
+:func:`a2j_state_dict` keeps the entries that the port's ``A2J`` holds,
+leaving out what ``convert_a2j`` leaves out (the backbone's unused ``fc``
+classifier, the ``criterion.``/``post_process.`` buffers and BatchNorm's
+``num_batches_tracked``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A .pth/.ckpt as a flat state dict of CPU tensors, detached."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
+        ckpt = ckpt["model_state_dict"]  # pose2mesh .pth.tar (ros_demo.py:144)
+    if isinstance(ckpt, dict) and "model" in ckpt:
+        ckpt = ckpt["model"]
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = {k.replace("a2j.", "", 1) if k.startswith("a2j.") else k: v
+                for k, v in ckpt["state_dict"].items()}
+    return {k: v.detach() for k, v in ckpt.items() if isinstance(v, torch.Tensor)}
+
+
+def a2j_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference A2JModel state dict, as the port's ``A2J`` loads it with
+    ``load_state_dict(strict=True)``."""
+    return {k: v for k, v in state_dict.items()
+            if not (k.startswith(("Backbone.model.fc.", "criterion.", "post_process."))
+                    or k.endswith(".num_batches_tracked"))}

@@ -1,12 +1,23 @@
 """Camera geometry and joint-space conversions, batched over leading dims.
 
-Counterparts of ``handnet_tpu/ops/geometry.py:30-66`` (reference
-datasets3d/a2jdataset.py:21-38 and a2j/a2j.py:17-43).
+Counterparts of ``handnet_tpu/ops/geometry.py:18-66`` (reference
+datasets3d/a2jdataset.py:21-38 and a2j/a2j.py:17-43), and the evaluator's
+numpy Procrustes alignment (``:69-107``; reference freihand/eval.py:71-94).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def xyz2uvd(pts: torch.Tensor, paras: torch.Tensor) -> torch.Tensor:
+    """Project camera XYZ ``[..., J, 3]`` to pixel UVD with ``paras = [fx,
+    fy, cx, cy]`` of shape ``[..., 4]``."""
+    f = paras[..., None, 0:2]
+    c = paras[..., None, 2:4]
+    uv = pts[..., 0:2] * f / pts[..., 2:3] + c
+    return torch.cat([uv, pts[..., 2:3]], dim=-1)
 
 
 def uvd2xyz(pts: torch.Tensor, paras: torch.Tensor) -> torch.Tensor:
@@ -36,3 +47,32 @@ def convert_joints(jt_uvd: torch.Tensor, box: torch.Tensor, paras: torch.Tensor,
     """Crop UVD -> XYZ in millimeters (reference a2j/a2j.py:17-43)."""
     img_uvd = crop_uvd_to_image_uvd(jt_uvd, box, crop_w, crop_h)
     return uvd2xyz(img_uvd, paras) * 1000.0
+
+
+def orthogonal_procrustes_np(a: np.ndarray, b: np.ndarray):
+    """R, s as ``scipy.linalg.orthogonal_procrustes(b, a)`` gives them: R
+    orthogonal and s the sum of the singular values of ``b.T @ a``."""
+    u, w, vt = np.linalg.svd(b.T.dot(a).T)
+    r = u.dot(vt)
+    scale = w.sum()
+    return r, scale
+
+
+def align_w_scale_np(mtx1: np.ndarray, mtx2: np.ndarray, return_trafo: bool = False):
+    """Similarity-align ``mtx2`` (pred) to ``mtx1`` (GT) — freihand/eval.py:71-94."""
+    t1 = mtx1.mean(0)
+    t2 = mtx2.mean(0)
+    mtx1_t = mtx1 - t1
+    mtx2_t = mtx2 - t2
+
+    s1 = np.linalg.norm(mtx1_t) + 1e-8
+    mtx1_t = mtx1_t / s1
+    s2 = np.linalg.norm(mtx2_t) + 1e-8
+    mtx2_t = mtx2_t / s2
+
+    r, s = orthogonal_procrustes_np(mtx1_t, mtx2_t)
+    mtx2_t = np.dot(mtx2_t, r.T) * s
+    mtx2_t = mtx2_t * s1 + t1
+    if return_trafo:
+        return r, s, s1, t1 - t2
+    return mtx2_t

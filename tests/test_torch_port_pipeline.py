@@ -234,8 +234,24 @@ p2m_state = p2m.init_state(pyramid, 1e-4, torch.device("cpu"), Pose2MeshConfig(p
 losses = p2m.train_step(p2m_state, torch.from_numpy(pyramid.perm_reverse[:778]),
                         torch.from_numpy(faces), *p2m.make_batch(rng, mano, 2))
 assert p2m_state.step == 1 and bool(torch.isfinite(losses["total_loss"]))
+import tempfile
+from handnet_tpu_torch.data import a2j_data, dexycb, loader, synthetic
+from handnet_tpu_torch.eval.hpe import HPEEvaluator
+import handnet_tpu_torch.apps.a2j_infer, handnet_tpu_torch.apps.eval_hpe
+import handnet_tpu_torch.apps.train_a2j
+with tempfile.TemporaryDirectory() as root:
+    synthetic.make_synthetic_dexycb(root, n_sequences=1, n_frames=2)
+    ds = dexycb.DexYCBDataset("s0", "train", data_dir=root)
+    source = a2j_data.A2JDataSource(ds, dexycb.refine_indices(ds), augment=True,
+                                    cfg=a2j_data.A2JSampleConfig(crop_w=32, crop_h=32))
+    batch = next(iter(loader.PrefetchLoader(source, 2, num_workers=1)))
+    assert batch["depth"].shape == (2, 32, 32, 1)
+    gt = dexycb.hpe_ground_truth(ds)
+    res = HPEEvaluator(gt).evaluate_dict(0, {k: v + 1.0 for k, v in gt.items()})
+    assert np.isfinite(res["absolute"]["mpjpe"])
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu",
+                                       "cv2", "yaml", "PIL"))
 print("LOADED", loaded)
 """
 
@@ -247,9 +263,12 @@ def test_port_imports_no_jax():
     the MANO layer, imports the server, the artifact module, the export CLI
     and the rotations, imports the training package and takes one CPU train
     step of ``FCOSTrainer``, one train and one eval step of ``A2JTrainer``
-    and one step of the Pose2Mesh app's ``train_step``, and has loaded
-    neither jax, optax, orbax nor the JAX package (a subprocess:
-    tests/conftest.py imports jax into this one)."""
+    and one step of the Pose2Mesh app's ``train_step``, builds a small
+    synthetic DexYCB tree, draws a batch through ``A2JDataSource`` and
+    ``PrefetchLoader``, runs ``HPEEvaluator``, imports the A2J apps, and
+    has loaded neither jax, optax, orbax, the JAX package, ``cv2``,
+    ``yaml`` nor PIL (a subprocess: tests/conftest.py imports jax into
+    this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
