@@ -162,10 +162,33 @@ a2j_apps (after train_mesh, before the idle shares): the A2J apps through
    at batch 64 with the CLI's params.npz (K1 4 launches each; all_joints_
    uvd [256, 21, 3] finite, == the plain decode within 1e-2 px), frames/s
    with the host decode.
+fcos_apps (after a2j_apps, before the idle shares): the FCOS apps through
+   their entry points. K2s/K2a at the GroupNorm backbone's five shapes
+   (batch 8 at 800x1088, C/G 2-16; 36 layers) against their plain
+   versions, timed with bounds; the port's synthetic tree with colour (20
+   sequences x 4 frames: 64 s0-train samples) and a VOC tree of 32 JPEGs
+   made of its first 16 frames at 480x640 and at 600x800; where cv2
+   imports, the port's JPEG decode of all 112 files == cv2.imread (a gate)
+   and its encode and resize against cv2 (printed), with decode and encode
+   ms per 480x640 frame on one core; ``train_fcos.main`` at the recipe
+   (800x1088, batch 8, bf16, batch-norm backbone, 2 epochs, 8 loader
+   threads): ms per step, images/s, the loader-wait share, K2s/K2a 24 per
+   step and nothing else, finite losses; a train step alone and beside 8
+   busy loader threads; ``train_fcos.main --voc-root --backbone-norm
+   group`` (1 epoch): K2s/K2a 60 per step, the trained backbone's
+   GroupNorms == their plain versions on one batch (f32, 1e-3 of each
+   level's scale); ``eval_fcos.main`` with the first run's weights
+   (reference-keyed, classes 0, 1 and 22 as background, object and hand):
+   11-field rows, finite AP, K2s/K2a 24 per call, FPS, the same CLI with
+   the plain GroupNorm and with random weights (printed), and its detect
+   in float32 == the plain GroupNorm within 1e-2 px; ``train_a2j.main
+   --rgbd`` (1 epoch at the recipe): finite losses, K1 ceil(n / 64) per
+   eval sweep.
 
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it; and the host's
-decoders (cv2, PIL, yaml, g++, libnvjpeg), which the port does not use.
+decoders (cv2 and the JPEG library it bundles, PIL, yaml, g++, libnvjpeg),
+which the port does not use.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
@@ -173,8 +196,11 @@ the quant_static run's, ``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
 wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
 ``eval_a2j`` per eval step, ``a2j_apps_eval`` per batch of the CLI's eval
-sweeps, ``a2j_infer`` per batch of the app), and K2s's and K2a's ``shapes``
-hold their numbers at the shapes of phase 5.
+sweeps, ``a2j_infer`` per batch of the app, ``train_fcos_app`` and
+``train_fcos_voc_group`` per step of the CLI, ``eval_fcos`` per detect
+call, ``train_a2j_rgbd_eval`` per eval batch), K2s's and K2a's ``shapes``
+hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
+the GroupNorm backbone's.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
@@ -307,6 +333,35 @@ MESH_TRAIN_STEPS = 20
 MESH_TRAIN_BATCH = 32
 MESH_TRAIN_LR = 1e-4
 MESH_CPU_TOL = 1e-4
+
+# the FCOS apps ([fcos_apps]): apps/train_fcos.py on the port's synthetic
+# tree at the 100DOH recipe (800x1088, batch 8, bf16, SGD 1.25e-3 with a
+# one-epoch warmup, 8 loader threads; --synthetic 20 at 480x640, 4 frames
+# each: 64 s0-train samples, 8 steps an epoch), then --voc-root on a VOC
+# tree of 32 JPEGs (the synthetic tree's first 16 frames at 480x640, then
+# at 600x800) with a GroupNorm backbone, eval_fcos on that tree with the
+# first run's weights, and train_a2j --rgbd on the colour tree
+FCOS_APPS_SEQUENCES = 20
+FCOS_APPS_EPOCHS = 2
+FCOS_APPS_WORKERS = 8
+FCOS_APPS_VOC_SIZES = ((480, 640), (600, 800))
+FCOS_APPS_VOC_PER_SIZE = 16
+FCOS_APPS_EVAL_BATCH = 4
+FCOS_APPS_EVAL_THRESH = 0.0       # eval_fcos --score-thresh: every kept detection is a row
+FCOS_APPS_IMAGE = (800, 1088)     # FCOSConfig's network input, the 100DOH recipe's
+BACKBONE_GN_LAYERS = 36           # ResNet-34: the stem, 2 per block, 3 downsamples
+# ResNet-34's GroupNorm(32) shapes at 800x1088 (h, w, C, G) and layers of each
+BACKBONE_GN_SHAPES = {(400, 544, 64, 32): 1, (200, 272, 64, 32): 6,
+                      (100, 136, 128, 32): 9, (50, 68, 256, 32): 13, (25, 34, 512, 32): 7}
+# the trained GroupNorm backbone, kernels against plain versions on one
+# batch, float32 with TF32 off: each pyramid level's max |diff| over its
+# max |value| (the statistics differ in their last bits, 36 layers deep)
+FCOS_BACKBONE_GN_TOL = 1e-3
+# eval_fcos's detect on one batch, float32 with TF32 off, with kernels
+# against the plain GroupNorm: the same valid detections, boxes within this
+# many px (bf16 runs of the CLI are compared too, and printed: near-tied
+# scores and the 0.1 threshold make their row sets differ)
+FCOS_EVAL_BOX_TOL = 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -3314,6 +3369,591 @@ def phase_a2j_apps(dev) -> dict:
             "a2j_infer": per_call(infer_launches, runs[-1]["batches"])}
 
 
+# --- the FCOS apps: the JPEG codec, train_fcos, eval_fcos, train_a2j --rgbd ---
+
+def write_voc_tree(root: str, tree: str, seed: int) -> int:
+    """A 100DOH-layout VOC tree (as tests/test_voc100doh.py writes one) made
+    of the synthetic DexYCB tree at ``tree``: its first
+    ``FCOS_APPS_VOC_PER_SIZE`` colour frames at each of
+    ``FCOS_APPS_VOC_SIZES`` (resized with ``resize_linear_u8`` where the size
+    differs; written by the port's ``imwrite_jpeg``), each with its hand
+    (the seg's 255 pixels; a contact state, side, offset and its object's
+    box) and its YCB object (the seg's 1 pixels) annotated, listed in
+    ``trainval`` size by size. Returns the image count."""
+    import glob
+    import os
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from handnet_tpu_torch.data import image_io
+
+    devkit = os.path.join(root, "VOC2007")
+    for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+        os.makedirs(os.path.join(devkit, sub), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    frames = sorted(glob.glob(f"{tree}/**/color_*.jpg", recursive=True))[:FCOS_APPS_VOC_PER_SIZE]
+    names = []
+    for h, w in FCOS_APPS_VOC_SIZES:
+        for path in frames:
+            name = f"img{len(names):04d}"
+            img = image_io.imread_color(path)
+            seg = np.load(path.replace("color_", "labels_").replace(".jpg", ".npz"))["seg"]
+            sx, sy = w / img.shape[1], h / img.shape[0]
+            if img.shape[:2] != (h, w):
+                img = image_io.resize_linear_u8(img, w, h)
+            image_io.imwrite_jpeg(os.path.join(devkit, "JPEGImages", f"{name}.jpg"), img)
+            boxes = {}
+            for kind, value in (("hand", 255), ("targetobject", 1)):
+                ys, xs = np.nonzero(seg == value)
+                boxes[kind] = (int(xs.min() * sx), int(ys.min() * sy),
+                               int(xs.max() * sx), int(ys.max() * sy))
+            ox0, oy0, ox1, oy1 = boxes["targetobject"]
+            ann = ET.Element("annotation")
+            for kind, extra in (
+                    ("hand", {"contactstate": 3, "handside": int(rng.integers(0, 2)),
+                              "magnitude": 150, "unitdx": 0.8, "unitdy": 0.6, "objxmin": ox0,
+                              "objymin": oy0, "objxmax": ox1, "objymax": oy1}),
+                    ("targetobject", {})):
+                obj = ET.SubElement(ann, "object")
+                ET.SubElement(obj, "name").text = kind
+                bb = ET.SubElement(obj, "bndbox")
+                for k, v in zip(("xmin", "ymin", "xmax", "ymax"), boxes[kind]):
+                    ET.SubElement(bb, k).text = str(v + 1)    # VOC boxes are 1-based
+                ET.SubElement(obj, "difficult").text = "0"
+                for k in ("contactstate", "handside", "magnitude", "unitdx", "unitdy",
+                          "objxmin", "objymin", "objxmax", "objymax"):
+                    ET.SubElement(obj, k).text = str(extra.get(k, "None"))
+            ET.ElementTree(ann).write(os.path.join(devkit, "Annotations", f"{name}.xml"))
+            names.append(name)
+    with open(os.path.join(devkit, "ImageSets", "Main", "trainval.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return len(names)
+
+
+def codec_checks(jpegs: list) -> None:
+    """The port's JPEG decode against ``cv2.imread`` on every file of both
+    trees, where cv2 imports (a gate: no pixel may differ); its encode
+    against ``cv2.imencode`` (bytes compared, printed) and the decode and
+    encode ms per 480x640 frame on one core; ``resize_linear_u8`` against
+    ``cv2.resize`` in both of its roundings (printed: the host's OpenCV
+    may round either way)."""
+    import numpy as np
+
+    from handnet_tpu_torch.data import image_io, jpeg
+
+    frames = {}
+    start = time.perf_counter()
+    for path in jpegs:
+        frames[path] = jpeg.read_jpeg(path)
+    decode_ms = (time.perf_counter() - start) / len(jpegs) * 1e3
+    vga = next(f for f in frames.values() if f.shape == (480, 640, 3))
+    start = time.perf_counter()
+    for _ in range(20):
+        data = jpeg.encode_jpeg(vga)
+    encode_ms = (time.perf_counter() - start) / 20 * 1e3
+    start = time.perf_counter()
+    for _ in range(20):
+        jpeg.decode_jpeg(data)
+    vga_ms = (time.perf_counter() - start) / 20 * 1e3
+    log("fcos_apps", f"the port's JPEG codec on one core: decode {vga_ms:.3f} ms and encode "
+        f"{encode_ms:.3f} ms per 480x640 4:2:0 frame (quality 95); {decode_ms:.3f} ms per file "
+        f"over the {len(jpegs)} files of both trees")
+    try:
+        import cv2
+    except ImportError:
+        log("fcos_apps", "cv2 absent on this host: the codec is held against it only by the "
+            "CPU tests")
+        return
+    buf = np.frombuffer(data, np.uint8)
+    start = time.perf_counter()
+    for _ in range(20):
+        cv2.imdecode(buf, cv2.IMREAD_COLOR)
+    cv2_ms = (time.perf_counter() - start) / 20 * 1e3
+    differ, worst = 0, 0
+    for path, got in frames.items():
+        want = cv2.imread(path)
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        differ += int((diff > 0).sum())
+        worst = max(worst, int(diff.max()))
+    same_bytes = sum(jpeg.encode_jpeg(f) == cv2.imencode(".jpg", f)[1].tobytes()
+                     for f in list(frames.values())[:16])
+    rng = np.random.default_rng(SEED)
+    pairs = [((12, 16), (480, 640)), ((480, 640), (800, 1067)), ((600, 800), (800, 1067)),
+             ((17, 33), (5, 7)), ((100, 60), (100, 61))]
+    resized = resize_differ = 0
+    for (sh, sw), (dh, dw) in pairs:
+        src = rng.integers(0, 256, size=(sh, sw, 3)).astype(np.uint8)
+        want = cv2.resize(src, (dw, dh))
+        resized += want.size
+        resize_differ += int((image_io.resize_linear_u8(src, dw, dh) != want).sum())
+    log("fcos_apps", f"cv2 {cv2.__version__} on this host (not used by the port): decode of "
+        f"{len(frames)} JPEGs, {differ} values differ from cv2.imread (max |diff| {worst}); "
+        f"cv2.imdecode of the 480x640 frame {cv2_ms:.3f} ms; "
+        f"encode byte-equal to cv2.imencode on {same_bytes} of 16 frames; resize_linear_u8 vs "
+        f"cv2.resize: {resize_differ} of {resized} values differ")
+    if differ:
+        raise AssertionError(f"fcos_apps: the port's JPEG decode differs from cv2.imread in "
+                             f"{differ} values (max {worst})")
+
+
+def gn_backbone_kernels(dev) -> dict:
+    """K2s and K2a at the GroupNorm backbone's shapes (``BACKBONE_GN_SHAPES``:
+    800x1088, batch 8, G=32, C/G 2 to 16), float32 and bfloat16: K2s to 1e-4
+    of scale, two runs bit-equal; K2a bit-equal to its plain version, ReLU on
+    and off. Times both (bf16), their plain versions and ``F.group_norm``,
+    with their bounds. Returns the per-kernel entries by shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from handnet_tpu_torch.ops.cuda_gn import (gn_apply, gn_apply_reference, gn_group_stats,
+                                               gn_group_stats_reference, group_norm)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    eps, b = 1e-6, TRAIN_BATCH
+    out = {"gn_group_stats": [], "gn_apply": []}
+    worst = 0.0
+    for (h, w, c, g), layers in BACKBONE_GN_SHAPES.items():
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.randn(c, device=dev, generator=gen)
+        x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            name = f"B={b} {h}x{w}x{c} G={g} {dtype}"
+            want = gn_group_stats_reference(xd, g)
+            tol = 1e-4 * max(1.0, want.abs().max().item())
+            stats = same_bits_twice(f"K2s {name}", lambda: gn_group_stats(xd, g))
+            worst = max(worst, check(f"K2s {name}", stats, want, tol))
+            for relu in (False, True):
+                got = gn_apply(xd, stats, scale, bias, eps, relu)
+                ref = gn_apply_reference(xd, stats, scale, bias, eps, relu)
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K2a {name} relu={relu}: not bit-equal to its plain "
+                                         "version")
+            if dtype == torch.bfloat16:
+                s_t = timed(lambda: gn_group_stats(xd, g))
+                a_t = timed(lambda: gn_apply(xd, stats, scale, bias, eps, True))
+                s_bound = bound(nbytes(xd) + b * 2 * g * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
+                a_bound = bound(2 * nbytes(xd) + nbytes(stats, scale, bias), 4 * xd.numel(),
+                                F32_FLOPS_PER_S)
+                xc = xd.permute(0, 3, 1, 2)
+                plain_s = timed(lambda: gn_group_stats_reference(xd, g))
+                plain_a = timed(lambda: gn_apply_reference(xd, stats, scale, bias, eps, True))
+                var_mean = timed(lambda: torch.var_mean(xd.view(b, h * w, g, c // g),
+                                                        dim=(1, 3), correction=0))
+                pair = timed(lambda: group_norm(xd, scale, bias, g, eps, relu=True))
+                sc, bi = scale.to(dtype), bias.to(dtype)   # F.group_norm takes x's type
+                library = timed(lambda: F.relu(F.group_norm(xc, g, sc, bi, eps)))
+                shape = f"B={b} {h}x{w}x{c} G={g} bf16"
+                common = {"shape": shape, "layers": layers, "pair_relu_ms": pair["ms"],
+                          "pair_relu_library_ms": library["ms"]}
+                out["gn_group_stats"].append({**common, **s_t, **s_bound,
+                                              "plain_ms": plain_s["ms"],
+                                              "library_ms": var_mean["ms"]})
+                out["gn_apply"].append({**common, **a_t, **a_bound, "plain_ms": plain_a["ms"],
+                                        "library_ms": None})
+                log("fcos_apps", f"backbone GN {shape} ({layers} layers): K2s {s_t['ms']:.4f} ms "
+                    f"on the device (bound {s_bound['bound_ms']:.4f}, plain "
+                    f"{plain_s['ms']:.4f}, torch.var_mean {var_mean['ms']:.4f}), K2a+ReLU "
+                    f"{a_t['ms']:.4f} ms (bound {a_bound['bound_ms']:.4f}, plain "
+                    f"{plain_a['ms']:.4f}); K2s+K2a+ReLU {pair['ms']:.4f} vs "
+                    f"F.relu(F.group_norm) {library['ms']:.4f} ms")
+            del xd, stats, want
+        del x
+    log("fcos_apps", f"backbone GN shapes x f32/bf16: K2s max|err| {worst:.3e} (tol 1e-4 of "
+        "scale), two runs bit-equal; K2a bit-equal to its plain version, ReLU on and off")
+    return out
+
+
+def fcos_loader_contention(dev, source, cfg) -> None:
+    """``FCOSTrainer.train_step`` at the recipe on one device batch of
+    ``source``, 5 steps alone and 5 while ``FCOS_APPS_WORKERS`` loader
+    threads decode its frames (host clock; each step ends in reading its
+    loss): what the loader's threads cost the thread that launches the step."""
+    import threading
+
+    import torch
+
+    from handnet_tpu_torch.apps import train_fcos
+    from handnet_tpu_torch.config import TrainConfig
+    from handnet_tpu_torch.data.loader import PrefetchLoader, collate_stack
+    from handnet_tpu_torch.train.trainer import FCOSTrainer
+
+    trainer = FCOSTrainer(cfg, TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR,
+                                           optimizer="sgd", warmup_epochs=1),
+                          backbone_norm="batch", device=dev)
+    state = trainer.init_state(SEED)
+    host = train_fcos.pinned(dev)(collate_stack([source[i] for i in range(TRAIN_BATCH)]))
+    batch = train_fcos.device_batch(host, state.model, cfg, dev)
+
+    def steps(n: int) -> float:
+        start = time.perf_counter()
+        for _ in range(n):
+            trainer.train_step(state, batch)[1]["total_loss"].item()
+        return (time.perf_counter() - start) / n * 1e3
+
+    steps(TRAIN_WARM_STEPS)
+    alone = steps(5)
+    stop = threading.Event()
+    built = []
+
+    def drain():
+        loader = PrefetchLoader(source, TRAIN_BATCH, shuffle=True,
+                                num_workers=FCOS_APPS_WORKERS)
+        while not stop.is_set():
+            for _ in loader:
+                built.append(1)
+                if stop.is_set():
+                    return
+
+    feeder = threading.Thread(target=drain, daemon=True)
+    feeder.start()
+    time.sleep(0.5)
+    beside = steps(5)
+    stop.set()
+    feeder.join()
+    log("fcos_apps", f"a train step at batch {TRAIN_BATCH}, {cfg.image_h}x{cfg.image_w} bf16, on "
+        f"one device batch: {alone:.3f} ms alone, {beside:.3f} ms while {FCOS_APPS_WORKERS} "
+        f"loader threads decode frames ({len(built)} batches built meanwhile; host clock, each "
+        "step reads its loss)")
+    del trainer, state, batch
+
+
+def log_epochs(tag: str, res: dict) -> None:
+    for e in res["epochs"]:
+        log("fcos_apps", f"{tag} epoch {e['epoch']}: {e['steps']} steps of batch "
+            f"{TRAIN_BATCH}, {e['ms_per_step']:.3f} ms per step, {e['images_per_s']:.2f} "
+            f"images/s, {100 * e['loader_wait_share']:.2f}% of the epoch waiting on the loader "
+            f"({e['seconds']:.3f} s; loop clock), mean loss {e['losses']['total_loss']:.4f}")
+
+
+def detection_rows(folder: str) -> dict:
+    import os
+
+    rows = {}
+    for name in ("comp4_det_test_hand.txt", "comp4_det_test_targetobject.txt"):
+        with open(os.path.join(folder, name)) as f:
+            rows[name] = [line.split() for line in f.read().splitlines()]
+    return rows
+
+
+def matched_box_diff(got: list, want: list) -> tuple:
+    """Match each row of ``got`` with one of ``want`` (same image, state and
+    side, the nearest box) and return (rows unmatched, largest box diff in
+    px, largest score diff) over the matched ones."""
+    import numpy as np
+
+    left, unmatched, worst_box, worst_score = list(want), 0, 0.0, 0.0
+    for row in got:
+        cands = [(float(np.abs(np.array(a[2:6], float) - np.array(row[2:6], float)).max()), i)
+                 for i, a in enumerate(left)
+                 if (a[0], a[6], a[9]) == (row[0], row[6], row[9])]
+        if not cands:
+            unmatched += 1
+            continue
+        diff, i = min(cands)
+        worst_box = max(worst_box, diff)
+        worst_score = max(worst_score, abs(float(left[i][1]) - float(row[1])))
+        left.pop(i)
+    return unmatched, worst_box, worst_score
+
+
+def eval_detect_kernels_vs_plain(dev, ckpt: str, ds) -> dict:
+    """``eval_fcos``'s detector (``build_system`` on ``ckpt``, its
+    convolutions back in float32, TF32 off) on the CLI's first batch of
+    ``ds``, with K2s/K2a and with their plain versions: the valid
+    detections must be the same ones with the same labels, their boxes
+    within ``FCOS_EVAL_BOX_TOL`` px. Returns the count and the largest box
+    and score differences."""
+    import argparse
+
+    import numpy as np
+    import torch
+    import torch.nn as nn
+
+    from handnet_tpu_torch.apps import eval_fcos
+    from handnet_tpu_torch.config import FCOSConfig
+    from handnet_tpu_torch.data.image_io import imread_color
+
+    cfg = FCOSConfig(num_classes=3, image_h=FCOS_APPS_IMAGE[0], image_w=FCOS_APPS_IMAGE[1],
+                     score_thresh=FCOS_APPS_EVAL_THRESH)
+    system = eval_fcos.build_system(argparse.Namespace(torch_checkpoint=ckpt), cfg, dev)
+    for m in system.modules():
+        if isinstance(m, nn.Conv2d):
+            m.to(dtype=torch.float32)
+    frames = np.stack([imread_color(ds.image_path(i))[:, :, ::-1].astype(np.float32) / 255.0
+                       for i in ds.image_index[:FCOS_APPS_EVAL_BATCH]])
+    images = torch.from_numpy(frames).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    det = {}
+    with torch.no_grad():
+        for on in (True, False):
+            for m in system.modules():
+                if hasattr(m, "use_kernel"):
+                    m.use_kernel = on
+            reset_launch_counts()
+            det[on] = {k: v.float().cpu() for k, v in system.detect(images).items()}
+            if launch_counts()["gn_apply"] != (GN_LAYERS_PER_CALL if on else 0):
+                raise AssertionError(f"eval detect: K2a launches {launch_counts()} with "
+                                     f"kernels {on}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    got, want = det[True], det[False]
+    valid = want["valid"].bool()
+    if not torch.equal(got["valid"], want["valid"]) or not torch.equal(
+            got["labels"][valid], want["labels"][valid]):
+        raise AssertionError("eval detect: kernels and plain keep other detections")
+    if not valid.any():
+        raise AssertionError("eval detect: no valid detection to compare")
+    box = (got["boxes"][valid] - want["boxes"][valid]).abs().max().item()
+    score = (got["scores"][valid] - want["scores"][valid]).abs().max().item()
+    if not box <= FCOS_EVAL_BOX_TOL:
+        raise AssertionError(f"eval detect: {int(valid.sum())} valid detections, boxes "
+                             f"{box} px apart (tol {FCOS_EVAL_BOX_TOL})")
+    return {"valid": int(valid.sum()), "box": box, "score": score}
+
+
+def phase_fcos_apps(dev, device_arg: str = "cuda") -> dict:
+    """The FCOS apps on the card through their entry points: the port's
+    synthetic DexYCB tree with colour and a VOC tree, the codec against
+    cv2, ``train_fcos.main`` at the recipe, ``train_fcos.main --voc-root``
+    with a GroupNorm backbone, ``eval_fcos.main`` with the first run's
+    weights, ``train_a2j.main --rgbd``; and K2s/K2a at the GroupNorm
+    backbone's shapes. Returns the launches per step and per call of each
+    path. ``device_arg`` is the apps' ``--device`` (a CPU rehearsal at tiny
+    sizes passes ``cpu``)."""
+    import contextlib
+    import glob
+    import io
+    import os
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps import eval_fcos, train_a2j, train_fcos
+    from handnet_tpu_torch.config import FCOSConfig
+    from handnet_tpu_torch.data.detect_data import DetectDataSource
+    from handnet_tpu_torch.data.dexycb import DexYCBDataset, refine_indices
+    from handnet_tpu_torch.data.synthetic import make_synthetic_dexycb
+    from handnet_tpu_torch.data.voc100doh import VOC100DOH, VOCDetectSource
+    from handnet_tpu_torch.nn.resnet import GroupNorm
+
+    paths = {}
+    shapes = gn_backbone_kernels(dev)
+    free_device_memory(dev)
+    with tempfile.TemporaryDirectory() as work:
+        root, voc = os.path.join(work, "tree"), os.path.join(work, "voc")
+        start = time.perf_counter()
+        make_synthetic_dexycb(root, n_sequences=FCOS_APPS_SEQUENCES, n_frames=4)
+        tree_s = time.perf_counter() - start
+        start = time.perf_counter()
+        n_voc = write_voc_tree(voc, root, SEED)
+        log("fcos_apps", f"synthetic tree ({FCOS_APPS_SEQUENCES} sequences x 4 frames, 480x640, "
+            f"colour JPEGs written by the port) in {tree_s:.2f} s; VOC tree of {n_voc} JPEGs "
+            f"(the tree's first {FCOS_APPS_VOC_PER_SIZE} frames at each of "
+            f"{FCOS_APPS_VOC_SIZES}, hand and object annotated) in "
+            f"{time.perf_counter() - start:.2f} s")
+        codec_checks(sorted(glob.glob(f"{root}/**/color_*.jpg", recursive=True))
+                     + sorted(glob.glob(f"{voc}/**/*.jpg", recursive=True)))
+
+        # train_fcos on the synthetic tree at the recipe, batch-norm backbone
+        out = os.path.join(work, "fcos")
+        reset_launch_counts()
+        res = train_fcos.main(["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES),
+                               "--epochs", str(FCOS_APPS_EPOCHS), "--batch", str(TRAIN_BATCH),
+                               "--workers", str(FCOS_APPS_WORKERS), "--backbone-norm", "batch",
+                               "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
+                               str(FCOS_APPS_IMAGE[1]), "--output", out, "--device", device_arg])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        steps = sum(e["steps"] for e in res["epochs"])
+        want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * steps,
+                "gn_apply": GN_LAYERS_PER_CALL * steps}
+        log_epochs("train_fcos", res)
+        losses = [e["losses"] for e in res["epochs"]]
+        if launches != want or not all(np.isfinite(list(l.values())).all() for l in losses):
+            raise AssertionError(f"train_fcos: launches {launches} over {steps} steps (expected "
+                                 f"{want}), losses {losses}")
+        log("fcos_apps", f"train_fcos: {res['samples']} samples, {steps} steps, launches "
+            f"{launches}: K2s/K2a {GN_LAYERS_PER_CALL} per step, nothing else; losses finite")
+        paths["train_fcos_app"] = per_call(launches, steps)
+        # the model, reference-keyed, its 23-class logits cut to eval_fcos's 3:
+        # background, YCB object 1 as "targetobject" and the hand (22) as "hand"
+        state_dict = {k: v.detach().float().cpu()
+                      for k, v in res["state"].model.state_dict().items()}
+        for k in ("head.classification_head.cls_logits.weight",
+                  "head.classification_head.cls_logits.bias"):
+            state_dict[k] = state_dict[k][[0, 1, 22]].clone()
+        ckpt = os.path.join(work, "fcos_synthetic.pth")
+        torch.save({"model": state_dict}, ckpt)
+        del res
+        free_device_memory(dev)
+        ds = DexYCBDataset("s0", "train", root)
+        fcos_loader_contention(dev, DetectDataSource(ds, refine_indices(ds), e2e=True,
+                                                     uint8_images=True),
+                               FCOSConfig(num_classes=23, image_h=FCOS_APPS_IMAGE[0],
+                                          image_w=FCOS_APPS_IMAGE[1]))
+        free_device_memory(dev)
+        cfg = FCOSConfig(num_classes=3, image_h=FCOS_APPS_IMAGE[0], image_w=FCOS_APPS_IMAGE[1])
+
+        # train_fcos --voc-root with a GroupNorm backbone: 36 more K2s/K2a a step
+        reset_launch_counts()
+        res = train_fcos.main(["--voc-root", voc, "--epochs", "1", "--batch", str(TRAIN_BATCH),
+                               "--workers", str(FCOS_APPS_WORKERS), "--backbone-norm", "group",
+                               "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
+                               str(FCOS_APPS_IMAGE[1]), "--output", os.path.join(work, "fcos_voc"),
+                               "--device", device_arg])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        steps = res["epochs"][0]["steps"]
+        per_step = GN_LAYERS_PER_CALL + BACKBONE_GN_LAYERS
+        want = {**{k: 0 for k in launches}, "gn_group_stats": per_step * steps,
+                "gn_apply": per_step * steps}
+        log_epochs("train_fcos --voc-root --backbone-norm group", res)
+        if launches != want or not np.isfinite(res["epochs"][0]["losses"]["total_loss"]):
+            raise AssertionError(f"train_fcos --voc-root: launches {launches} over {steps} steps "
+                                 f"(expected {want}), losses {res['epochs'][0]['losses']}")
+        paths["train_fcos_voc_group"] = per_call(launches, steps)
+        # the trained backbone's GroupNorms: kernels against plain versions on one batch
+        model = res["state"].model.eval()
+        body = model.backbone["body"]
+        gns = [m for m in body.modules() if isinstance(m, GroupNorm)]
+        src = VOCDetectSource(VOC100DOH(voc), target_size=(cfg.image_h, cfg.image_w))
+        images = torch.from_numpy(np.stack([src[i]["image"] for i in range(TRAIN_BATCH)])).to(dev)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        feats = {}
+        with torch.no_grad():
+            net = model.preprocess(images)[0].permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            for on in (True, False):
+                for m in gns:
+                    m.use_kernel = on
+                reset_launch_counts()
+                feats[on] = body(net)
+                counted = launch_counts()["gn_group_stats"]
+                if counted != (len(gns) if on else 0):
+                    raise AssertionError(f"backbone GN: {counted} K2s launches with kernels {on}")
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        errs = {k: ((feats[True][k] - feats[False][k]).abs().max()
+                    / feats[False][k].abs().max()).item() for k in feats[False]}
+        if len(gns) != BACKBONE_GN_LAYERS or not max(errs.values()) <= FCOS_BACKBONE_GN_TOL:
+            raise AssertionError(f"backbone GN kernels vs plain: {len(gns)} layers, {errs}")
+        log("fcos_apps", f"train_fcos --voc-root, GroupNorm backbone: {steps} steps, K2s/K2a "
+            f"{per_step} per step ({GN_LAYERS_PER_CALL} head + {BACKBONE_GN_LAYERS} backbone), "
+            f"nothing else; the trained backbone's {len(gns)} GroupNorms on one batch, f32 TF32 "
+            f"off, kernels vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" of each level's scale (tol {FCOS_BACKBONE_GN_TOL:g})")
+        del res, model, body, gns, feats, images, net
+        free_device_memory(dev)
+
+        # eval_fcos on the VOC tree with the synthetic run's weights: twice
+        # with kernels (launches, FPS), once with the plain GroupNorm (bf16:
+        # printed); then detect itself, kernels vs plain, in float32
+        args = ["--voc-root", voc, "--image-set", "trainval", "--torch-checkpoint", ckpt,
+                "--batch", str(FCOS_APPS_EVAL_BATCH), "--image-h", str(FCOS_APPS_IMAGE[0]),
+                "--image-w", str(FCOS_APPS_IMAGE[1]), "--score-thresh",
+                str(FCOS_APPS_EVAL_THRESH), "--device", device_arg]
+        calls = n_voc // FCOS_APPS_EVAL_BATCH
+        runs = []
+        for i in range(2):
+            text = io.StringIO()
+            reset_launch_counts()
+            with contextlib.redirect_stdout(text):
+                results = eval_fcos.main(args + ["--output", os.path.join(work, f"eval{i}")])
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            fps = float(re.search(r"FPS: ([0-9.]+)", text.getvalue()).group(1))
+            runs.append((results, fps))
+            want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * calls,
+                    "gn_apply": GN_LAYERS_PER_CALL * calls}
+            if launches != want or not all(np.isfinite(v) for v in results.values()):
+                raise AssertionError(f"eval_fcos: launches {launches} (expected {want}), "
+                                     f"results {results}")
+        paths["eval_fcos"] = per_call(launches, calls)
+        real_build = eval_fcos.build_system
+
+        def plain_build(*a, **k):
+            system = real_build(*a, **k)
+            for m in system.modules():
+                if hasattr(m, "use_kernel"):
+                    m.use_kernel = False
+            return system
+
+        with mock.patch.object(eval_fcos, "build_system", plain_build), \
+                contextlib.redirect_stdout(io.StringIO()):
+            plain = eval_fcos.main(args + ["--output", os.path.join(work, "eval_plain")])
+        # and with no checkpoint: the CLI's random weights (seed 0)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            random_results = eval_fcos.main([a for a in args if a not in ("--torch-checkpoint",
+                                                                          ckpt)]
+                                            + ["--output", os.path.join(work, "eval_random")])
+        if "WARNING: random detector weights" not in text.getvalue():
+            raise AssertionError("eval_fcos without a checkpoint: no random-weights warning")
+        rows, plain_rows = detection_rows(os.path.join(work, "eval0")), detection_rows(
+            os.path.join(work, "eval_plain"))
+        random_rows = detection_rows(os.path.join(work, "eval_random"))
+        # every row of both files has its 11 fields; the files together hold
+        # rows (a detector trained 16 steps may rank one class first everywhere)
+        fields = {len(r) for rs in (*rows.values(), *random_rows.values()) for r in rs}
+        if (fields - {11} or not any(rows.values())
+                or not all(np.isfinite(v) for v in random_results.values())):
+            raise AssertionError(f"eval_fcos: fields {fields}, rows "
+                                 f"{ {n: len(r) for n, r in rows.items()} }, with random "
+                                 f"weights { {n: len(r) for n, r in random_rows.items()} }")
+        compared = {name: matched_box_diff(rows[name], plain_rows[name]) for name in rows}
+        log("fcos_apps", f"eval_fcos over {n_voc} frames at batch {FCOS_APPS_EVAL_BATCH}: "
+            f"{ {n: len(r) for n, r in rows.items()} } 11-field rows; AP "
+            + ", ".join(f"{k} {v:.4f}" for k, v in runs[-1][0].items())
+            + f" (finite); FPS {runs[0][1]:.2f} and {runs[1][1]:.2f} (detect between CUDA "
+            f"events); K2s/K2a {GN_LAYERS_PER_CALL} per call, nothing else. The CLI with the "
+            f"plain GroupNorm (bf16): rows { {n: len(r) for n, r in plain_rows.items()} }, "
+            "against the kernels' (unmatched rows, max box diff px, max score diff): "
+            + ", ".join(f"{n.split('_')[-1][:-4]} {c[0]}, {c[1]:.3e}, {c[2]:.3e}"
+                        for n, c in compared.items()) + f"; AP {plain}. Without a checkpoint "
+            f"(random weights): rows { {n: len(r) for n, r in random_rows.items()} }, every "
+            "row 11 fields, AP finite")
+        frame_diff = eval_detect_kernels_vs_plain(dev, ckpt, VOC100DOH(voc, "trainval"))
+        log("fcos_apps", "eval_fcos's detect on its first batch in float32 (TF32 off), "
+            f"kernels vs the plain GroupNorm: {frame_diff['valid']} valid detections, the same "
+            f"ones, labels equal; boxes max |diff| {frame_diff['box']:.3e} px (tol "
+            f"{FCOS_EVAL_BOX_TOL:g}), scores {frame_diff['score']:.3e}")
+        free_device_memory(dev)
+
+        # train_a2j --rgbd on the colour tree: one epoch at the recipe
+        reset_launch_counts()
+        res = train_a2j.main(["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES),
+                              "--rgbd", "--crop", str(A2J_APPS_CROP), "--batch",
+                              str(A2J_TRAIN_BATCH), "--epochs", "1", "--eval-every", "1",
+                              "--workers", str(A2J_APPS_WORKERS), "--output",
+                              os.path.join(work, "a2j_rgbd"), "--device", device_arg])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        sweep = res["evals"][-1]
+        n_test, batches = sweep["samples"], sweep["batches"]
+        want = {**{k: 0 for k in launches},
+                "a2j_decode": math.ceil(n_test / A2J_TRAIN_BATCH)}
+        if (launches != want or batches != want["a2j_decode"]
+                or not np.isfinite(res["epochs"][0]["losses"]["total_loss"])
+                or res["state"].model.cfg.in_channels != 4):
+            raise AssertionError(f"train_a2j --rgbd: launches {launches} (expected {want}), "
+                                 f"losses {res['epochs'][0]['losses']}")
+        e = res["epochs"][0]
+        log("fcos_apps", f"train_a2j --rgbd: {e['steps']} steps of batch {A2J_TRAIN_BATCH} "
+            f"(4-channel crops, BGR + depth), {e['ms_per_step']:.3f} ms per step, "
+            f"{e['samples_per_s']:.1f} samples/s, {100 * e['loader_wait_share']:.2f}% waiting "
+            f"on the loader, mean loss {e['losses']['total_loss']:.4f} (finite); eval sweep of "
+            f"{n_test} samples: K1 {launches['a2j_decode']} = ceil({n_test} / "
+            f"{A2J_TRAIN_BATCH}), nothing else")
+        paths["train_a2j_rgbd_eval"] = per_call(launches, batches)
+        del res
+    free_device_memory(dev)
+    return {"paths": paths, "shapes": shapes}
+
+
 def host_decoders() -> str:
     """What the host could decode images with: the versions of ``cv2``, PIL
     and ``yaml`` (or ``absent``), whether ``g++`` is on the PATH, and the
@@ -3330,6 +3970,15 @@ def host_decoders() -> str:
             found.append(f"{label} {importlib.import_module(module).__version__}")
         except ImportError:
             found.append(f"{label} absent")
+    try:
+        import cv2
+
+        jpeg = next((line.split(":", 1)[1].strip()
+                     for line in cv2.getBuildInformation().splitlines()
+                     if line.strip().startswith("JPEG:")), "not listed")
+        found.append(f"cv2's JPEG: {jpeg}")
+    except ImportError:
+        found.append("cv2's JPEG: absent")
     gxx = shutil.which("g++")
     nvjpeg = sorted({p.rsplit("/", 1)[-1] for p in
                      glob.glob("/usr/local/cuda/**/libnvjpeg.so*", recursive=True)})
@@ -3439,6 +4088,12 @@ def main() -> int:
     # the A2J apps through their entry points
     by_path.update(phase_a2j_apps(dev))
     lap("a2j_apps")
+    # the FCOS apps and train_a2j --rgbd through their entry points
+    fcos_apps = phase_fcos_apps(dev)
+    by_path.update(fcos_apps["paths"])
+    for name, shapes in fcos_apps["shapes"].items():
+        results[name]["backbone_shapes"] = shapes
+    lap("fcos_apps")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

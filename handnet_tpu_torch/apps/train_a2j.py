@@ -18,8 +18,9 @@ eval sweep runs ``A2JTrainer.eval_step`` on every test batch (the last one
 partial), which decodes through kernel K1 on the card, then
 ``convert_joints`` on the device, and writes the result file.
 
-``--rgbd`` (the 4-channel variant) needs the JPEG colour frames and raises
-``NotImplementedError`` (ROADMAP 11d.b).
+``--rgbd`` trains the 4-channel variant (``A2JConfig(in_channels=4)``) on
+the colour crop beside the depth crop. As in the JAX package, the colour
+channels are the decoder's BGR order, not RGB (``data/a2j_data.py``).
 
 Usage:
   python -m handnet_tpu_torch.apps.train_a2j --data-dir $DEX_YCB_DIR
@@ -48,8 +49,12 @@ from handnet_tpu_torch.train.trainer import A2JTrainer, resolve_device
 from handnet_tpu_torch.utils.meters import AverageMeters
 from handnet_tpu_torch.utils.monitoring import Monitor
 
-# the batch entries that go to the device, by the trainer's names
-_TO_DEVICE = {"image": "depth", "jt_uvd": "jt_uvd", "box": "box", "paras": "paras"}
+
+def device_keys(rgbd: bool) -> Dict[str, str]:
+    """The batch entries that go to the device, by the trainer's names: the
+    image is the depth crop, or the 4-channel ``rgbd`` one."""
+    return {"image": "rgbd" if rgbd else "depth", "jt_uvd": "jt_uvd", "box": "box",
+            "paras": "paras"}
 
 
 def build_sources(args):
@@ -73,27 +78,30 @@ def build_sources(args):
     test_idx = refine_indices(
         test_ds, cache_path=os.path.join(cache, "refined_test_idx.pkl"))
     cfg = A2JSampleConfig(crop_w=args.crop, crop_h=args.crop)
-    return (A2JDataSource(train_ds, train_idx, augment=True, cfg=cfg),
-            A2JDataSource(test_ds, test_idx, augment=False, cfg=cfg),
+    return (A2JDataSource(train_ds, train_idx, augment=True, cfg=cfg, with_color=args.rgbd),
+            A2JDataSource(test_ds, test_idx, augment=False, cfg=cfg, with_color=args.rgbd),
             test_ds)
 
 
-def pinned(device: torch.device):
+def pinned(device: torch.device, rgbd: bool = False):
     """The loader's ``device_put``: the batch's device entries as torch
     tensors, in pinned memory when ``device`` is a card."""
+    keys = device_keys(rgbd).values()
+
     def put(batch: Dict[str, np.ndarray]) -> Dict:
         out = dict(batch)
-        for key in _TO_DEVICE.values():
+        for key in keys:
             t = torch.from_numpy(np.ascontiguousarray(batch[key]))
             out[key] = t.pin_memory() if device.type == "cuda" else t
         return out
     return put
 
 
-def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+def to_device(batch: Dict, device: torch.device, rgbd: bool = False) -> Dict[str, torch.Tensor]:
     """``{"image", "jt_uvd", "box", "paras"}`` on ``device`` (a copy that
     does not block the host from pinned memory)."""
-    return {name: batch[key].to(device, non_blocking=True) for name, key in _TO_DEVICE.items()}
+    return {name: batch[key].to(device, non_blocking=True)
+            for name, key in device_keys(rgbd).items()}
 
 
 def parse_args(argv=None):
@@ -110,8 +118,7 @@ def parse_args(argv=None):
                         help="use N synthetic sequences (smoke runs)")
     parser.add_argument("--eval-every", type=int, default=5)
     parser.add_argument("--rgbd", action="store_true",
-                        help="the 4-channel RGBD variant (a2j/a2j.py:216 is_RGBD): "
-                             "not ported yet")
+                        help="the 4-channel RGBD variant (a2j/a2j.py:216 is_RGBD)")
     parser.add_argument("--bf16", action="store_true", default=True)
     parser.add_argument("--no-bf16", dest="bf16", action="store_false")
     parser.add_argument("--device", default=None,
@@ -126,9 +133,6 @@ def main(argv=None) -> dict:
     result file, HPE numbers and batch count (``evals``), the params and
     batch-stats npz paths and the trained ``state``."""
     args = parse_args(argv)
-    if args.rgbd:
-        raise NotImplementedError("train_a2j --rgbd: the colour frames are JPEG, and the port "
-                                  "has no JPEG reader yet (ROADMAP 11d.b)")
     device = resolve_device("train_a2j", args.device)
 
     os.makedirs(args.output, exist_ok=True)
@@ -137,10 +141,11 @@ def main(argv=None) -> dict:
 
     batch = args.batch
     loader = PrefetchLoader(train_src, batch, shuffle=True,
-                            num_workers=args.workers, device_put=pinned(device))
+                            num_workers=args.workers, device_put=pinned(device, args.rgbd))
     steps_per_epoch = max(len(loader), 1)
 
-    model_cfg = A2JConfig(crop_h=args.crop, crop_w=args.crop)
+    model_cfg = A2JConfig(crop_h=args.crop, crop_w=args.crop,
+                          in_channels=4 if args.rgbd else 1)
     train_cfg = TrainConfig(batch_size=batch, lr=args.lr, bf16=args.bf16,
                             epochs=args.epochs)
     trainer = A2JTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
@@ -169,7 +174,7 @@ def main(argv=None) -> dict:
             waited += time.perf_counter() - w0
             if batch_np is None:
                 break
-            state, metrics = trainer.train_step(state, to_device(batch_np, device))
+            state, metrics = trainer.train_step(state, to_device(batch_np, device, args.rgbd))
             step_metrics.append(metrics)
         for metrics in step_metrics:   # the one wait for the card in the epoch
             meters.update({k: float(v) for k, v in metrics.items()})
@@ -208,12 +213,12 @@ def evaluate(trainer, state, test_src, test_ds, args, epoch, monitor) -> dict:
     device = trainer.device
     loader = PrefetchLoader(test_src, trainer.train_cfg.batch_size,
                             shuffle=False, num_workers=args.workers,
-                            drop_last=False, device_put=pinned(device))
+                            drop_last=False, device_put=pinned(device, args.rgbd))
     res_lines = []
     rmses = []
     n_batches = 0
     for batch_np in loader:
-        batch = to_device(batch_np, device)
+        batch = to_device(batch_np, device, args.rgbd)
         pred, rmse = trainer.eval_step(state, batch)
         rmses.append(rmse)
         xyz = convert_joints(pred, batch["box"], batch["paras"], args.crop, args.crop)

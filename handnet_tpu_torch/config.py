@@ -196,14 +196,14 @@ def _replace_recursive(cfg: Any, overrides: Dict[str, Any]) -> Any:
 def load_config(overrides: Optional[Dict[str, Any]] = None,
                 yaml_path: Optional[str] = None) -> HandNetConfig:
     """Build a config, optionally merged from a YAML file and/or a dict
-    (``load_config(overrides=FAST)`` is the fast profile without YAML)."""
+    (``load_config(overrides=FAST)`` is the fast profile without YAML). The
+    file is read by ``data/yaml_lite.py``, the port's reader of the YAML
+    subset its files use, not by pyyaml."""
     cfg = HandNetConfig()
     if yaml_path is not None:
-        import yaml  # lazy: only this branch needs pyyaml
+        from handnet_tpu_torch.data import yaml_lite
 
-        with open(yaml_path) as f:
-            file_overrides = yaml.safe_load(f) or {}
-        cfg = _replace_recursive(cfg, file_overrides)
+        cfg = _replace_recursive(cfg, yaml_lite.load(yaml_path) or {})
     if overrides:
         cfg = _replace_recursive(cfg, overrides)
     return cfg

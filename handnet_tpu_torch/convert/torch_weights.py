@@ -8,11 +8,13 @@ unwraps as ``handnet_tpu/convert/torch_weights.py:316-329`` does (a
 :func:`a2j_state_dict` keeps the entries that the port's ``A2J`` holds,
 leaving out what ``convert_a2j`` leaves out (the backbone's unused ``fc``
 classifier, the ``criterion.``/``post_process.`` buffers and BatchNorm's
-``num_batches_tracked``).
+``num_batches_tracked``); :func:`fcos_state_dict` does the same for a
+reference FCOS.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import torch
@@ -37,3 +39,14 @@ def a2j_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tenso
     return {k: v for k, v in state_dict.items()
             if not (k.startswith(("Backbone.model.fc.", "criterion.", "post_process."))
                     or k.endswith(".num_batches_tracked"))}
+
+
+def fcos_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference FCOS state dict, as the port's ``FCOS`` loads it with
+    ``load_state_dict(strict=True)``: BatchNorm's ``num_batches_tracked``
+    dropped, and the FPN's ``inner_blocks.{i}.0.*``/``layer_blocks.{i}.0.*``
+    (torchvision's newer names, which ``convert_fcos`` also reads) as
+    ``inner_blocks.{i}.*``/``layer_blocks.{i}.*``."""
+    return {re.sub(r"^backbone\.fpn\.(inner|layer)_blocks\.(\d+)\.0\.",
+                   r"backbone.fpn.\1_blocks.\2.", k): v
+            for k, v in state_dict.items() if not k.endswith(".num_batches_tracked")}

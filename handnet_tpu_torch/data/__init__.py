@@ -1,6 +1,8 @@
-"""Host-side data of the port: ``image_io`` (16-bit PNG read/write),
-``yaml_lite`` (DexYCB's YAML subset), ``rle`` (COCO RLE masks), ``dexycb``
-(the dataset reader), ``synthetic`` (the synthetic DexYCB tree),
-``a2j_data`` (A2J samples) and ``loader`` (``PrefetchLoader``). None of them
-imports ``cv2``, ``yaml`` or PIL. Import submodules directly; nothing is
-loaded here."""
+"""Host-side data of the port: ``image_io`` (16-bit PNG read/write, colour
+JPEG through ``jpeg``, cv2's bilinear resize), ``jpeg`` (the baseline JPEG
+codec), ``yaml_lite`` (DexYCB's YAML subset), ``rle`` (COCO RLE masks),
+``dexycb`` (the dataset reader), ``synthetic`` (the synthetic DexYCB tree),
+``a2j_data`` (A2J samples), ``detect_data`` (DexYCB detection targets),
+``voc100doh`` (100DOH in VOC layout) and ``loader`` (``PrefetchLoader``).
+None of them imports ``cv2``, ``yaml`` or PIL. Import submodules directly;
+nothing is loaded here."""

@@ -237,17 +237,15 @@ class A2JDataSource:
 
     Mirrors A2JDataset (a2jdataset.py:42-303) minus the torch plumbing:
     refined indices in, fixed-shape numpy dicts out; broken samples resample
-    a random index (:295-303). ``with_color=True`` (RGB-D) needs a JPEG
-    reader and raises ``NotImplementedError`` (ROADMAP 11d.b).
+    a random index (:295-303). ``with_color=True`` (RGB-D) adds the colour
+    crop (``color``, and ``rgbd`` = colour then depth) from the frame as
+    ``imread_color`` decodes it: BGR, as the JAX package's ``cv2.imread``
+    gives it, with no flip to RGB (its detector data flips; this does not).
     """
 
     def __init__(self, dataset, refined_idx, augment: bool,
                  cfg: A2JSampleConfig = A2JSampleConfig(), seed: int = 0,
                  with_color: bool = False):
-        if with_color:
-            raise NotImplementedError(
-                "A2JDataSource(with_color=True): the colour frames are JPEG, and the port "
-                "has no JPEG reader yet (ROADMAP 11d.b)")
         self.dataset = dataset
         self.refined_idx = list(refined_idx)
         self.augment = augment
@@ -269,8 +267,10 @@ class A2JDataSource:
         j3d = label["joint_3d"].reshape(21, 3)
         if np.all(j3d == -1):
             return None
+        color = (image_io.imread_color(sample["color_file"])
+                 if self.with_color else None)
         paras = paras_from_intrinsics(sample["intrinsics"])
-        out = build_a2j_sample(depth, label["seg"], j3d, paras,
+        out = build_a2j_sample(depth, label["seg"], j3d, paras, color=color,
                                augment=self.augment, rng=self._rng,
                                cfg=self.cfg)
         if out is not None:

@@ -1,4 +1,8 @@
-"""The port's PNG reader and writer: non-interlaced greyscale at 8 and 16 bits.
+"""The port's image I/O: greyscale PNG (DexYCB's depth), colour JPEG
+(:func:`imread_color`, :func:`imwrite_jpeg` through ``data/jpeg.py``) and
+``cv2``'s fixed-point bilinear resize (:func:`resize_linear_u8`).
+
+PNG: non-interlaced greyscale at 8 and 16 bits.
 
 DexYCB's depth frames are 16-bit greyscale PNGs (millimetres, big-endian
 samples). :func:`read_png` returns the array that ``cv2.imread(path,
@@ -242,3 +246,112 @@ def encode_png(image: np.ndarray, filter_type=1) -> bytes:
 def write_png(path, image: np.ndarray, filter_type=1) -> None:
     """Write ``image`` (``uint16`` or ``uint8``, 2-D) as a greyscale PNG."""
     Path(path).write_bytes(encode_png(image, filter_type))
+
+
+# ---------------------------------------------------------------------------
+# Colour frames: JPEG (data/jpeg.py) and cv2's fixed-point bilinear resize.
+
+def imread_color(path) -> np.ndarray:
+    """The colour frame at ``path`` as ``cv2.imread(path)`` returns it:
+    ``uint8 [H, W, 3]`` in BGR order (callers flip to RGB themselves, as
+    the JAX package does with ``[:, :, ::-1]``). JPEG only, through
+    ``data/jpeg.py``; a missing file raises ``FileNotFoundError``."""
+    from handnet_tpu_torch.data import jpeg
+
+    return jpeg.read_jpeg(path)
+
+
+def imwrite_jpeg(path, image: np.ndarray, quality: int = 95) -> None:
+    """Write ``uint8 [H, W, 3]`` BGR as ``cv2.imwrite`` does for a ``.jpg``
+    path (quality 95, 4:2:0)."""
+    from handnet_tpu_torch.data import jpeg
+
+    jpeg.write_jpeg(path, image, quality)
+
+
+def _linear_taps(src: int, dst: int):
+    """OpenCV's per-output source index and 11-bit weight pair along one
+    axis (``resize.cpp``: ``f = (float)((d + 0.5) * scale - 0.5)``, ``s =
+    floor(f)``, weights ``saturate_cast<short>((1 - f, f) * 2048)``). An
+    index left of 0 or right of ``src - 1`` is pinned there with ``f = 0``
+    (the horizontal pass does so; the vertical one pins only the rows, so
+    its weights keep ``f``)."""
+    scale = 1.0 / (dst / src)
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    return s, f
+
+
+def _weights(f: np.ndarray) -> np.ndarray:
+    """``[n, 2]`` int32 ``saturate_cast<short>(cbuf * 2048)`` (round half to
+    even, in float32)."""
+    one = np.float32(1.0)
+    w = np.stack([(one - f) * np.float32(2048), f * np.float32(2048)], axis=1)
+    return np.rint(w).astype(np.int32)
+
+
+def resize_linear_u8(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(image, (width, height))`` (INTER_LINEAR) of ``uint8
+    [H, W]`` or ``[H, W, C]``, in OpenCV's fixed point.
+
+    * the same size is a copy; a halving of both sides is INTER_AREA's
+      2x2 mean, ``(a + b + c + d + 2) >> 2``, as OpenCV switches to it;
+    * otherwise a horizontal pass of 11-bit weights into int32
+      (``HResizeLinear``: ``S[x] * a0 + S[x + 1] * a1``), then a vertical
+      one with the rounding of OpenCV's vector loop
+      (``VResizeLinearVec_32s8u``): ``(((S0 >> 4) * b0 >> 16) + ((S1 >>
+      4) * b1 >> 16) + 2) >> 2`` for every byte of a row. (Its scalar
+      loop, ``FixedPtCast<int, uchar, 22>``, would round ``(S0 * b0 + S1 *
+      b1 + 2^21) >> 22``, which differs by 1 now and then; neither cv2 5.0
+      nor cv2 4.13 takes it for a row's last bytes.)
+    """
+    image = np.asarray(image)
+    if image.dtype != np.uint8 or image.ndim not in (2, 3):
+        raise ValueError(f"resize_linear_u8: uint8 [H, W] or [H, W, C], got {image.dtype} "
+                         f"{image.shape}")
+    squeeze = image.ndim == 2
+    src = image[:, :, None] if squeeze else image
+    sh, sw, cn = src.shape
+    if width < 1 or height < 1:
+        raise ValueError(f"resize_linear_u8: output size {width}x{height}")
+    if (sh, sw) == (height, width):
+        out = src.copy()
+    elif sw == 2 * width and sh == 2 * height:
+        s = src.astype(np.int32)
+        out = ((s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2] + 2) >> 2
+               ).astype(np.uint8)
+    else:
+        sx, fx = _linear_taps(sw, width)
+        left = sx < 0
+        fx[left], sx[left] = 0, 0
+        right = sx >= sw - 1
+        fx[right], sx[right] = 0, sw - 1
+        alpha = _weights(fx)
+        sx1 = np.minimum(sx + 1, sw - 1)
+        sy, fy = _linear_taps(sh, height)
+        beta = _weights(fy)
+        r0 = np.clip(sy, 0, sh - 1)
+        r1 = np.clip(sy + 1, 0, sh - 1)
+        # the horizontal pass over the source rows the output reads (int32:
+        # at most 255 * 2048 per value, and a vertical sum below 2^31)
+        rows = np.unique(np.concatenate([r0, r1]))
+        s = src[rows].astype(np.int32)
+        hbuf = s[:, sx] * alpha[None, :, 0, None]
+        hbuf += s[:, sx1] * alpha[None, :, 1, None]
+        hbuf = hbuf.reshape(len(rows), -1)
+        s0 = hbuf[np.searchsorted(rows, r0)]
+        s1 = hbuf[np.searchsorted(rows, r1)]
+        b0, b1 = beta[:, :1], beta[:, 1:]
+        v0, v1 = s0, s1
+        v0 >>= 4
+        v0 *= b0
+        v0 >>= 16
+        v1 >>= 4
+        v1 *= b1
+        v1 >>= 16
+        v0 += v1
+        v0 += 2
+        v0 >>= 2
+        out = np.clip(v0, 0, 255).astype(np.uint8).reshape(height, width, cn)
+    return out[:, :, 0] if squeeze else out

@@ -1,17 +1,18 @@
 """Synthetic DexYCB-format fixture generator, without ``cv2`` or ``yaml``.
 
 The port's copy of ``handnet_tpu/data/synthetic.py``: a miniature dataset
-tree in the real DexYCB layout (dex_ycb.py:94-290: 16-bit depth png /
-labels npz / calibration yml / meta.yml) with a procedurally placed square
-"hand" whose 3D joints project consistently through the synthetic
-intrinsics. Depth PNGs go through ``data/image_io.py`` and YAML through
+tree in the real DexYCB layout (dex_ycb.py:94-290: colour jpg / 16-bit
+depth png / labels npz / calibration yml / meta.yml) with a procedurally
+placed square "hand" whose 3D joints project consistently through the
+synthetic intrinsics. Colour frames go through ``data/image_io.py``'s
+``resize_linear_u8`` and ``imwrite_jpeg`` (``cv2.resize`` and
+``cv2.imwrite`` there), depth PNGs through ``write_png`` and YAML through
 ``data/yaml_lite.py``.
 
-It makes every random draw the JAX writer makes, in its order, the colour
-frame's included, so at one seed the depth, the labels, the YAML contents
-and the returned info dict equal the JAX tree's. It writes no
-``color_*.jpg``: there is no JPEG encoder without ``cv2``. The colour
-frames (and RGB-D training) wait for the JPEG reader (ROADMAP 11d.b).
+It makes every random draw the JAX writer makes, in its order, so at one
+seed the depth, the labels, the YAML contents, the returned info dict and
+the colour frames' pixels equal the JAX tree's (the JPEG files are
+byte-equal where the JAX writer's ``cv2`` resizes as OpenCV 5.0 does).
 """
 
 from __future__ import annotations
@@ -47,9 +48,8 @@ def make_synthetic_dexycb(root: str, n_sequences: int = 2,
     Returns dict with ground-truth bookkeeping per (seq, frame):
     hand box, joints_3d (m), paras, depth_z.
 
-    ``difficulty="hard"``: hands of 28-48 px and 3-5 clutter rectangles at
-    other depths (the JAX writer's hand-coloured clutter; only its depth is
-    written here).
+    ``difficulty="hard"``: hands of 28-48 px, a hand colour that varies per
+    frame, and 3-5 hand-coloured clutter rectangles at other depths.
     """
     if difficulty not in ("easy", "hard"):
         raise ValueError(f"difficulty must be easy|hard, got {difficulty!r}")
@@ -93,21 +93,29 @@ def make_synthetic_dexycb(root: str, n_sequences: int = 2,
             depth_mm[seg == 255] = int(z * 1000)
             depth_mm[seg == 1] = 1500
 
-            # the colour frame's draws (its coarse background and noise, the
-            # hard hand's colour), made and dropped: the frame is not written
-            rng.integers(40, 215, size=(h // 40, w // 40, 3))
-            rng.integers(-12, 13, size=(h, w, 3))
+            # low-frequency background (upsampled coarse noise), then
+            # per-pixel noise
+            coarse = rng.integers(40, 215, size=(h // 40, w // 40, 3))
+            color = image_io.resize_linear_u8(coarse.astype(np.uint8), w, h)
+            color = np.clip(color.astype(np.int16) + rng.integers(
+                -12, 13, size=(h, w, 3)), 0, 255).astype(np.uint8)
+            hand_color = (
+                tuple(int(c) for c in rng.integers(-25, 26, size=3)
+                      + np.array([200, 170, 150])) if hard
+                else (200, 170, 150))
             if hard:
-                rng.integers(-25, 26, size=3)
-                # clutter rectangles at non-hand depths
+                # hand-coloured clutter at non-hand depths
                 for _ in range(int(rng.integers(3, 6))):
                     cw = int(rng.integers(20, 60))
                     cu = int(rng.integers(0, w - cw))
                     cv = int(rng.integers(0, h - cw))
                     patch = (seg[cv:cv + cw, cu:cu + cw] == 0)
-                    rng.integers(-20, 21, size=3)   # the clutter's colour jitter
+                    jitter = rng.integers(-20, 21, size=3)
+                    color[cv:cv + cw, cu:cu + cw][patch] = np.clip(
+                        np.array(hand_color) + jitter, 0, 255)
                     dpatch = depth_mm[cv:cv + cw, cu:cu + cw]
                     dpatch[patch] = int(rng.uniform(1.0, 1.8) * 1000)
+            color[seg == 255] = hand_color
 
             # 21 joints uniformly inside the hand square, consistent 3D;
             # each stamps a shallow joint-specific depth bump so the pose is
@@ -118,10 +126,13 @@ def make_synthetic_dexycb(root: str, n_sequences: int = 2,
                 uu, vv = int(ju[j]), int(jv[j])
                 bump = int(z * 1000) - 5 - j
                 depth_mm[max(vv - 2, 0):vv + 3, max(uu - 2, 0):uu + 3] = bump
+                color[max(vv - 2, 0):vv + 3, max(uu - 2, 0):uu + 3] = (
+                    10 * j + 20, 255 - 10 * j, 128)
             joint_3d = np.stack([(ju - cx) * z / fx, (jv - cy) * z / fy,
                                  np.full(21, z)], axis=1)
             joint_2d = np.stack([ju, jv], axis=1)
 
+            image_io.imwrite_jpeg(os.path.join(cam_dir, f"color_{fidx:06d}.jpg"), color)
             image_io.write_png(os.path.join(
                 cam_dir, f"aligned_depth_to_color_{fidx:06d}.png"), depth_mm)
             pose_m = np.zeros((1, 51), np.float32)

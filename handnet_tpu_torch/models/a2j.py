@@ -66,6 +66,10 @@ class A2J(nn.Module):
             raise NotImplementedError(
                 f"A2J: backbone {cfg.backbone!r}, is_3d={cfg.is_3d} (only the 3D "
                 "ResNet-50 model is ported; the 2D A2J has no depth head)")
+        if norm == "group":
+            # the GroupNorm option is the detector backbone's (train_fcos
+            # --backbone-norm); no JAX app trains A2J with it
+            raise NotImplementedError("A2J: norm 'group' is not ported (frozen or batch)")
         self.cfg = cfg
         stem_in = 3 if cfg.in_channels == 1 else cfg.in_channels
         body = resnet50_dilated(in_channels=stem_in, quant=cfg.quant, norm=norm)

@@ -17,7 +17,9 @@ towers as one grouped-conv tower. ``preprocess`` resizes frames of another
 size than the network input (``ops/resize.py``). ``backbone_norm`` is the
 backbone's norm (``nn/resnet.py`` ``make_norm``): ``"frozen"`` serves and
 fine-tunes, ``"batch"`` trains from scratch, its statistics taken from
-the batch in ``module.train()`` mode.
+the batch in ``module.train()`` mode, and ``"group"`` (GroupNorm(32),
+the same in train and eval) runs through K2s and K2a as the head's
+GroupNorms do, ``use_kernels`` switching both.
 """
 
 from __future__ import annotations
@@ -32,44 +34,12 @@ import torch.nn.functional as F
 from handnet_tpu_torch.config import FCOSConfig
 from handnet_tpu_torch.nn.fpn import FPN
 from handnet_tpu_torch.nn.quant import conv_layer
-from handnet_tpu_torch.nn.resnet import init_conv_weights_, resnet34
+from handnet_tpu_torch.nn.resnet import GroupNorm, group_norm_nchw, init_conv_weights_, resnet34
 from handnet_tpu_torch.ops.anchors import fcos_anchor_pyramid
 from handnet_tpu_torch.ops.boxes import giou_loss, linear_decode, linear_encode
-from handnet_tpu_torch.ops.cuda_gn import group_norm
 from handnet_tpu_torch.ops.focal import bce_with_logits, sigmoid_focal_loss
 from handnet_tpu_torch.ops.nms import batched_nms_fixed
 from handnet_tpu_torch.ops.resize import resize_bilinear_matmul
-
-
-class GroupNorm(nn.Module):
-    """GroupNorm of an NCHW (channels_last) tensor, with the ReLU that follows
-    it when ``relu`` is set: kernels K2s and K2a (``ops/cuda_gn.py``), two
-    launches; ``use_kernel=False`` takes their plain versions instead.
-    Parameters are named like ``torch.nn.GroupNorm``'s."""
-
-    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
-                 relu: bool = False, use_kernel: bool = True):
-        super().__init__()
-        self.num_groups = num_groups
-        self.eps = eps
-        self.relu = relu
-        self.use_kernel = use_kernel
-        self.weight = nn.Parameter(torch.ones(num_channels))
-        self.bias = nn.Parameter(torch.zeros(num_channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _group_norm_nchw(x, self.weight, self.bias, self.num_groups, self.eps,
-                                self.relu, self.use_kernel)
-
-
-def _group_norm_nchw(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                     num_groups: int, eps: float, relu: bool,
-                     use_kernel: bool) -> torch.Tensor:
-    """``group_norm`` of an NCHW tensor through the NHWC view of its
-    channels_last bytes, which is what the kernels read."""
-    nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    y = group_norm(nhwc, scale, bias, num_groups, eps, relu=relu, use_kernel=use_kernel)
-    return y.permute(0, 3, 1, 2)
 
 
 class ConvTower(nn.Sequential):
@@ -156,8 +126,8 @@ class FCOSHead(nn.Module):
         for i, (weight, bias, scale, gbias, gn) in enumerate(layers):
             x = F.conv2d(x, weight, bias, padding=1, groups=1 if i == 0 else 2)
             # 2 x 32 groups of C/32 channels: the two towers' GroupNorms
-            x = _group_norm_nchw(x, scale, gbias, 2 * gn.num_groups, gn.eps, True,
-                                 gn.use_kernel)
+            x = group_norm_nchw(x, scale, gbias, 2 * gn.num_groups, gn.eps, True,
+                                gn.use_kernel)
         c = x.shape[1] // 2
         return x[:, :c], x[:, c:]
 
@@ -202,7 +172,8 @@ class FCOS(nn.Module):
             raise NotImplementedError(f"FCOS: backbone {cfg.backbone!r}")
         self.cfg = cfg
         self.backbone = nn.ModuleDict({
-            "body": resnet34(quant=cfg.quant, s2d_stem=cfg.s2d_stem, norm=backbone_norm),
+            "body": resnet34(quant=cfg.quant, s2d_stem=cfg.s2d_stem, norm=backbone_norm,
+                             use_kernels=use_kernels),
             "fpn": FPN((128, 256, 512), cfg.fpn_channels, quant=cfg.quant),
         })
         self.head = FCOSHead(cfg, use_kernels)

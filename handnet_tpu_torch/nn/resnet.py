@@ -6,9 +6,12 @@ torchvision (``conv1``, ``bn1``, ``layer{L}.{B}.conv{N}``,
 ``...downsample.{0,1}``), the names the JAX package's converters read.
 
 ``norm`` picks the norm layers as ``make_norm`` does there: ``"frozen"``
-(the default; fixed statistics, trainable affine) or ``"batch"`` (flax's
-trainable BatchNorm). Both hold ``weight``, ``bias``, ``running_mean`` and
-``running_var``, so the state dict is the same either way.
+(the default; fixed statistics, trainable affine), ``"batch"`` (flax's
+trainable BatchNorm) or ``"group"`` (flax's ``GroupNorm(32)``, eps 1e-6,
+through kernels K2s and K2a on the card, the ReLU fused into K2a where one
+follows directly). The two batch norms hold ``weight``, ``bias``,
+``running_mean`` and ``running_var``; a GroupNorm holds ``weight`` and
+``bias`` alone.
 
 Tensors are NCHW in ``torch.channels_last`` memory: the same bytes as the JAX
 package's NHWC, and the layout in which cuDNN runs bf16 convolutions.
@@ -21,14 +24,16 @@ plain or by space-to-depth (:class:`StemConv`).
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from handnet_tpu_torch.nn.quant import conv_layer
+from handnet_tpu_torch.ops.cuda_gn import group_norm
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -97,18 +102,61 @@ class BatchNorm2d(nn.Module):
         return y.to(x.dtype)
 
 
+def group_norm_nchw(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int, eps: float, relu: bool,
+                    use_kernel: bool) -> torch.Tensor:
+    """``group_norm`` of an NCHW tensor through the NHWC view of its
+    channels_last bytes, which is what the kernels read."""
+    nhwc = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    y = group_norm(nhwc, scale, bias, num_groups, eps, relu=relu, use_kernel=use_kernel)
+    return y.permute(0, 3, 1, 2)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm of an NCHW (channels_last) tensor, with the ReLU that follows
+    it when ``relu`` is set (or ``forward``'s ``relu`` says so): kernels K2s
+    and K2a (``ops/cuda_gn.py``), two launches; ``use_kernel=False`` takes
+    their plain versions instead. Parameters are named like
+    ``torch.nn.GroupNorm``'s. There are no running statistics: train and
+    eval normalize alike."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 relu: bool = False, use_kernel: bool = True):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.relu = relu
+        self.use_kernel = use_kernel
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor, relu: Optional[bool] = None) -> torch.Tensor:
+        return group_norm_nchw(x, self.weight, self.bias, self.num_groups, self.eps,
+                               self.relu if relu is None else relu, self.use_kernel)
+
+
 NORMS = {"frozen": FrozenBatchNorm2d, "batch": BatchNorm2d}
 
 
-def make_norm(norm: str):
-    """The norm layer class for ``norm`` (``handnet_tpu/nn/resnet.py:57-70``).
-    ``"batch_sync"`` (statistics across cards) and ``"group"`` are not
-    ported."""
+def make_norm(norm: str, use_kernel: bool = True):
+    """The norm layer class for ``norm`` (``handnet_tpu/nn/resnet.py:57-70``):
+    ``"group"`` is flax's ``nn.GroupNorm(num_groups=32)``, eps 1e-6.
+    ``"batch_sync"`` (statistics across cards) is not ported."""
     if norm in NORMS:
         return NORMS[norm]
-    if norm in ("batch_sync", "group"):
-        raise NotImplementedError(f"ResNet: norm {norm!r} is not ported (frozen or batch)")
+    if norm == "group":
+        return functools.partial(GroupNorm, 32, eps=1e-6, use_kernel=use_kernel)
+    if norm == "batch_sync":
+        raise NotImplementedError(f"ResNet: norm {norm!r} is not ported (frozen, batch or group)")
     raise ValueError(f"unknown norm {norm!r}")
+
+
+def norm_relu(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``relu(norm(x))``, the ReLU fused into the norm's kernel where it is a
+    :class:`GroupNorm`."""
+    if isinstance(norm, GroupNorm):
+        return norm(x, relu=True)
+    return F.relu(norm(x))
 
 
 class StemConv(nn.Conv2d):
@@ -165,7 +213,7 @@ class BasicBlock(nn.Module):
                            if stride != 1 or cin != planes else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
+        y = norm_relu(self.bn1, self.conv1(x))
         y = self.bn2(self.conv2(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
@@ -190,8 +238,8 @@ class Bottleneck(nn.Module):
                            if stride != 1 or cin != planes * 4 else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = norm_relu(self.bn1, self.conv1(x))
+        y = norm_relu(self.bn2, self.conv2(y))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
@@ -204,16 +252,17 @@ class ResNet(nn.Module):
     dilation 2. The first block of a dilated stage keeps the previous stage's
     dilation (a2j/resnet.py:133-145; ``handnet_tpu/nn/resnet.py:216-221``).
     ``s2d_stem`` computes the stem by space-to-depth (:class:`StemConv`);
-    ``norm`` names the norm layers (:func:`make_norm`).
+    ``norm`` names the norm layers (:func:`make_norm`), and ``use_kernels``
+    says whether a GroupNorm runs K2s and K2a or their plain versions.
     """
 
     def __init__(self, block, stage_sizes: Sequence[int], width: int = 64,
                  stage_strides: Tuple[int, ...] = (1, 2, 2, 2),
                  stage_dilations: Tuple[int, ...] = (1, 1, 1, 1),
                  in_channels: int = 3, quant: Any = False, s2d_stem: bool = False,
-                 norm: str = "frozen"):
+                 norm: str = "frozen", use_kernels: bool = True):
         super().__init__()
-        norm_layer = make_norm(norm)
+        norm_layer = make_norm(norm, use_kernels)
         self.conv1 = StemConv(in_channels, width, s2d=s2d_stem)
         self.bn1 = norm_layer(width)
         cin = width
@@ -230,7 +279,7 @@ class ResNet(nn.Module):
         self.num_stages = len(stage_sizes)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = norm_relu(self.bn1, self.conv1(x))
         feats = {"c1": x}
         # padding of a torch max-pool is -inf, as flax max_pool's is
         x = F.max_pool2d(x, 3, stride=2, padding=1)

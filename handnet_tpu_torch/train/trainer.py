@@ -6,8 +6,9 @@ eagerly and updates the model and the optimizer in place (the JAX step
 donates its state, so no caller keeps the old one either).
 
 * ``FCOSTrainer``: the forward runs the head towers' GroupNorms through
-  kernels K2s and K2a (24 launches of each per step); their gradients are
-  the plain PyTorch formulas that ``ops/cuda_gn.py`` registers with the ops.
+  kernels K2s and K2a (24 launches of each per step, 36 more with a
+  GroupNorm backbone); their gradients are the plain PyTorch formulas that
+  ``ops/cuda_gn.py`` registers with the ops.
 * ``A2JTrainer``: the train step launches no kernel of the port (A2J has
   BatchNorm, and its loss is einsums); the eval step decodes through K1,
   one launch per call.
@@ -193,11 +194,14 @@ class FCOSTrainer:
     195-204; ``handnet_tpu/train/trainer.py:159-254``).
 
     ``backbone_norm``: ``"frozen"`` (the reference's fine-tuning recipe from
-    pretrained weights: fixed statistics, trainable affine) or ``"batch"``
-    (training from scratch, the training CLI's default). Only a ``"batch"``
-    backbone runs its forward in training mode. ``"batch_sync"``,
-    ``"group"`` and a ``mesh`` (data parallel over several cards) are not
-    ported and raise ``NotImplementedError``. int8 (``quant``) and
+    pretrained weights: fixed statistics, trainable affine), ``"batch"``
+    (training from scratch, the training CLI's default) or ``"group"``
+    (flax's GroupNorm(32), eps 1e-6: its 36 layers run K2s and K2a in the
+    forward, as the head's 24 do, and their registered plain gradients in
+    the backward). Only a ``"batch"`` backbone runs its forward in training
+    mode; a GroupNorm normalizes alike in either. ``"batch_sync"`` and a
+    ``mesh`` (data parallel over several cards) are not ported and raise
+    ``NotImplementedError``. int8 (``quant``) and
     ``gn_fast_variance`` are serving-only and forced off, as in the JAX
     package; the fused-tower head is refused (``ValueError``), since the JAX
     package's fused GroupNorm normalizes over other axes.

@@ -315,8 +315,8 @@ def test_dexycb_reader_matches_the_jax_reader(trees, tmp_path):
 @pytest.mark.parametrize("difficulty", ["easy", "hard"])
 def test_port_tree_equals_the_jax_tree(trees, difficulty):
     """At one seed the port's writer makes the JAX writer's depth, labels,
-    YAML contents and info dict (it writes no colour frames), and the JAX
-    package's own reader and A2JDataSource read both trees alike."""
+    YAML contents and info dict, and its colour JPEGs byte for byte, and the
+    JAX package's own reader and A2JDataSource read both trees alike."""
     (jroot, jinfo), (proot, pinfo) = trees[difficulty]["jax"], trees[difficulty]["port"]
     assert pinfo.keys() == jinfo.keys()
     for key in jinfo:
@@ -324,7 +324,9 @@ def test_port_tree_equals_the_jax_tree(trees, difficulty):
         for field in jinfo[key]:
             np.testing.assert_array_equal(pinfo[key][field], jinfo[key][field])
     assert _files(proot, ".png") == _files(jroot, ".png")
-    assert _files(proot, ".jpg") == []
+    assert _files(proot, ".jpg") == _files(jroot, ".jpg") != []
+    for rel in _files(jroot, ".jpg"):
+        assert Path(proot, rel).read_bytes() == Path(jroot, rel).read_bytes(), rel
     for rel in _files(jroot, ".png"):
         np.testing.assert_array_equal(cv2.imread(os.path.join(proot, rel), cv2.IMREAD_ANYDEPTH),
                                       cv2.imread(os.path.join(jroot, rel), cv2.IMREAD_ANYDEPTH))
@@ -497,10 +499,16 @@ def test_resize_nearest_is_cv2_inter_nearest():
 
 
 def test_rgbd_source_is_refused(trees):
+    """``with_color=True`` is no longer refused: the port's tree now has its
+    colour JPEGs, and the sample carries the colour crop (BGR, as the JAX
+    package reads it, over 255) before the depth in ``rgbd``."""
     root, _ = trees["easy"]["port"]
     ds = pdex.DexYCBDataset("s0", "train", root)
-    with pytest.raises(NotImplementedError, match="11d.b"):
-        pa2j.A2JDataSource(ds, [0], augment=False, with_color=True)
+    item = pa2j.A2JDataSource(ds, [0], augment=False, with_color=True)[0]
+    assert item["rgbd"].shape[-1] == 4 and item["rgbd"].dtype == np.float32
+    np.testing.assert_array_equal(item["rgbd"][..., :3], item["color"].astype(np.float32))
+    np.testing.assert_array_equal(item["rgbd"][..., 3:], item["depth"])
+    assert 0.0 <= item["color"].min() and item["color"].max() <= 1.0
 
 
 # ---------------------------------------------------------------------------

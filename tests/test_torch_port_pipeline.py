@@ -249,6 +249,27 @@ with tempfile.TemporaryDirectory() as root:
     gt = dexycb.hpe_ground_truth(ds)
     res = HPEEvaluator(gt).evaluate_dict(0, {k: v + 1.0 for k, v in gt.items()})
     assert np.isfinite(res["absolute"]["mpjpe"])
+    # the colour frames: the JPEG codec, a detection item and a VOC item
+    import glob, os
+    from handnet_tpu_torch.data import detect_data, image_io, voc100doh
+    import handnet_tpu_torch.apps.train_fcos, handnet_tpu_torch.apps.eval_fcos
+    color = image_io.imread_color(sorted(glob.glob(root + "/**/color_*.jpg", recursive=True))[0])
+    assert color.shape == (480, 640, 3)
+    item = detect_data.DetectDataSource(ds, [0], uint8_images=True)[0]
+    assert item["image"].shape == (480, 640, 3) and item["target_valid"].any()
+    devkit = os.path.join(root, "voc", "VOC2007")
+    for sub in ("Annotations", "ImageSets/Main", "JPEGImages"):
+        os.makedirs(os.path.join(devkit, sub))
+    open(os.path.join(devkit, "ImageSets", "Main", "trainval.txt"), "w").write("a\\n")
+    open(os.path.join(devkit, "Annotations", "a.xml"), "w").write(
+        "<annotation><object><name>hand</name><bndbox><xmin>3</xmin><ymin>4</ymin>"
+        "<xmax>30</xmax><ymax>40</ymax></bndbox></object></annotation>")
+    image_io.imwrite_jpeg(os.path.join(devkit, "JPEGImages", "a.jpg"), color[:60, :80])
+    voc = voc100doh.VOCDetectSource(voc100doh.VOC100DOH(os.path.join(root, "voc")),
+                                    target_size=(64, 96))[0]
+    assert voc["image"].shape == (64, 96, 3) and voc["target_valid"][0]
+from handnet_tpu_torch.config import load_config
+assert load_config(yaml_path="configs/fast.yaml").fcos.image_h > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu",
                                        "cv2", "yaml", "PIL"))
@@ -265,10 +286,12 @@ def test_port_imports_no_jax():
     step of ``FCOSTrainer``, one train and one eval step of ``A2JTrainer``
     and one step of the Pose2Mesh app's ``train_step``, builds a small
     synthetic DexYCB tree, draws a batch through ``A2JDataSource`` and
-    ``PrefetchLoader``, runs ``HPEEvaluator``, imports the A2J apps, and
-    has loaded neither jax, optax, orbax, the JAX package, ``cv2``,
-    ``yaml`` nor PIL (a subprocess: tests/conftest.py imports jax into
-    this one)."""
+    ``PrefetchLoader``, runs ``HPEEvaluator``, imports the A2J and FCOS
+    apps, decodes a colour JPEG, builds a ``DetectDataSource`` item and a
+    ``VOCDetectSource`` item (a JPEG it writes, resized), reads a config
+    through ``load_config(yaml_path=...)``, and has loaded neither jax,
+    optax, orbax, the JAX package, ``cv2``, ``yaml`` nor PIL (a subprocess:
+    tests/conftest.py imports jax into this one)."""
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -291,3 +314,17 @@ def test_pipeline_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(HandNetPipeline, "to", lambda self, device: moved.append(device) or self)
     HandNetPipeline(cfg)
     assert moved == ["cuda"]
+
+
+def test_load_config_yaml_equals_pyyaml():
+    """``load_config(yaml_path=p)`` reads every file under ``configs/``
+    through the port's ``yaml_lite`` as pyyaml's ``safe_load`` reads it:
+    the same config as the overrides pyyaml gives."""
+    import yaml
+
+    files = sorted((REPO / "configs").glob("*.yaml"))
+    assert files
+    for path in files:
+        with open(path) as f:
+            want = pconfig.load_config(overrides=yaml.safe_load(f) or {})
+        assert pconfig.load_config(yaml_path=str(path)) == want, path.name
