@@ -363,6 +363,14 @@ FCOS_BACKBONE_GN_TOL = 1e-3
 # scores and the 0.1 threshold make their row sets differ)
 FCOS_EVAL_BOX_TOL = 1e-2
 
+# [rcnn]: train_fcos/eval_fcos --net rcnn at the 100DOH recipe
+RCNN_PROPOSALS = 128              # --num-proposals: the recipe's per-image budget
+RCNN_EPOCHS = 2
+RCNN_FROZEN_EPOCHS = 1            # the short --backbone-norm frozen run whose weights eval reads
+RCNN_ROI = 7                      # RoIAlign's output, 7 x 7 bins of 2 x 2 taps
+RCNN_NMS_CANDIDATES = 2 * RCNN_PROPOSALS
+RCNN_TIMED_STEPS = 5
+
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -2667,11 +2675,11 @@ def train_kernels_vs_plain(dev, cfg, tcfg, batch) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def train_step_profile(trainer, state, batch) -> None:
+def train_step_profile(trainer, state, batch, tag: str = "train") -> None:
     """One step under torch.profiler: the top 10 kernels by device time, the
     share of K2s and K2a (the forward's GroupNorms) and of the GroupNorm
     backward (the ops' registered gradients, read from their profiler
-    ranges)."""
+    ranges); logged under ``tag``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2695,14 +2703,15 @@ def train_step_profile(trainer, state, batch) -> None:
                  for e in events if e.key in GN_BACKWARD_RANGES
                  and "CPU" in str(getattr(e, "device_type", "")))
     if total <= 0:
-        log("train", "profile of one step: the profiler recorded no device time (not measured)")
+        log(tag, "profile of one step: the profiler recorded no device time (not measured)")
         return
-    log("train", f"profile of one step: kernels {total:.3f} ms on the device; K2s + K2a "
+    log(tag, f"profile of one step: kernels {total:.3f} ms on the device "
+        f"({sum(n for _, _, n in kernels)} launches); K2s + K2a "
         f"(forward) {gn_fwd:.3f} ms = {100 * gn_fwd / total:.2f}%; GroupNorm backward (the "
         f"registered gradients' kernels) {gn_bwd:.3f} ms = {100 * gn_bwd / total:.2f}%"
         + ("" if gn_bwd > 0 else " (not measured: the ranges recorded no kernels)"))
     for key, ms, count in kernels[:10]:
-        log("train", f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
+        log(tag, f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
 
 
 def phase_train(dev, cfg) -> dict:
@@ -3713,7 +3722,7 @@ def eval_detect_kernels_vs_plain(dev, ckpt: str, ds) -> dict:
     return {"valid": int(valid.sum()), "box": box, "score": score}
 
 
-def phase_fcos_apps(dev, device_arg: str = "cuda") -> dict:
+def phase_fcos_apps(dev, work: str, device_arg: str = "cuda") -> dict:
     """The FCOS apps on the card through their entry points: the port's
     synthetic DexYCB tree with colour and a VOC tree, the codec against
     cv2, ``train_fcos.main`` at the recipe, ``train_fcos.main --voc-root``
@@ -3721,12 +3730,12 @@ def phase_fcos_apps(dev, device_arg: str = "cuda") -> dict:
     weights, ``train_a2j.main --rgbd``; and K2s/K2a at the GroupNorm
     backbone's shapes. Returns the launches per step and per call of each
     path. ``device_arg`` is the apps' ``--device`` (a CPU rehearsal at tiny
-    sizes passes ``cpu``)."""
+    sizes passes ``cpu``). The trees go under the directory ``work``, where
+    ``[rcnn]`` reads them after this phase."""
     import contextlib
     import glob
     import io
     import os
-    import tempfile
     from unittest import mock
 
     import numpy as np
@@ -3743,215 +3752,478 @@ def phase_fcos_apps(dev, device_arg: str = "cuda") -> dict:
     paths = {}
     shapes = gn_backbone_kernels(dev)
     free_device_memory(dev)
-    with tempfile.TemporaryDirectory() as work:
-        root, voc = os.path.join(work, "tree"), os.path.join(work, "voc")
-        start = time.perf_counter()
-        make_synthetic_dexycb(root, n_sequences=FCOS_APPS_SEQUENCES, n_frames=4)
-        tree_s = time.perf_counter() - start
-        start = time.perf_counter()
-        n_voc = write_voc_tree(voc, root, SEED)
-        log("fcos_apps", f"synthetic tree ({FCOS_APPS_SEQUENCES} sequences x 4 frames, 480x640, "
-            f"colour JPEGs written by the port) in {tree_s:.2f} s; VOC tree of {n_voc} JPEGs "
-            f"(the tree's first {FCOS_APPS_VOC_PER_SIZE} frames at each of "
-            f"{FCOS_APPS_VOC_SIZES}, hand and object annotated) in "
-            f"{time.perf_counter() - start:.2f} s")
-        codec_checks(sorted(glob.glob(f"{root}/**/color_*.jpg", recursive=True))
-                     + sorted(glob.glob(f"{voc}/**/*.jpg", recursive=True)))
+    root, voc = os.path.join(work, "tree"), os.path.join(work, "voc")
+    start = time.perf_counter()
+    make_synthetic_dexycb(root, n_sequences=FCOS_APPS_SEQUENCES, n_frames=4)
+    tree_s = time.perf_counter() - start
+    start = time.perf_counter()
+    n_voc = write_voc_tree(voc, root, SEED)
+    log("fcos_apps", f"synthetic tree ({FCOS_APPS_SEQUENCES} sequences x 4 frames, 480x640, "
+        f"colour JPEGs written by the port) in {tree_s:.2f} s; VOC tree of {n_voc} JPEGs "
+        f"(the tree's first {FCOS_APPS_VOC_PER_SIZE} frames at each of "
+        f"{FCOS_APPS_VOC_SIZES}, hand and object annotated) in "
+        f"{time.perf_counter() - start:.2f} s")
+    codec_checks(sorted(glob.glob(f"{root}/**/color_*.jpg", recursive=True))
+                 + sorted(glob.glob(f"{voc}/**/*.jpg", recursive=True)))
 
-        # train_fcos on the synthetic tree at the recipe, batch-norm backbone
-        out = os.path.join(work, "fcos")
-        reset_launch_counts()
-        res = train_fcos.main(["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES),
-                               "--epochs", str(FCOS_APPS_EPOCHS), "--batch", str(TRAIN_BATCH),
-                               "--workers", str(FCOS_APPS_WORKERS), "--backbone-norm", "batch",
-                               "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
-                               str(FCOS_APPS_IMAGE[1]), "--output", out, "--device", device_arg])
-        torch.cuda.synchronize()
-        launches = launch_counts()
-        steps = sum(e["steps"] for e in res["epochs"])
-        want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * steps,
-                "gn_apply": GN_LAYERS_PER_CALL * steps}
-        log_epochs("train_fcos", res)
-        losses = [e["losses"] for e in res["epochs"]]
-        if launches != want or not all(np.isfinite(list(l.values())).all() for l in losses):
-            raise AssertionError(f"train_fcos: launches {launches} over {steps} steps (expected "
-                                 f"{want}), losses {losses}")
-        log("fcos_apps", f"train_fcos: {res['samples']} samples, {steps} steps, launches "
-            f"{launches}: K2s/K2a {GN_LAYERS_PER_CALL} per step, nothing else; losses finite")
-        paths["train_fcos_app"] = per_call(launches, steps)
-        # the model, reference-keyed, its 23-class logits cut to eval_fcos's 3:
-        # background, YCB object 1 as "targetobject" and the hand (22) as "hand"
-        state_dict = {k: v.detach().float().cpu()
-                      for k, v in res["state"].model.state_dict().items()}
-        for k in ("head.classification_head.cls_logits.weight",
-                  "head.classification_head.cls_logits.bias"):
-            state_dict[k] = state_dict[k][[0, 1, 22]].clone()
-        ckpt = os.path.join(work, "fcos_synthetic.pth")
-        torch.save({"model": state_dict}, ckpt)
-        del res
-        free_device_memory(dev)
-        ds = DexYCBDataset("s0", "train", root)
-        fcos_loader_contention(dev, DetectDataSource(ds, refine_indices(ds), e2e=True,
-                                                     uint8_images=True),
-                               FCOSConfig(num_classes=23, image_h=FCOS_APPS_IMAGE[0],
-                                          image_w=FCOS_APPS_IMAGE[1]))
-        free_device_memory(dev)
-        cfg = FCOSConfig(num_classes=3, image_h=FCOS_APPS_IMAGE[0], image_w=FCOS_APPS_IMAGE[1])
+    # train_fcos on the synthetic tree at the recipe, batch-norm backbone
+    out = os.path.join(work, "fcos")
+    reset_launch_counts()
+    res = train_fcos.main(["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES),
+                           "--epochs", str(FCOS_APPS_EPOCHS), "--batch", str(TRAIN_BATCH),
+                           "--workers", str(FCOS_APPS_WORKERS), "--backbone-norm", "batch",
+                           "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
+                           str(FCOS_APPS_IMAGE[1]), "--output", out, "--device", device_arg])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    steps = sum(e["steps"] for e in res["epochs"])
+    want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * steps,
+            "gn_apply": GN_LAYERS_PER_CALL * steps}
+    log_epochs("train_fcos", res)
+    losses = [e["losses"] for e in res["epochs"]]
+    if launches != want or not all(np.isfinite(list(l.values())).all() for l in losses):
+        raise AssertionError(f"train_fcos: launches {launches} over {steps} steps (expected "
+                             f"{want}), losses {losses}")
+    log("fcos_apps", f"train_fcos: {res['samples']} samples, {steps} steps, launches "
+        f"{launches}: K2s/K2a {GN_LAYERS_PER_CALL} per step, nothing else; losses finite")
+    paths["train_fcos_app"] = per_call(launches, steps)
+    # the model, reference-keyed, its 23-class logits cut to eval_fcos's 3:
+    # background, YCB object 1 as "targetobject" and the hand (22) as "hand"
+    state_dict = {k: v.detach().float().cpu()
+                  for k, v in res["state"].model.state_dict().items()}
+    for k in ("head.classification_head.cls_logits.weight",
+              "head.classification_head.cls_logits.bias"):
+        state_dict[k] = state_dict[k][[0, 1, 22]].clone()
+    ckpt = os.path.join(work, "fcos_synthetic.pth")
+    torch.save({"model": state_dict}, ckpt)
+    del res
+    free_device_memory(dev)
+    ds = DexYCBDataset("s0", "train", root)
+    fcos_loader_contention(dev, DetectDataSource(ds, refine_indices(ds), e2e=True,
+                                                 uint8_images=True),
+                           FCOSConfig(num_classes=23, image_h=FCOS_APPS_IMAGE[0],
+                                      image_w=FCOS_APPS_IMAGE[1]))
+    free_device_memory(dev)
+    cfg = FCOSConfig(num_classes=3, image_h=FCOS_APPS_IMAGE[0], image_w=FCOS_APPS_IMAGE[1])
 
-        # train_fcos --voc-root with a GroupNorm backbone: 36 more K2s/K2a a step
-        reset_launch_counts()
-        res = train_fcos.main(["--voc-root", voc, "--epochs", "1", "--batch", str(TRAIN_BATCH),
-                               "--workers", str(FCOS_APPS_WORKERS), "--backbone-norm", "group",
-                               "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
-                               str(FCOS_APPS_IMAGE[1]), "--output", os.path.join(work, "fcos_voc"),
-                               "--device", device_arg])
-        torch.cuda.synchronize()
-        launches = launch_counts()
-        steps = res["epochs"][0]["steps"]
-        per_step = GN_LAYERS_PER_CALL + BACKBONE_GN_LAYERS
-        want = {**{k: 0 for k in launches}, "gn_group_stats": per_step * steps,
-                "gn_apply": per_step * steps}
-        log_epochs("train_fcos --voc-root --backbone-norm group", res)
-        if launches != want or not np.isfinite(res["epochs"][0]["losses"]["total_loss"]):
-            raise AssertionError(f"train_fcos --voc-root: launches {launches} over {steps} steps "
-                                 f"(expected {want}), losses {res['epochs'][0]['losses']}")
-        paths["train_fcos_voc_group"] = per_call(launches, steps)
-        # the trained backbone's GroupNorms: kernels against plain versions on one batch
-        model = res["state"].model.eval()
-        body = model.backbone["body"]
-        gns = [m for m in body.modules() if isinstance(m, GroupNorm)]
-        src = VOCDetectSource(VOC100DOH(voc), target_size=(cfg.image_h, cfg.image_w))
-        images = torch.from_numpy(np.stack([src[i]["image"] for i in range(TRAIN_BATCH)])).to(dev)
-        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-        feats = {}
-        with torch.no_grad():
-            net = model.preprocess(images)[0].permute(0, 3, 1, 2).contiguous(
-                memory_format=torch.channels_last)
-            for on in (True, False):
-                for m in gns:
-                    m.use_kernel = on
-                reset_launch_counts()
-                feats[on] = body(net)
-                counted = launch_counts()["gn_group_stats"]
-                if counted != (len(gns) if on else 0):
-                    raise AssertionError(f"backbone GN: {counted} K2s launches with kernels {on}")
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-        errs = {k: ((feats[True][k] - feats[False][k]).abs().max()
-                    / feats[False][k].abs().max()).item() for k in feats[False]}
-        if len(gns) != BACKBONE_GN_LAYERS or not max(errs.values()) <= FCOS_BACKBONE_GN_TOL:
-            raise AssertionError(f"backbone GN kernels vs plain: {len(gns)} layers, {errs}")
-        log("fcos_apps", f"train_fcos --voc-root, GroupNorm backbone: {steps} steps, K2s/K2a "
-            f"{per_step} per step ({GN_LAYERS_PER_CALL} head + {BACKBONE_GN_LAYERS} backbone), "
-            f"nothing else; the trained backbone's {len(gns)} GroupNorms on one batch, f32 TF32 "
-            f"off, kernels vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-            + f" of each level's scale (tol {FCOS_BACKBONE_GN_TOL:g})")
-        del res, model, body, gns, feats, images, net
-        free_device_memory(dev)
-
-        # eval_fcos on the VOC tree with the synthetic run's weights: twice
-        # with kernels (launches, FPS), once with the plain GroupNorm (bf16:
-        # printed); then detect itself, kernels vs plain, in float32
-        args = ["--voc-root", voc, "--image-set", "trainval", "--torch-checkpoint", ckpt,
-                "--batch", str(FCOS_APPS_EVAL_BATCH), "--image-h", str(FCOS_APPS_IMAGE[0]),
-                "--image-w", str(FCOS_APPS_IMAGE[1]), "--score-thresh",
-                str(FCOS_APPS_EVAL_THRESH), "--device", device_arg]
-        calls = n_voc // FCOS_APPS_EVAL_BATCH
-        runs = []
-        for i in range(2):
-            text = io.StringIO()
+    # train_fcos --voc-root with a GroupNorm backbone: 36 more K2s/K2a a step
+    reset_launch_counts()
+    res = train_fcos.main(["--voc-root", voc, "--epochs", "1", "--batch", str(TRAIN_BATCH),
+                           "--workers", str(FCOS_APPS_WORKERS), "--backbone-norm", "group",
+                           "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
+                           str(FCOS_APPS_IMAGE[1]), "--output", os.path.join(work, "fcos_voc"),
+                           "--device", device_arg])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    steps = res["epochs"][0]["steps"]
+    per_step = GN_LAYERS_PER_CALL + BACKBONE_GN_LAYERS
+    want = {**{k: 0 for k in launches}, "gn_group_stats": per_step * steps,
+            "gn_apply": per_step * steps}
+    log_epochs("train_fcos --voc-root --backbone-norm group", res)
+    if launches != want or not np.isfinite(res["epochs"][0]["losses"]["total_loss"]):
+        raise AssertionError(f"train_fcos --voc-root: launches {launches} over {steps} steps "
+                             f"(expected {want}), losses {res['epochs'][0]['losses']}")
+    paths["train_fcos_voc_group"] = per_call(launches, steps)
+    # the trained backbone's GroupNorms: kernels against plain versions on one batch
+    model = res["state"].model.eval()
+    body = model.backbone["body"]
+    gns = [m for m in body.modules() if isinstance(m, GroupNorm)]
+    src = VOCDetectSource(VOC100DOH(voc), target_size=(cfg.image_h, cfg.image_w))
+    images = torch.from_numpy(np.stack([src[i]["image"] for i in range(TRAIN_BATCH)])).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    feats = {}
+    with torch.no_grad():
+        net = model.preprocess(images)[0].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        for on in (True, False):
+            for m in gns:
+                m.use_kernel = on
             reset_launch_counts()
-            with contextlib.redirect_stdout(text):
-                results = eval_fcos.main(args + ["--output", os.path.join(work, f"eval{i}")])
-            torch.cuda.synchronize()
-            launches = launch_counts()
-            fps = float(re.search(r"FPS: ([0-9.]+)", text.getvalue()).group(1))
-            runs.append((results, fps))
-            want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * calls,
-                    "gn_apply": GN_LAYERS_PER_CALL * calls}
-            if launches != want or not all(np.isfinite(v) for v in results.values()):
-                raise AssertionError(f"eval_fcos: launches {launches} (expected {want}), "
-                                     f"results {results}")
-        paths["eval_fcos"] = per_call(launches, calls)
-        real_build = eval_fcos.build_system
+            feats[on] = body(net)
+            counted = launch_counts()["gn_group_stats"]
+            if counted != (len(gns) if on else 0):
+                raise AssertionError(f"backbone GN: {counted} K2s launches with kernels {on}")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = {k: ((feats[True][k] - feats[False][k]).abs().max()
+                / feats[False][k].abs().max()).item() for k in feats[False]}
+    if len(gns) != BACKBONE_GN_LAYERS or not max(errs.values()) <= FCOS_BACKBONE_GN_TOL:
+        raise AssertionError(f"backbone GN kernels vs plain: {len(gns)} layers, {errs}")
+    log("fcos_apps", f"train_fcos --voc-root, GroupNorm backbone: {steps} steps, K2s/K2a "
+        f"{per_step} per step ({GN_LAYERS_PER_CALL} head + {BACKBONE_GN_LAYERS} backbone), "
+        f"nothing else; the trained backbone's {len(gns)} GroupNorms on one batch, f32 TF32 "
+        f"off, kernels vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" of each level's scale (tol {FCOS_BACKBONE_GN_TOL:g})")
+    del res, model, body, gns, feats, images, net
+    free_device_memory(dev)
 
-        def plain_build(*a, **k):
-            system = real_build(*a, **k)
-            for m in system.modules():
-                if hasattr(m, "use_kernel"):
-                    m.use_kernel = False
-            return system
-
-        with mock.patch.object(eval_fcos, "build_system", plain_build), \
-                contextlib.redirect_stdout(io.StringIO()):
-            plain = eval_fcos.main(args + ["--output", os.path.join(work, "eval_plain")])
-        # and with no checkpoint: the CLI's random weights (seed 0)
+    # eval_fcos on the VOC tree with the synthetic run's weights: twice
+    # with kernels (launches, FPS), once with the plain GroupNorm (bf16:
+    # printed); then detect itself, kernels vs plain, in float32
+    args = ["--voc-root", voc, "--image-set", "trainval", "--torch-checkpoint", ckpt,
+            "--batch", str(FCOS_APPS_EVAL_BATCH), "--image-h", str(FCOS_APPS_IMAGE[0]),
+            "--image-w", str(FCOS_APPS_IMAGE[1]), "--score-thresh",
+            str(FCOS_APPS_EVAL_THRESH), "--device", device_arg]
+    calls = n_voc // FCOS_APPS_EVAL_BATCH
+    runs = []
+    for i in range(2):
         text = io.StringIO()
-        with contextlib.redirect_stdout(text):
-            random_results = eval_fcos.main([a for a in args if a not in ("--torch-checkpoint",
-                                                                          ckpt)]
-                                            + ["--output", os.path.join(work, "eval_random")])
-        if "WARNING: random detector weights" not in text.getvalue():
-            raise AssertionError("eval_fcos without a checkpoint: no random-weights warning")
-        rows, plain_rows = detection_rows(os.path.join(work, "eval0")), detection_rows(
-            os.path.join(work, "eval_plain"))
-        random_rows = detection_rows(os.path.join(work, "eval_random"))
-        # every row of both files has its 11 fields; the files together hold
-        # rows (a detector trained 16 steps may rank one class first everywhere)
-        fields = {len(r) for rs in (*rows.values(), *random_rows.values()) for r in rs}
-        if (fields - {11} or not any(rows.values())
-                or not all(np.isfinite(v) for v in random_results.values())):
-            raise AssertionError(f"eval_fcos: fields {fields}, rows "
-                                 f"{ {n: len(r) for n, r in rows.items()} }, with random "
-                                 f"weights { {n: len(r) for n, r in random_rows.items()} }")
-        compared = {name: matched_box_diff(rows[name], plain_rows[name]) for name in rows}
-        log("fcos_apps", f"eval_fcos over {n_voc} frames at batch {FCOS_APPS_EVAL_BATCH}: "
-            f"{ {n: len(r) for n, r in rows.items()} } 11-field rows; AP "
-            + ", ".join(f"{k} {v:.4f}" for k, v in runs[-1][0].items())
-            + f" (finite); FPS {runs[0][1]:.2f} and {runs[1][1]:.2f} (detect between CUDA "
-            f"events); K2s/K2a {GN_LAYERS_PER_CALL} per call, nothing else. The CLI with the "
-            f"plain GroupNorm (bf16): rows { {n: len(r) for n, r in plain_rows.items()} }, "
-            "against the kernels' (unmatched rows, max box diff px, max score diff): "
-            + ", ".join(f"{n.split('_')[-1][:-4]} {c[0]}, {c[1]:.3e}, {c[2]:.3e}"
-                        for n, c in compared.items()) + f"; AP {plain}. Without a checkpoint "
-            f"(random weights): rows { {n: len(r) for n, r in random_rows.items()} }, every "
-            "row 11 fields, AP finite")
-        frame_diff = eval_detect_kernels_vs_plain(dev, ckpt, VOC100DOH(voc, "trainval"))
-        log("fcos_apps", "eval_fcos's detect on its first batch in float32 (TF32 off), "
-            f"kernels vs the plain GroupNorm: {frame_diff['valid']} valid detections, the same "
-            f"ones, labels equal; boxes max |diff| {frame_diff['box']:.3e} px (tol "
-            f"{FCOS_EVAL_BOX_TOL:g}), scores {frame_diff['score']:.3e}")
-        free_device_memory(dev)
-
-        # train_a2j --rgbd on the colour tree: one epoch at the recipe
         reset_launch_counts()
-        res = train_a2j.main(["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES),
-                              "--rgbd", "--crop", str(A2J_APPS_CROP), "--batch",
-                              str(A2J_TRAIN_BATCH), "--epochs", "1", "--eval-every", "1",
-                              "--workers", str(A2J_APPS_WORKERS), "--output",
-                              os.path.join(work, "a2j_rgbd"), "--device", device_arg])
+        with contextlib.redirect_stdout(text):
+            results = eval_fcos.main(args + ["--output", os.path.join(work, f"eval{i}")])
         torch.cuda.synchronize()
         launches = launch_counts()
-        sweep = res["evals"][-1]
-        n_test, batches = sweep["samples"], sweep["batches"]
-        want = {**{k: 0 for k in launches},
-                "a2j_decode": math.ceil(n_test / A2J_TRAIN_BATCH)}
-        if (launches != want or batches != want["a2j_decode"]
-                or not np.isfinite(res["epochs"][0]["losses"]["total_loss"])
-                or res["state"].model.cfg.in_channels != 4):
-            raise AssertionError(f"train_a2j --rgbd: launches {launches} (expected {want}), "
-                                 f"losses {res['epochs'][0]['losses']}")
-        e = res["epochs"][0]
-        log("fcos_apps", f"train_a2j --rgbd: {e['steps']} steps of batch {A2J_TRAIN_BATCH} "
-            f"(4-channel crops, BGR + depth), {e['ms_per_step']:.3f} ms per step, "
-            f"{e['samples_per_s']:.1f} samples/s, {100 * e['loader_wait_share']:.2f}% waiting "
-            f"on the loader, mean loss {e['losses']['total_loss']:.4f} (finite); eval sweep of "
-            f"{n_test} samples: K1 {launches['a2j_decode']} = ceil({n_test} / "
-            f"{A2J_TRAIN_BATCH}), nothing else")
-        paths["train_a2j_rgbd_eval"] = per_call(launches, batches)
-        del res
+        fps = float(re.search(r"FPS: ([0-9.]+)", text.getvalue()).group(1))
+        runs.append((results, fps))
+        want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * calls,
+                "gn_apply": GN_LAYERS_PER_CALL * calls}
+        if launches != want or not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"eval_fcos: launches {launches} (expected {want}), "
+                                 f"results {results}")
+    paths["eval_fcos"] = per_call(launches, calls)
+    real_build = eval_fcos.build_system
+
+    def plain_build(*a, **k):
+        system = real_build(*a, **k)
+        for m in system.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = False
+        return system
+
+    with mock.patch.object(eval_fcos, "build_system", plain_build), \
+            contextlib.redirect_stdout(io.StringIO()):
+        plain = eval_fcos.main(args + ["--output", os.path.join(work, "eval_plain")])
+    # and with no checkpoint: the CLI's random weights (seed 0)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        random_results = eval_fcos.main([a for a in args if a not in ("--torch-checkpoint",
+                                                                      ckpt)]
+                                        + ["--output", os.path.join(work, "eval_random")])
+    if "WARNING: random detector weights" not in text.getvalue():
+        raise AssertionError("eval_fcos without a checkpoint: no random-weights warning")
+    rows, plain_rows = detection_rows(os.path.join(work, "eval0")), detection_rows(
+        os.path.join(work, "eval_plain"))
+    random_rows = detection_rows(os.path.join(work, "eval_random"))
+    # every row of both files has its 11 fields; the files together hold
+    # rows (a detector trained 16 steps may rank one class first everywhere)
+    fields = {len(r) for rs in (*rows.values(), *random_rows.values()) for r in rs}
+    if (fields - {11} or not any(rows.values())
+            or not all(np.isfinite(v) for v in random_results.values())):
+        raise AssertionError(f"eval_fcos: fields {fields}, rows "
+                             f"{ {n: len(r) for n, r in rows.items()} }, with random "
+                             f"weights { {n: len(r) for n, r in random_rows.items()} }")
+    compared = {name: matched_box_diff(rows[name], plain_rows[name]) for name in rows}
+    log("fcos_apps", f"eval_fcos over {n_voc} frames at batch {FCOS_APPS_EVAL_BATCH}: "
+        f"{ {n: len(r) for n, r in rows.items()} } 11-field rows; AP "
+        + ", ".join(f"{k} {v:.4f}" for k, v in runs[-1][0].items())
+        + f" (finite); FPS {runs[0][1]:.2f} and {runs[1][1]:.2f} (detect between CUDA "
+        f"events); K2s/K2a {GN_LAYERS_PER_CALL} per call, nothing else. The CLI with the "
+        f"plain GroupNorm (bf16): rows { {n: len(r) for n, r in plain_rows.items()} }, "
+        "against the kernels' (unmatched rows, max box diff px, max score diff): "
+        + ", ".join(f"{n.split('_')[-1][:-4]} {c[0]}, {c[1]:.3e}, {c[2]:.3e}"
+                    for n, c in compared.items()) + f"; AP {plain}. Without a checkpoint "
+        f"(random weights): rows { {n: len(r) for n, r in random_rows.items()} }, every "
+        "row 11 fields, AP finite")
+    frame_diff = eval_detect_kernels_vs_plain(dev, ckpt, VOC100DOH(voc, "trainval"))
+    log("fcos_apps", "eval_fcos's detect on its first batch in float32 (TF32 off), "
+        f"kernels vs the plain GroupNorm: {frame_diff['valid']} valid detections, the same "
+        f"ones, labels equal; boxes max |diff| {frame_diff['box']:.3e} px (tol "
+        f"{FCOS_EVAL_BOX_TOL:g}), scores {frame_diff['score']:.3e}")
+    free_device_memory(dev)
+
+    # train_a2j --rgbd on the colour tree: one epoch at the recipe
+    reset_launch_counts()
+    res = train_a2j.main(["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES),
+                          "--rgbd", "--crop", str(A2J_APPS_CROP), "--batch",
+                          str(A2J_TRAIN_BATCH), "--epochs", "1", "--eval-every", "1",
+                          "--workers", str(A2J_APPS_WORKERS), "--output",
+                          os.path.join(work, "a2j_rgbd"), "--device", device_arg])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    sweep = res["evals"][-1]
+    n_test, batches = sweep["samples"], sweep["batches"]
+    want = {**{k: 0 for k in launches},
+            "a2j_decode": math.ceil(n_test / A2J_TRAIN_BATCH)}
+    if (launches != want or batches != want["a2j_decode"]
+            or not np.isfinite(res["epochs"][0]["losses"]["total_loss"])
+            or res["state"].model.cfg.in_channels != 4):
+        raise AssertionError(f"train_a2j --rgbd: launches {launches} (expected {want}), "
+                             f"losses {res['epochs'][0]['losses']}")
+    e = res["epochs"][0]
+    log("fcos_apps", f"train_a2j --rgbd: {e['steps']} steps of batch {A2J_TRAIN_BATCH} "
+        f"(4-channel crops, BGR + depth), {e['ms_per_step']:.3f} ms per step, "
+        f"{e['samples_per_s']:.1f} samples/s, {100 * e['loader_wait_share']:.2f}% waiting "
+        f"on the loader, mean loss {e['losses']['total_loss']:.4f} (finite); eval sweep of "
+        f"{n_test} samples: K1 {launches['a2j_decode']} = ceil({n_test} / "
+        f"{A2J_TRAIN_BATCH}), nothing else")
+    paths["train_a2j_rgbd_eval"] = per_call(launches, batches)
+    del res
     free_device_memory(dev)
     return {"paths": paths, "shapes": shapes}
+
+
+def rcnn_train_cli(tag: str, argv: list, per_step_gn: int) -> tuple:
+    """``train_fcos.main(argv)`` with the launch counts from 0 and the peak
+    device memory: checks that K2s/K2a launched ``per_step_gn`` times per
+    step and nothing else did, and that every epoch's mean loss is finite
+    (``main`` itself exits at the first step whose loss is not). Returns
+    ``(result, launches per step)``."""
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps import train_fcos
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res = train_fcos.main(argv)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    steps = sum(e["steps"] for e in res["epochs"])
+    want = {**{k: 0 for k in launches}, "gn_group_stats": per_step_gn * steps,
+            "gn_apply": per_step_gn * steps}
+    losses = [e["losses"] for e in res["epochs"]]
+    if launches != want or not all(np.isfinite(list(l.values())).all() for l in losses):
+        raise AssertionError(f"{tag}: launches {launches} over {steps} steps (expected {want}), "
+                             f"losses {losses}")
+    for e in res["epochs"]:
+        log("rcnn", f"{tag} epoch {e['epoch']}: {e['steps']} steps of batch {TRAIN_BATCH}, "
+            f"{e['ms_per_step']:.3f} ms per step, {e['images_per_s']:.2f} images/s, "
+            f"{100 * e['loader_wait_share']:.2f}% waiting on the loader (loop clock), mean "
+            "losses " + ", ".join(f"{k} {v:.4f}" for k, v in e["losses"].items()))
+    log("rcnn", f"{tag}: {res['samples']} samples, {steps} steps, every step's loss finite; "
+        f"launches {launches}: K2s/K2a {per_step_gn} per step, nothing else; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return res, per_call(launches, steps)
+
+
+def rcnn_gn_kernels_vs_plain(dev, model, images) -> dict:
+    """The trained GroupNorm-backbone R-CNN on one batch at 800x1088 in
+    float32 (TF32 off): the pyramid P2-P6 and the RPN objectness with
+    K2s/K2a against the same with the plain GroupNorm, each level's max
+    |diff| over its max |value| within ``FCOS_BACKBONE_GN_TOL``."""
+    import torch
+
+    from handnet_tpu_torch.nn.resnet import GroupNorm
+
+    model = model.eval()
+    gns = [m for m in model.modules() if isinstance(m, GroupNorm)]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    outs = {}
+    with torch.no_grad():
+        net = model.preprocess(images)[0]
+        for on in (True, False):
+            for m in gns:
+                m.use_kernel = on
+            reset_launch_counts()
+            pyramid = model.features(net)
+            obj = model.rpn["head"](pyramid)[0]
+            counted = launch_counts()
+            if counted["gn_group_stats"] != (len(gns) if on else 0) or counted["gn_apply"] != (
+                    len(gns) if on else 0):
+                raise AssertionError(f"rcnn GN: launches {counted} with kernels {on}")
+            outs[on] = {**{f"P{i + 2}": p.float() for i, p in enumerate(pyramid)},
+                        "objectness": obj.float()}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    errs = {k: ((outs[True][k] - outs[False][k]).abs().max() / outs[False][k].abs().max()).item()
+            for k in outs[False]}
+    if len(gns) != BACKBONE_GN_LAYERS or not max(errs.values()) <= FCOS_BACKBONE_GN_TOL:
+        raise AssertionError(f"rcnn GN kernels vs plain: {len(gns)} layers, {errs}")
+    return errs
+
+
+def rcnn_timings(dev, model, batch, card: str) -> dict:
+    """At the recipe's train shape (batch 8, 800x1088, bf16 autocast, 128
+    proposals): ``multiscale_roi_align`` with its byte bound (the distinct
+    feature rows its taps read, the rois, the float32 output), the RPN's
+    ranking and NMS (``select_proposals``) with its kernels per call, and
+    the eval forward, each by the kernels' own durations and by a loop of
+    calls between events."""
+    import torch
+
+    from handnet_tpu_torch.models import faster_rcnn as frcnn
+
+    model = model.eval()
+    auto = torch.autocast("cuda", dtype=torch.bfloat16)
+    with torch.no_grad(), auto:
+        pyramid = model.features(batch["image"])
+        raw_obj, raw_reg = model.rpn["head"](pyramid)
+        props = model.propose(pyramid)[0]
+    levels, strides = pyramid[:4], model.strides[:4]
+    out = {}
+
+    def roi_align():
+        return frcnn.multiscale_roi_align(levels, props, RCNN_ROI, strides)
+
+    def select():
+        return frcnn.select_proposals(raw_obj, raw_reg, model.anchors,
+                                      (model.image_h, model.image_w), RCNN_PROPOSALS)
+
+    def forward():
+        with torch.no_grad(), auto:
+            return model(batch["image"])
+
+    with torch.no_grad():
+        pooled = roi_align()
+        n_rows = rcnn_tap_rows(levels, props, strides)
+        roi_bytes = n_rows * levels[0].shape[1] * levels[0].element_size() + nbytes(props, pooled)
+        out["roi_align"] = {**timed(roi_align), **bound(roi_bytes, 0, 1.0), "rows": n_rows}
+        out["select"] = {**timed(select), "kernels": kernels_per_call(select)}
+        out["forward"] = {"loop_ms": cuda_ms(forward, iters=RCNN_TIMED_STEPS, warmup=2),
+                          "ms": device_ms(forward, iters=RCNN_TIMED_STEPS, warmup=1)}
+    r, s_, f = out["roi_align"], out["select"], out["forward"]
+    log("rcnn", f"multiscale_roi_align at B={TRAIN_BATCH}, R={RCNN_PROPOSALS}, C=256, bf16 "
+        f"pyramid, 7x7 bins of 2x2 taps, each roi at its own level: {r['ms']:.4f} ms on the "
+        f"device ({r['loop_ms']:.4f} loop), bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+        f"({r['rows']} distinct feature rows, {roi_bytes / 1e6:.1f} MB at 3.35 TB/s), "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; {card}")
+    log("rcnn", f"select_proposals (decode + clip of {raw_obj.shape[1]} anchors, top "
+        f"{RCNN_NMS_CANDIDATES}, a {RCNN_NMS_CANDIDATES}-step NMS, top {RCNN_PROPOSALS}) at "
+        f"B={TRAIN_BATCH}: {s_['kernels']} kernels per call, {s_['ms']:.4f} ms on the device "
+        f"({s_['loop_ms']:.4f} loop); {card}")
+    log("rcnn", f"the eval forward at B={TRAIN_BATCH} bf16: {f['ms']:.3f} ms of kernels "
+        f"({f['loop_ms']:.3f} loop); {card}")
+    return out
+
+
+def kernels_per_call(fn) -> int:
+    """The kernels that one call of ``fn`` launches on the card
+    (torch.profiler's records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(n for _, _, n in device_rows(prof))
+
+
+def rcnn_tap_rows(levels, props, strides) -> int:
+    """The distinct feature rows (one pixel of one image at one level) that
+    ``multiscale_roi_align``'s taps read for ``props [B, R, 4]``: the
+    indices it gathers, each counted once."""
+    import torch
+
+    from handnet_tpu_torch.models import faster_rcnn as frcnn
+
+    base, hs, ws, scale = frcnn.level_geometry(levels, props, strides)
+    taps = frcnn._taps(base, hs, ws, props.reshape(-1, 4), scale, RCNN_ROI, 2)
+    return int(torch.unique(torch.cat([idx.reshape(-1) for idx, _ in taps])).numel())
+
+
+def phase_rcnn(dev, work: str, card: str, device_arg: str = "cuda") -> dict:
+    """The Faster R-CNN through its entry points at the 100DOH recipe
+    (800x1088, batch 8, bf16, 128 proposals, ResNet-34 + FPN over c2-c5 +
+    P6, a 1024-wide TwoMLPHead, 3 classes on VOC): ``train_fcos --net rcnn``
+    on ``[fcos_apps]``'s synthetic tree (batch-norm backbone, no launch of
+    ours) and on its VOC tree with the GroupNorm backbone (K2s/K2a 36 per
+    step), the trained GroupNorm backbone's pyramid and RPN objectness with
+    kernels against the plain GroupNorm, a train step alone, ``eval_fcos
+    --net rcnn`` from a short frozen-backbone run's reference-keyed
+    weights, and the device times of RoIAlign, the RPN's ranking and NMS,
+    the forward and a step. Returns the launches per step or call of each
+    path."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps import eval_fcos
+    from handnet_tpu_torch.config import FCOSConfig, TrainConfig
+    from handnet_tpu_torch.data.voc100doh import VOC100DOH, VOCDetectSource
+    from handnet_tpu_torch.train.trainer import RCNNTrainer
+
+    root, voc = os.path.join(work, "tree"), os.path.join(work, "voc")
+    common = ["--net", "rcnn", "--num-proposals", str(RCNN_PROPOSALS), "--batch",
+              str(TRAIN_BATCH), "--workers", str(FCOS_APPS_WORKERS), "--image-h",
+              str(FCOS_APPS_IMAGE[0]), "--image-w", str(FCOS_APPS_IMAGE[1]), "--device", device_arg]
+    paths = {}
+    res, paths["train_rcnn"] = rcnn_train_cli(
+        "train_fcos --net rcnn (batch-norm backbone, synthetic tree)",
+        common + ["--data-dir", root, "--synthetic", str(FCOS_APPS_SEQUENCES), "--epochs",
+                  str(RCNN_EPOCHS), "--backbone-norm", "batch", "--output",
+                  os.path.join(work, "rcnn_batch")], 0)
+    # a train step alone at the recipe, on a seeded batch, from the trained state
+    cfg = FCOSConfig(num_classes=23, image_h=FCOS_APPS_IMAGE[0], image_w=FCOS_APPS_IMAGE[1])
+    trainer = RCNNTrainer(cfg, TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, optimizer="sgd",
+                                           warmup_epochs=1),
+                          backbone_norm="batch", num_proposals=RCNN_PROPOSALS, device=dev)
+    state, batch = res["state"], train_batch(dev, cfg, SEED)
+    del res
+    step = lambda: trainer.train_step(state, batch)[1]["total_loss"]   # noqa: E731
+    for _ in range(2):
+        step().item()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(step, iters=RCNN_TIMED_STEPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    last = step().item()
+    if not np.isfinite(last):
+        raise AssertionError(f"rcnn step alone: loss {last}")
+    log("rcnn", f"a train step alone at batch {TRAIN_BATCH}, {cfg.image_h}x{cfg.image_w} bf16, "
+        f"{RCNN_PROPOSALS} proposals: {step_ms:.3f} ms (CUDA events over "
+        f"{RCNN_TIMED_STEPS} steps), peak device memory {peak:.2f} GiB, loss {last:.4f}; {card}")
+    train_step_profile(trainer, state, batch, "rcnn")
+    timings = rcnn_timings(dev, state.model, batch, card)
+    del state, batch, trainer
+    free_device_memory(dev)
+
+    res, paths["train_rcnn_voc_group"] = rcnn_train_cli(
+        "train_fcos --net rcnn --voc-root --backbone-norm group",
+        common + ["--voc-root", voc, "--epochs", str(RCNN_EPOCHS), "--backbone-norm", "group",
+                  "--output", os.path.join(work, "rcnn_group")], BACKBONE_GN_LAYERS)
+    src = VOCDetectSource(VOC100DOH(voc), target_size=FCOS_APPS_IMAGE)
+    images = torch.from_numpy(np.stack([src[i]["image"] for i in range(TRAIN_BATCH)])).to(dev)
+    errs = rcnn_gn_kernels_vs_plain(dev, res["state"].model, images)
+    log("rcnn", f"the trained GroupNorm backbone on one VOC batch, f32 TF32 off, kernels vs "
+        f"plain ({BACKBONE_GN_LAYERS} GroupNorms, K2s/K2a {BACKBONE_GN_LAYERS} each with "
+        "kernels, 0 without): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" of each one's scale (tol {FCOS_BACKBONE_GN_TOL:g})")
+    del res, images
+    free_device_memory(dev)
+
+    # eval_fcos --net rcnn from a short frozen-backbone run's weights, reference-keyed
+    res, _ = rcnn_train_cli(
+        "train_fcos --net rcnn --voc-root --backbone-norm frozen",
+        common + ["--voc-root", voc, "--epochs", str(RCNN_FROZEN_EPOCHS), "--backbone-norm",
+                  "frozen", "--output", os.path.join(work, "rcnn_frozen")], 0)
+    ckpt = os.path.join(work, "rcnn_frozen.pth")
+    torch.save({"model": {k: v.detach().cpu() for k, v in
+                          res["state"].model.state_dict().items()}}, ckpt)
+    del res
+    free_device_memory(dev)
+    n_voc = len(VOC100DOH(voc, "trainval").image_index)
+    calls = math.ceil(n_voc / FCOS_APPS_EVAL_BATCH)
+    text = io.StringIO()
+    reset_launch_counts()
+    with contextlib.redirect_stdout(text):
+        results = eval_fcos.main(["--net", "rcnn", "--voc-root", voc, "--image-set", "trainval",
+                                  "--torch-checkpoint", ckpt, "--num-proposals",
+                                  str(RCNN_PROPOSALS), "--batch", str(FCOS_APPS_EVAL_BATCH),
+                                  "--image-h", str(FCOS_APPS_IMAGE[0]), "--image-w",
+                                  str(FCOS_APPS_IMAGE[1]), "--score-thresh",
+                                  str(FCOS_APPS_EVAL_THRESH), "--device", device_arg,
+                                  "--output", os.path.join(work, "rcnn_eval")])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    fps = float(re.search(r"FPS: ([0-9.]+)", text.getvalue()).group(1))
+    rows = detection_rows(os.path.join(work, "rcnn_eval"))
+    fields = {len(r) for rs in rows.values() for r in rs}
+    if (any(launches.values()) or fields - {11} or not any(rows.values())
+            or not all(np.isfinite(v) for v in results.values())):
+        raise AssertionError(f"eval_fcos --net rcnn: launches {launches}, fields {fields}, rows "
+                             f"{ {n: len(r) for n, r in rows.items()} }, results {results}")
+    paths["eval_rcnn"] = per_call(launches, calls)
+    firsts = "; ".join(" ".join(r[:6]) for rs in rows.values() for r in rs[:2])
+    log("rcnn", f"eval_fcos --net rcnn over {n_voc} frames at batch {FCOS_APPS_EVAL_BATCH}: "
+        f"{ {n: len(r) for n, r in rows.items()} } 11-field rows (first: {firsts}); AP "
+        + ", ".join(f"{k} {v:.4f}" for k, v in results.items())
+        + f" (finite); FPS {fps:.2f} (detect between CUDA events); no launch of ours; {card}")
+    free_device_memory(dev)
+    return {"paths": paths, "timings": {**timings, "step_ms": step_ms, "peak_gib": peak}}
 
 
 def host_decoders() -> str:
@@ -4088,12 +4360,18 @@ def main() -> int:
     # the A2J apps through their entry points
     by_path.update(phase_a2j_apps(dev))
     lap("a2j_apps")
-    # the FCOS apps and train_a2j --rgbd through their entry points
-    fcos_apps = phase_fcos_apps(dev)
-    by_path.update(fcos_apps["paths"])
-    for name, shapes in fcos_apps["shapes"].items():
-        results[name]["backbone_shapes"] = shapes
-    lap("fcos_apps")
+    # the FCOS apps and train_a2j --rgbd through their entry points, then
+    # the Faster R-CNN's on the same trees
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as trees:
+        fcos_apps = phase_fcos_apps(dev, trees)
+        by_path.update(fcos_apps["paths"])
+        for name, shapes in fcos_apps["shapes"].items():
+            results[name]["backbone_shapes"] = shapes
+        lap("fcos_apps")
+        by_path.update(phase_rcnn(dev, trees, smi)["paths"])
+        lap("rcnn")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

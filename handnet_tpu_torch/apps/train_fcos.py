@@ -21,17 +21,18 @@ CLI scales them.
 Training is ``train/trainer.py``'s ``FCOSTrainer`` with SGD, a one-epoch
 warmup and ``--backbone-norm`` (``batch``, ``frozen`` or ``group``): the
 head's 24 GroupNorms, and a ``group`` backbone's 36, run kernels K2s and
-K2a on the card. One card takes the whole batch (``--batch``). A
-non-finite loss stops the run with exit code 1, as the JAX CLI does; the
-check reads each step's loss after the next step is launched, so the host
-does not wait for the card at every step. ``--net rcnn`` (the Faster R-CNN
-alternative) is not ported (ROADMAP item 12) and raises.
+K2a on the card. ``--net rcnn`` trains the Faster R-CNN alternative
+instead (``RCNNTrainer``, ``--num-proposals`` per image; only a ``group``
+backbone launches kernels, 36 of each per step). One card takes the whole
+batch (``--batch``). A non-finite loss stops the run with exit code 1, as
+the JAX CLI does; the check reads each step's loss after the next step is
+launched, so the host does not wait for the card at every step.
 
 Usage:
   python -m handnet_tpu_torch.apps.train_fcos --data-dir $DEX_YCB_DIR
       [--synthetic N] [--voc-root DIR] [--epochs 45] [--batch 8]
       [--image-h 800 --image-w 1088] [--backbone-norm batch|frozen|group]
-      [--device cpu]
+      [--net fcos|rcnn] [--num-proposals 128] [--device cpu]
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from handnet_tpu_torch.data.detect_data import DetectDataSource
 from handnet_tpu_torch.data.dexycb import DexYCBDataset, refine_indices
 from handnet_tpu_torch.data.loader import PrefetchLoader
 from handnet_tpu_torch.train.checkpoints import CheckpointManager
-from handnet_tpu_torch.train.trainer import FCOSTrainer, resolve_device
+from handnet_tpu_torch.train.trainer import FCOSTrainer, RCNNTrainer, resolve_device
 from handnet_tpu_torch.utils.meters import AverageMeters
 from handnet_tpu_torch.utils.monitoring import Monitor
 
@@ -77,8 +78,9 @@ def parse_args(argv=None):
                         help="train on 100DOH VOC (sets num_classes=3)")
     parser.add_argument("--voc-image-set", default="trainval")
     parser.add_argument("--net", default="fcos", choices=["fcos", "rcnn"],
-                        help="detector family (the reference's --net flag); 'rcnn' is "
-                             "not ported")
+                        help="detector family, like the reference's --net flag "
+                             "(trainval_net_fcos.py:184-187): 'rcnn' trains the Faster R-CNN "
+                             "alternative")
     parser.add_argument("--num-proposals", type=int, default=128,
                         help="rcnn only: fixed per-image proposal budget")
     parser.add_argument("--backbone-norm", default="batch",
@@ -164,9 +166,6 @@ def main(argv=None) -> dict:
     epoch spent waiting on the loader), the sample count and the trained
     ``state``."""
     args = parse_args(argv)
-    if args.net == "rcnn":
-        raise NotImplementedError("train_fcos --net rcnn: the Faster R-CNN alternative "
-                                  "is not ported (ROADMAP item 12)")
     device = resolve_device("train_fcos", args.device)
 
     os.makedirs(args.output, exist_ok=True)
@@ -182,8 +181,13 @@ def main(argv=None) -> dict:
                            image_h=args.image_h, image_w=args.image_w)
     train_cfg = TrainConfig(batch_size=batch, lr=args.lr, bf16=args.bf16,
                             optimizer="sgd", warmup_epochs=1)
-    trainer = FCOSTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
-                          backbone_norm=args.backbone_norm, device=device)
+    if args.net == "rcnn":
+        trainer = RCNNTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
+                              backbone_norm=args.backbone_norm,
+                              num_proposals=args.num_proposals, device=device)
+    else:
+        trainer = FCOSTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
+                              backbone_norm=args.backbone_norm, device=device)
     state = trainer.init_state(train_cfg.seed)
 
     ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"))

@@ -1,13 +1,15 @@
 """JAX package variables <-> port state dicts.
 
 The inverse of ``handnet_tpu/convert/torch_weights.py`` ``convert_fcos``
-(:122), ``convert_a2j`` (:89) and ``convert_pose2mesh`` (:256): a
+(:122), ``convert_a2j`` (:89), ``convert_faster_rcnn`` (:180) and
+``convert_pose2mesh`` (:256): a
 ``{"params", "batch_stats"}`` tree of numpy (or jax) arrays becomes a state
 dict in the reference's torch names, which the port's modules load with
 ``load_state_dict(strict=True)``. ``convert_fcos(fcos_state_dict_from_flax(v))``
 gives back ``v``'s params and batch_stats leaf for leaf, and likewise for
-A2J and Pose2Mesh. The other way, :func:`fcos_variables_from_state_dict`,
-:func:`a2j_variables_from_state_dict` and
+A2J, Faster R-CNN and Pose2Mesh. The other way,
+:func:`fcos_variables_from_state_dict`, :func:`a2j_variables_from_state_dict`,
+:func:`faster_rcnn_variables_from_state_dict` and
 :func:`pose2mesh_variables_from_state_dict` give a port model's state dict
 (a trained one too) as the flax tree, which ``train/checkpoints.py`` writes
 as the JAX package's params npz.
@@ -15,6 +17,8 @@ as the JAX package's params npz.
 Layout rules (reversed from the JAX package's converter):
   flax conv kernel [kh, kw, I, O] -> torch weight [O, I, kh, kw]
   flax dense kernel [I, O]        -> torch weight [O, I]
+  (Faster R-CNN's fc6: the flax rows flatten the pooled roi [7, 7, C],
+   the torch columns [C, 7, 7])
   norm params scale/bias          -> weight/bias
   batch_stats mean/var            -> running_mean/running_var
   quant_stats act_amax            -> act_amax (a static QuantConv's buffer)
@@ -261,6 +265,70 @@ def a2j_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
     A2J variables: what ``convert_a2j`` gives; the inverse of
     :func:`a2j_state_dict_from_flax`."""
     return _variables(state_dict, _a2j_path)
+
+
+_RCNN_RPN = {"conv": "conv", "objectness": "cls_logits", "deltas": "bbox_pred"}
+_RCNN_PREDICTOR = {"cls_score": "cls_score", "bbox_pred": "bbox_pred",
+                   "contact_fc1": "hand_contact_state_layer.0",
+                   "contact_fc2": "hand_contact_state_layer.3",
+                   "dxdy": "hand_dydx_layer", "hand_side": "hand_lr_layer"}
+_FC6 = "roi_heads.box_head.fc6.weight"
+
+
+def _rcnn_name(path: Tuple[str, ...]) -> str:
+    """flax ``FasterRCNNFPN`` path -> the reference's name."""
+    top, *rest = path
+    if top in ("backbone", "fpn"):
+        return _fcos_name(path)
+    if top == "rpn_head":
+        return f"rpn.head.{_RCNN_RPN[rest[0]]}"
+    if top == "box_head":
+        return f"roi_heads.box_head.{rest[0]}"
+    if top == "predictor":
+        return f"roi_heads.box_predictor.{_RCNN_PREDICTOR[rest[0]]}"
+    raise KeyError(f"unmapped faster_rcnn path: {'/'.join(path)}")
+
+
+def _rcnn_path(name: str) -> Tuple[str, ...]:
+    """Inverse of :func:`_rcnn_name`."""
+    if name.startswith("backbone."):
+        return _fcos_path(name)
+    for prefix, top, names in (("rpn.head.", "rpn_head", _RCNN_RPN),
+                               ("roi_heads.box_head.", "box_head", {"fc6": "fc6", "fc7": "fc7"}),
+                               ("roi_heads.box_predictor.", "predictor", _RCNN_PREDICTOR)):
+        if name.startswith(prefix):
+            for flax_name, torch_name in names.items():
+                if name[len(prefix):] == torch_name:
+                    return (top, flax_name)
+    raise KeyError(f"unmapped faster_rcnn module: {name}")
+
+
+def _fc6_rows(weight: torch.Tensor, src: str) -> torch.Tensor:
+    """fc6's ``[O, 49 C]`` weight with its input columns reordered from the
+    pooled roi flattened ``src`` (``"hwc"`` or ``"chw"``) to the other."""
+    o, flat = weight.shape
+    c = flat // 49
+    if src == "hwc":
+        return weight.reshape(o, 7, 7, c).permute(0, 3, 1, 2).reshape(o, flat).contiguous()
+    return weight.reshape(o, c, 7, 7).permute(0, 2, 3, 1).reshape(o, flat).contiguous()
+
+
+def faster_rcnn_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """Faster R-CNN variables (``FasterRCNNFPN.init``) -> port
+    ``FasterRCNNFPN`` state dict (fc6's columns in the reference's ``[C, 7,
+    7]`` order)."""
+    out = _state_dict(variables, _rcnn_name)
+    out[_FC6] = _fc6_rows(out[_FC6], "hwc")
+    return out
+
+
+def faster_rcnn_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """Port ``FasterRCNNFPN`` state dict -> the JAX package's Faster R-CNN
+    variables: what ``convert_faster_rcnn`` gives; the inverse of
+    :func:`faster_rcnn_state_dict_from_flax`."""
+    state_dict = dict(state_dict)
+    state_dict[_FC6] = _fc6_rows(state_dict[_FC6].detach().cpu(), "chw")
+    return _variables(state_dict, _rcnn_path)
 
 
 def pose2mesh_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:

@@ -5,9 +5,10 @@ machine does not have. :class:`CheckpointManager` keeps its API and its
 keep-per-epoch semantics over ``torch.save`` of ``{step, model, optimizer}``
 (the model's state dict holds the running statistics, the optimizer's its
 momenta), one file per epoch. :func:`save_params_npz` writes the params (or
-the batch statistics) of a trainable model, FCOS, A2J or Pose2Mesh, under
-the flax tree's keys, the JAX package's ``save_params_npz`` format, so that
-``handnet_tpu``'s ``load_params_npz`` reads a model trained here;
+the batch statistics) of a trainable model, FCOS, A2J, Faster R-CNN or
+Pose2Mesh, under the flax tree's keys, the JAX package's
+``save_params_npz`` format, so that ``handnet_tpu``'s ``load_params_npz``
+reads a model trained here;
 :func:`load_params_npz` reads such a file back into the nested tree.
 """
 
@@ -22,9 +23,11 @@ import torch
 import torch.nn as nn
 
 from handnet_tpu_torch.convert.from_flax import (_leaves, a2j_variables_from_state_dict,
+                                                 faster_rcnn_variables_from_state_dict,
                                                  fcos_variables_from_state_dict, load_params_npz,
                                                  pose2mesh_variables_from_state_dict)
 from handnet_tpu_torch.models.a2j import A2J
+from handnet_tpu_torch.models.faster_rcnn import FasterRCNNFPN
 from handnet_tpu_torch.models.fcos import FCOS
 from handnet_tpu_torch.models.pose2mesh import Pose2Mesh
 
@@ -81,11 +84,12 @@ class CheckpointManager:
 
 
 _VARIABLES = ((FCOS, fcos_variables_from_state_dict), (A2J, a2j_variables_from_state_dict),
+              (FasterRCNNFPN, faster_rcnn_variables_from_state_dict),
               (Pose2Mesh, pose2mesh_variables_from_state_dict))
 
 
 def save_params_npz(path: str, model: nn.Module, collection: str = "params") -> None:
-    """A port FCOS, A2J or Pose2Mesh model's ``collection`` of the flax tree
+    """A port FCOS, A2J, Faster R-CNN or Pose2Mesh model's ``collection`` of the flax tree
     (``"params"``, or ``"batch_stats"``: the running statistics) as a flat
     npz (keys ``backbone/conv1/kernel``, ...), as the JAX package's
     ``save_params_npz(path, tree)`` writes ``state.params`` and
@@ -96,4 +100,4 @@ def save_params_npz(path: str, model: nn.Module, collection: str = "params") -> 
             np.savez(path, **{"/".join(p): v for p, v in _leaves(tree)})
             return
     raise TypeError(f"save_params_npz: {type(model).__name__} is not a trainable model of "
-                    "the port (FCOS, A2J or Pose2Mesh)")
+                    "the port (FCOS, A2J, Faster R-CNN or Pose2Mesh)")

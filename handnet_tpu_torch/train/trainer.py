@@ -1,5 +1,6 @@
 """Training on the card: the counterpart of ``handnet_tpu/train/trainer.py``
-(``TrainState``, ``make_optimizer``, ``A2JTrainer``, ``FCOSTrainer``).
+(``TrainState``, ``make_optimizer``, ``A2JTrainer``, ``FCOSTrainer``,
+``RCNNTrainer``).
 
 The JAX package jits one pure step ``state -> state``; here the step runs
 eagerly and updates the model and the optimizer in place (the JAX step
@@ -12,6 +13,9 @@ donates its state, so no caller keeps the old one either).
 * ``A2JTrainer``: the train step launches no kernel of the port (A2J has
   BatchNorm, and its loss is einsums); the eval step decodes through K1,
   one launch per call.
+* ``RCNNTrainer``: only a GroupNorm backbone launches kernels of the port
+  (K2s and K2a, 36 of each per step); RoIAlign, the RPN's ranking and NMS
+  and the heads' products are PyTorch.
 
 bf16 (``train_cfg.bf16``) has flax's ``dtype=bfloat16, param_dtype=float32``
 meaning: the parameters and the optimizer state stay float32, convolutions
@@ -34,6 +38,7 @@ import torch.nn as nn
 
 from handnet_tpu_torch.config import A2JConfig, FCOSConfig, TrainConfig
 from handnet_tpu_torch.models.a2j import A2JSystem, a2j_postprocess
+from handnet_tpu_torch.models.faster_rcnn import FasterRCNNFPN, rcnn_loss, rpn_loss
 from handnet_tpu_torch.models.fcos import FCOSSystem
 from handnet_tpu_torch.nn.resnet import make_norm
 from handnet_tpu_torch.train.schedules import Schedule, multistep_with_warmup, step_decay
@@ -256,6 +261,78 @@ class FCOSTrainer:
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.train_cfg.bf16):
             losses = model.loss(batch["image"], batch["targets"])
+        total = sum(losses.values())
+        state.update(total)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total_loss"] = total.detach()
+        return state, metrics
+
+
+class RCNNTrainer:
+    """Faster R-CNN training (the reference's ``--net resXX`` alternative,
+    trainval_net_fcos.py:184-187; ``handnet_tpu/train/trainer.py:257-353``):
+    the RoI heads' and the RPN's losses summed in the JAX package's order,
+    with :class:`FCOSTrainer`'s optimizer, schedule and refusals.
+
+    The model is ``FasterRCNNFPN(backbone_norm=...)`` at ``model_cfg``'s
+    classes and input size, always in training mode, as the JAX step
+    applies it with ``train=True``: a ``"batch"`` backbone takes the batch's
+    statistics, and the contact head's dropout draws from a
+    ``torch.Generator`` seeded from ``(train_cfg.seed + 1, step)`` on the
+    trainer's device (the JAX step folds the step into its PRNG key; the
+    two draws cannot be equal).
+
+    ``device``: None (the default) is the card and raises where there is
+    none; pass ``"cpu"`` to train there. The batch is :class:`FCOSTrainer`'s.
+    Under bf16 the forward runs in the autocast region and the losses
+    outside it, as ``a2j_loss`` does: RoIAlign's taps are float32 there
+    too, and the losses read the heads' outputs as float32.
+    """
+
+    def __init__(self, model_cfg: Optional[FCOSConfig] = None,
+                 train_cfg: Optional[TrainConfig] = None, mesh=None,
+                 steps_per_epoch: int = 1000,
+                 milestones_epochs: Sequence[int] = (20, 35),
+                 backbone_norm: str = "frozen", num_proposals: int = 128, device=None):
+        self.device = resolve_device("RCNNTrainer", device, mesh)
+        make_norm(backbone_norm)   # raises for a norm the port has not
+        self.model_cfg = model_cfg or FCOSConfig()
+        self.train_cfg = train_cfg or TrainConfig()
+        self.backbone_norm = backbone_norm
+        self.num_proposals = num_proposals
+        self.schedule = multistep_with_warmup(
+            self.train_cfg.lr, steps_per_epoch, milestones_epochs,
+            warmup_epochs=1.0 if self.train_cfg.warmup_epochs else 0.0)
+
+    def init_state(self, seed: int) -> TrainState:
+        """A detector with seeded random weights
+        (``FasterRCNNFPN.init_weights_``) on the trainer's device,
+        channels_last, and a fresh optimizer."""
+        cfg = self.model_cfg
+        model = FasterRCNNFPN(cfg.num_classes, cfg.image_h, cfg.image_w, self.num_proposals,
+                              backbone_norm=self.backbone_norm)
+        model.init_weights_(torch.Generator().manual_seed(seed))
+        model.to(self.device, memory_format=torch.channels_last)
+        return TrainState(0, model, make_optimizer(self.train_cfg, model.parameters()),
+                          self.schedule)
+
+    def dropout_generator(self, step: int) -> torch.Generator:
+        """The contact head's dropout draws at ``step``."""
+        return torch.Generator(self.device).manual_seed(
+            ((self.train_cfg.seed + 1) << 32) + step)
+
+    def train_step(self, state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One update on ``batch`` = ``{"image": [B, H, W, 3] preprocessed
+        frames, "targets": {"boxes", "labels", "valid"[, "box_info"]}}``.
+        Returns ``state`` (updated in place) and the loss dict plus
+        ``"total_loss"``, detached."""
+        model = state.model.train()
+        with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                            enabled=self.train_cfg.bf16):
+            out = model(batch["image"], self.dropout_generator(state.step))
+        losses = rcnn_loss(out, batch["targets"], self.model_cfg.num_classes)
+        losses.update(rpn_loss(out, model.anchors, batch["targets"]))
         total = sum(losses.values())
         state.update(total)
         metrics = {k: v.detach() for k, v in losses.items()}

@@ -341,9 +341,9 @@ def test_group_norm_backbone_steps_match_jax():
 def test_train_fcos_first_batch_files_and_refusals(trees, monkeypatch, tmp_path):
     """The port's CLI on the port's tree at 64x96: its first batch equals
     the one JAX's CLI hands its trainer (batch 8, the test mesh's 8 CPU
-    devices), it writes the files JAX's CLI writes, ``--net rcnn`` raises
-    naming ROADMAP item 12, and without ``--device`` it raises where there
-    is no card."""
+    devices), it writes the files JAX's CLI writes, and without
+    ``--device`` it raises where there is no card. (``--net rcnn`` runs:
+    tests/test_torch_port_rcnn_apps.py.)"""
     _, proot, _, _ = trees
     common = ["--data-dir", proot, "--synthetic", "4", "--image-h", "64", "--image-w", "96",
               "--batch", "8", "--epochs", "1", "--workers", "1", "--no-bf16"]
@@ -374,10 +374,6 @@ def test_train_fcos_first_batch_files_and_refusals(trees, monkeypatch, tmp_path)
     written = {os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs}
     assert {"train.txt", "metrics.json", "metrics.html", "checkpoints/0.pt",
             "cache/refined_train_idx.pkl"} <= written
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_fcos.main(["--net", "rcnn", "--device", "cpu", "--output", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eval_fcos.main(["--voc-root", proot, "--net", "rcnn", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_fcos.main(common + ["--output", str(tmp_path / "nocard")])

@@ -268,6 +268,19 @@ with tempfile.TemporaryDirectory() as root:
     voc = voc100doh.VOCDetectSource(voc100doh.VOC100DOH(os.path.join(root, "voc")),
                                     target_size=(64, 96))[0]
     assert voc["image"].shape == (64, 96, 3) and voc["target_valid"][0]
+from handnet_tpu_torch.models.faster_rcnn import decode_rcnn_detections
+from handnet_tpu_torch.train.trainer import RCNNTrainer
+rcnn = RCNNTrainer(C.FCOSConfig(num_classes=3, image_h=64, image_w=96),
+                   C.TrainConfig(optimizer="sgd", lr=1e-3, warmup_epochs=1), steps_per_epoch=4,
+                   backbone_norm="group", num_proposals=8, device="cpu")
+rcnn_state = rcnn.init_state(0)
+rcnn_targets = dict(targets, labels=valid.int() * 2)
+rcnn_state, metrics = rcnn.train_step(rcnn_state, {"image": image, "targets": rcnn_targets})
+assert rcnn_state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
+with torch.no_grad():
+    det = decode_rcnn_detections(rcnn_state.model.eval()(image), 3, max_dets=8,
+                                 image_hw=(64, 96))
+assert tuple(det["boxes"].shape) == (2, 8, 4)
 from handnet_tpu_torch.config import load_config
 assert load_config(yaml_path="configs/fast.yaml").fcos.image_h > 0
 loaded = sorted(m for m in sys.modules
@@ -283,8 +296,9 @@ def test_port_imports_no_jax():
     full-width QUANT_STATIC pipeline, runs the mesh head (``with_mesh``) and
     the MANO layer, imports the server, the artifact module, the export CLI
     and the rotations, imports the training package and takes one CPU train
-    step of ``FCOSTrainer``, one train and one eval step of ``A2JTrainer``
-    and one step of the Pose2Mesh app's ``train_step``, builds a small
+    step of ``FCOSTrainer``, one train and one eval step of ``A2JTrainer``,
+    one step of the Pose2Mesh app's ``train_step`` and one of
+    ``RCNNTrainer`` (GroupNorm backbone) with a decode of its forward, builds a small
     synthetic DexYCB tree, draws a batch through ``A2JDataSource`` and
     ``PrefetchLoader``, runs ``HPEEvaluator``, imports the A2J and FCOS
     apps, decodes a colour JPEG, builds a ``DetectDataSource`` item and a
