@@ -185,6 +185,32 @@ fcos_apps (after a2j_apps, before the idle shares): the FCOS apps through
    --rgbd`` (1 epoch at the recipe): finite losses, K1 ceil(n / 64) per
    eval sweep.
 
+demo_apps (after rcnn, on fcos_apps' tree): the demo apps through their
+   entry points, on seed-2 weights written as reference-keyed FCOS and A2J
+   checkpoints (the apps' ``--fcos-checkpoint``/``--a2j-checkpoint``).
+   ``demo.main`` on the synthetic source: 32 frames of 480x640 into the
+   default 800x1088 geometry, bf16, B=1, score threshold 0 (every frame
+   found, joints finite, K2s/K2a 24 and K1 1 per frame and nothing else;
+   steady-state frames/s and ms per frame, each frame until the card has
+   finished it); again with ``--flip-left --render-mesh`` on 8 frames (one
+   overlay PNG and a finite [778, 3] mesh per found frame, the saved xyz ==
+   ``convert_joints`` of the saved uvd and box; the host's overlay ms per
+   frame); the demo's pipeline in float32, kernels against plain versions
+   (1e-2 px); ``FolderSource`` over 8 of the tree's colour/depth pairs (==
+   ``cv2.imread`` where cv2 imports, a gate) and ``demo.main --source
+   folder`` over them; ``a2j_mesh.main --synthetic 4 --limit 8`` (K1 8,
+   finite joints and meshes, the npz keys); ``HandNetRosNode`` over a
+   started fast ``PipelineServer`` (480x640, bf16, buckets 1/8/128): 32
+   pairs, 16UC1 and 32FC1 in turns, and one pair outside the slop, each
+   paired frame published once with its stamp, ``joints_xyz`` ==
+   ``convert_joints`` of the payload, the payloads == the eager forward of
+   each dispatch's padded wire batch within 1e-2 px; ``a2j_infer --vis``
+   over 16 depth PNGs (one ``_vis.jpg`` each; where cv2 imports, the
+   skeletons == cv2's circle/line and the files == ``cv2.imwrite``'s
+   bytes); ``utils/statepack.py`` on train's and train_a2j's trained
+   models (bit-equal back, the loaded A2J's predict through K1 == the
+   saved one's).
+
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it; and the host's
 decoders (cv2 and the JPEG library it bundles, PIL, yaml, g++, libnvjpeg),
@@ -198,7 +224,9 @@ wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
 ``eval_a2j`` per eval step, ``a2j_apps_eval`` per batch of the CLI's eval
 sweeps, ``a2j_infer`` per batch of the app, ``train_fcos_app`` and
 ``train_fcos_voc_group`` per step of the CLI, ``eval_fcos`` per detect
-call, ``train_a2j_rgbd_eval`` per eval batch), K2s's and K2a's ``shapes``
+call, ``train_a2j_rgbd_eval`` per eval batch, ``demo`` per frame,
+``a2j_mesh`` per sample, ``ros_node`` per eager call of its server's
+capture), K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
 the GroupNorm backbone's.
 
@@ -370,6 +398,14 @@ RCNN_FROZEN_EPOCHS = 1            # the short --backbone-norm frozen run whose w
 RCNN_ROI = 7                      # RoIAlign's output, 7 x 7 bins of 2 x 2 taps
 RCNN_NMS_CANDIDATES = 2 * RCNN_PROPOSALS
 RCNN_TIMED_STEPS = 5
+# [demo_apps]
+DEMO_FRAMES = 32                  # demo.main on the synthetic source, B=1
+DEMO_MESH_FRAMES = 8              # --flip-left --render-mesh
+DEMO_FOLDER_FRAMES = 8            # --source folder over the synthetic tree
+DEMO_TOL = 1e-2                   # px: kernels vs plain; served vs eager
+A2J_MESH_SAMPLES = 8
+ROS_PAIRS = 32
+A2J_VIS_FRAMES = 16
 
 
 def log(phase: str, msg: str) -> None:
@@ -2794,6 +2830,7 @@ def phase_train(dev, cfg) -> dict:
         + f" ({total[-1] / total[0]:.4f} of the first; tol < {TRAIN_LEARN_SHARE})")
     log("train", "last step's terms: " + ", ".join(f"{k} {v[-1]:.4f}" for k, v in losses.items()))
     train_step_profile(trainer, state, batch)
+    TRAINED["fcos"] = (state.model.cpu(), cfg)   # for [demo_apps]' statepack
     del trainer, state, metrics
     free_device_memory(dev)
 
@@ -3034,6 +3071,7 @@ def phase_train_a2j(dev) -> dict:
         f"{A2J_EVAL_TOL:g} of {scale:.1f}), two runs bit-equal; rmse {rmse.item():.4f} vs "
         f"{rmse_plain.item():.4f} ({rmse_err:.2e}, tol {A2J_RMSE_TOL:g}); launches per eval "
         f"step {per_call(eval_launches, 2)}")
+    TRAINED["a2j"] = (state.model.cpu(), cfg)    # for [demo_apps]' statepack
     del trainer, state, batch, metrics
     free_device_memory(dev)
     return {"train_a2j": per_call(train_launches, TRAIN_STEPS),
@@ -4226,6 +4264,446 @@ def phase_rcnn(dev, work: str, card: str, device_arg: str = "cuda") -> dict:
     return {"paths": paths, "timings": {**timings, "step_ms": step_ms, "peak_gib": peak}}
 
 
+# --- the demo apps: demo, a2j_mesh, the ROS node's core, a2j_infer --vis, statepack ---
+
+# the trained models of [train] and [train_a2j] (on the host, with their
+# configs), which [demo_apps] packs with utils/statepack.py
+TRAINED: dict = {}
+
+
+def device_sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def save_reference_checkpoints(demo, work: str) -> list:
+    """Seed-2 weights of the demo's pipeline at its default geometry,
+    written as reference-keyed FCOS and A2J checkpoints; returns the
+    demo's ``--fcos-checkpoint``/``--a2j-checkpoint`` arguments."""
+    import os
+
+    import torch
+
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+
+    cfg = demo.build_config(demo.parse_args(["--a2j-checkpoint", "a2j.pth"]))
+    state = HandNetPipeline(cfg, seed=SEED, device="cpu").state_dict()
+    args = []
+    for part, flag in (("detector", "--fcos-checkpoint"), ("a2j", "--a2j-checkpoint")):
+        path = os.path.join(work, f"{part}.pth")
+        torch.save({k[len(part) + 1:]: v for k, v in state.items()
+                    if k.startswith(part + ".")}, path)
+        args += [flag, path]
+    return args
+
+
+def demo_runs(dev, demo, work: str, ckpt: list, device_arg: str) -> dict:
+    """``demo.main`` on the synthetic source at the default geometry (bf16,
+    score threshold 0), then with ``--flip-left --render-mesh``; the
+    float32 forward built as the demo builds it, kernels against plain
+    versions. Returns the launches per frame."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.ops.geometry import convert_joints
+
+    base = ["--score-thresh", "0", "--device", device_arg] + ckpt
+    os.makedirs(os.path.join(work, "demo"))
+    reset_launch_counts()
+    res = demo.main(base + ["--frames", str(DEMO_FRAMES), "--out",
+                            os.path.join(work, "demo", "res.npz")])
+    device_sync(dev)
+    launches = launch_counts()
+    want = expected_launches(DEMO_FRAMES, GN_LAYERS_PER_CALL)
+    finite = all(np.isfinite(r["joints_uvd"]).all() and np.isfinite(r["joints_xyz"]).all()
+                 for r in res["results"])
+    if launches != want or res["found"] != DEMO_FRAMES or not finite:
+        raise AssertionError(f"demo: launches {launches} (expected {want}), found "
+                             f"{res['found']}/{DEMO_FRAMES}, finite {finite}")
+    log("demo_apps", f"demo.main, synthetic 480x640 into the default 800x1088 geometry, bf16, "
+        f"B=1: {DEMO_FRAMES} frames, all found, joints finite; launches {launches} (K2s/K2a "
+        f"{GN_LAYERS_PER_CALL} and K1 1 per frame, nothing else); steady state "
+        f"{res['fps']:.2f} frames/s, {res['ms_per_frame']:.3f} ms per frame (host clock, each "
+        "frame from the call until the card has finished it)")
+
+    mesh_dir = os.path.join(work, "demo_mesh")
+    reset_launch_counts()
+    res = demo.main(base + ["--frames", str(DEMO_MESH_FRAMES), "--flip-left", "--render-mesh",
+                            "--out", os.path.join(mesh_dir, "res.npz")])
+    device_sync(dev)
+    mesh_launches = launch_counts()
+    want = expected_launches(DEMO_MESH_FRAMES, GN_LAYERS_PER_CALL)
+    paras = torch.tensor([[600.0, 600.0, 320.0, 240.0]])
+    found = [i for i, r in enumerate(res["results"]) if r["found"]]
+    overlays = sorted(f for f in os.listdir(mesh_dir) if f.startswith("overlay_"))
+    err = 0.0
+    for i in found:
+        r = res["results"][i]
+        if r["mesh"].shape != (MESH_VERTS, 3) or not np.isfinite(r["mesh"]).all():
+            raise AssertionError(f"demo --render-mesh: frame {i} mesh {r['mesh'].shape}")
+        xyz = convert_joints(torch.from_numpy(r["joints_uvd"][None]),
+                             torch.from_numpy(r["box"][None]), paras, 176, 176)[0]
+        err = max(err, check(f"demo --flip-left frame {i} xyz", torch.from_numpy(
+            r["joints_xyz"]), xyz, 1e-3))
+    if (mesh_launches != want or overlays != [f"overlay_{i:04d}.png" for i in found]
+            or len(found) != DEMO_MESH_FRAMES):
+        raise AssertionError(f"demo --flip-left --render-mesh: launches {mesh_launches}, found "
+                             f"{found}, overlays {overlays}")
+    log("demo_apps", f"demo.main --flip-left --render-mesh: {DEMO_MESH_FRAMES} frames, all "
+        f"found, one overlay_NNNN.png each, a finite [{MESH_VERTS}, 3] mesh each, xyz == "
+        f"convert_joints of the saved uvd and box (max |err| {err:.3e} mm); launches "
+        f"{mesh_launches}; the host's overlay (raster + PNG) {res['overlay_ms']:.3f} ms per "
+        f"frame; {res['ms_per_frame']:.3f} ms per frame on the card")
+
+    # float32, TF32 off: the demo's forward with kernels against plain versions
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    args = demo.parse_args(base)
+    rgb, depth = zip(*demo.SyntheticSource(2, seed=1).frames())
+    frames = (torch.from_numpy(np.stack(rgb)).to(dev), torch.from_numpy(np.stack(depth)).to(dev),
+              paras.repeat(2, 1).to(dev))
+    outs = [demo.build_pipeline(args, dev, torch.float32, use_kernels=k)(*frames)
+            for k in (True, False)]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = compare_outputs("demo f32 kernels vs plain", outs[0], outs[1], DEMO_TOL)
+    log("demo_apps", f"the demo's pipeline in float32 (TF32 off), 2 frames: the kernel path == "
+        f"the plain path on found/sides/boxes/crops, joints max |err| {err:.3e} (tol "
+        f"{DEMO_TOL:g} px, {10 * DEMO_TOL:g} mm)")
+    return per_call(launches, DEMO_FRAMES)
+
+
+def demo_folder(dev, demo, work: str, tree: str, ckpt: list, device_arg: str) -> None:
+    """``FolderSource`` over 8 colour/depth pairs of the synthetic tree:
+    where cv2 imports, its frames == ``cv2.imread``'s (the JAX app's
+    reads); then ``demo.main --source folder`` over them."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    folder = os.path.join(work, "frames")
+    os.makedirs(folder)
+    colors = sorted(glob.glob(os.path.join(tree, "**", "color_*.jpg"), recursive=True))
+    for i, color in enumerate(colors[:DEMO_FOLDER_FRAMES]):
+        os.symlink(color, os.path.join(folder, f"color_{i:04d}.jpg"))
+        os.symlink(color.replace("color_", "aligned_depth_to_color_").replace(".jpg", ".png"),
+                   os.path.join(folder, f"depth_{i:04d}.png"))
+    frames = list(demo.FolderSource(folder).frames())
+    try:
+        import cv2
+    except ImportError:
+        log("demo_apps", "FolderSource: cv2 is not installed, its reads are not compared")
+    else:
+        src = demo.FolderSource(folder)
+        for (rgb, depth), c, d in zip(frames, src.colors, src.depths):
+            if not (np.array_equal(rgb, cv2.imread(c)[:, :, ::-1].astype(np.float32) / 255.0)
+                    and np.array_equal(depth, cv2.imread(d, cv2.IMREAD_ANYDEPTH).astype(
+                        np.float32) / 1000.0)):
+                raise AssertionError(f"FolderSource: {c} or {d} differs from cv2.imread")
+        log("demo_apps", f"FolderSource: {len(frames)} colour/depth pairs of the synthetic tree "
+            f"== cv2 {cv2.__version__}'s imread (RGB/255, depth mm/1000), bit for bit")
+    reset_launch_counts()
+    res = demo.main(["--source", "folder", "--input", folder, "--score-thresh", "0",
+                     "--device", device_arg] + ckpt)
+    device_sync(dev)
+    launches = launch_counts()
+    n = len(res["results"])
+    finite = all(np.isfinite(r["joints_xyz"]).all() for r in res["results"])
+    if n != DEMO_FOLDER_FRAMES or not finite or launches != expected_launches(
+            n, GN_LAYERS_PER_CALL):
+        raise AssertionError(f"demo --source folder: {n} frames, finite {finite}, launches "
+                             f"{launches}")
+    log("demo_apps", f"demo.main --source folder: {n} frames, {res['found']} found, joints "
+        f"finite; launches {launches}")
+
+
+def a2j_mesh_run(dev, a2j_mesh, work: str, a2j_ckpt: str, device_arg: str) -> dict:
+    """``a2j_mesh.main --synthetic 4 --limit 8``: K1 once per sample, and
+    nothing else; finite joints and meshes under the JAX app's keys."""
+    import os
+
+    import numpy as np
+    import torch
+
+    reset_launch_counts()
+    start = time.perf_counter()
+    got = a2j_mesh.main(["--synthetic", "4", "--data-dir", os.path.join(work, "mesh_tree"),
+                         "--limit", str(A2J_MESH_SAMPLES), "--a2j-checkpoint", a2j_ckpt,
+                         "--out", os.path.join(work, "meshes.npz"), "--device", device_arg])
+    device_sync(dev)
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    n = A2J_MESH_SAMPLES
+    keys = {f"sample{i}_{k}" for i in range(n) for k in ("joints_xyz", "mesh")}
+    saved = np.load(os.path.join(work, "meshes.npz"))
+    ok = (set(got) == set(saved.files) == keys
+          and all(got[f"sample{i}_joints_xyz"].shape == (21, 3)
+                  and got[f"sample{i}_mesh"].shape == (MESH_VERTS, 3) for i in range(n))
+          and all(np.isfinite(v).all() for v in got.values()))
+    if launches != {**{k: 0 for k in launches}, "a2j_decode": n} or not ok:
+        raise AssertionError(f"a2j_mesh: launches {launches}, keys {sorted(got)}")
+    log("demo_apps", f"a2j_mesh.main --synthetic 4 --limit {n} (crop 176, float32): {n} finite "
+        f"joints [21, 3] and meshes [{MESH_VERTS}, 3] under sample<i>_joints_xyz/_mesh; "
+        f"launches {launches} (K1 once per sample); {seconds:.3f} s with the tree and the "
+        "builds")
+    return per_call(launches, n)
+
+
+def ros_node_run(dev, ros_node, cfg) -> dict:
+    """``HandNetRosNode`` over a started ``PipelineServer`` (fast at
+    480x640, bf16, buckets 1/8/128, seed-2 weights): 32 pairs, 16UC1 and
+    32FC1 in turns with depth stamps inside the 0.1 s slop, and one pair
+    outside it. Each paired frame is published once with its stamp,
+    ``joints_xyz`` == ``convert_joints`` of the payload, and the payloads ==
+    the eager forward of the dispatches' padded wire batches within
+    ``DEMO_TOL`` px. Returns the launches per eager call of the capture."""
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.graphs import WARMUP_CALLS
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+    from handnet_tpu_torch.ops.geometry import convert_joints
+
+    frame_hw = (480, 640)
+    server = serving_server(cfg, dev, HandNetPipeline(cfg, dtype=cfg_dtype(dev), device=dev,
+                                                      seed=SEED).state_dict(),
+                            SERVE_BUCKETS, frame_hw)
+    reset_launch_counts()
+    server.start()
+    device_sync(dev)
+    # the warm-up and capture calls of each bucket (none on the CPU)
+    calls = (WARMUP_CALLS + 1) * len(SERVE_BUCKETS) if dev.type == "cuda" else 0
+    capture = launch_counts()
+    if capture != expected_launches(calls, GN_LAYERS_PER_CALL):
+        raise AssertionError(f"ros_node: the server's capture launched {capture} in {calls} calls")
+    dispatches = []
+    dispatch = server._dispatch
+
+    def recording(items):   # the wire frames of each dispatch, and its bucket
+        out = dispatch(items)
+        bucket = next(b for b in server.batch_buckets if b >= len(items))
+        dispatches.append(([(fid, rgb, depth) for _, fid, rgb, depth, _ in items], bucket))
+        return out
+
+    server._dispatch = recording
+    published = []
+    node = ros_node.HandNetRosNode(server, lambda topic, p: published.append((topic, p)))
+    node.set_camera_info([600.0, 0, 320.0, 0, 600.0, 240.0, 0, 0, 1])
+    rgb, mm = wire_frames(8, seed=740, hw=frame_hw)
+    stamps = [100.0 + 0.5 * i for i in range(ROS_PAIRS)]
+    reset_launch_counts()
+    start = time.perf_counter()
+    try:
+        for i, t in enumerate(stamps):
+            node.on_rgb(t, rgb[i % 8].astype(np.float32) / 255.0)
+            if i % 2:
+                node.on_depth(t + 0.03, mm[i % 8].astype(np.float32) / 1000.0, "32FC1")
+            else:
+                node.on_depth(t + 0.08, mm[i % 8], "16UC1")
+        node.on_rgb(200.0, rgb[0].astype(np.float32) / 255.0)
+        node.on_depth(200.5, mm[0], "16UC1")          # outside the slop: no pair
+        got, deadline = 0, time.time() + 300
+        while got < ROS_PAIRS and time.time() < deadline:
+            got += node.drain(timeout=1.0)
+        seconds = time.perf_counter() - start
+        extra = node.drain(timeout=0.5)
+    finally:
+        server.stop()
+    served = launch_counts()
+    del server._dispatch
+    ids = sorted(p["frame_id"] for _, p in published)
+    if (got != ROS_PAIRS or extra or ids != list(range(ROS_PAIRS))
+            or sorted(p["stamp"] for _, p in published) != stamps
+            or {t for t, _ in published} != {"hand_pose"}
+            or (dev.type == "cuda" and any(served.values()))):
+        raise AssertionError(f"ros_node: published {got} (+{extra}) frames, ids {ids}, "
+                             f"launches while serving {served}")
+    by_id = {p["frame_id"]: p for _, p in published}
+    paras = torch.from_numpy(node.paras[None])
+    err_xyz = err = 0.0
+    for fid, p in by_id.items():
+        if not p["found"] or not np.isfinite(p["joints_uvd"]).all():
+            raise AssertionError(f"ros_node: frame {fid} not found or non-finite")
+        xyz = convert_joints(torch.from_numpy(p["joints_uvd"][None]),
+                             torch.from_numpy(p["boxes"][None]), paras, 176, 176)[0]
+        err_xyz = max(err_xyz, check(f"ros_node {fid} joints_xyz",
+                                     torch.from_numpy(p["joints_xyz"]), xyz, 1e-3))
+    for frames, bucket in dispatches:
+        fids = [f for f, _, _ in frames]
+        want = padded_eager(server._pipeline_forward, np.stack([r for _, r, _ in frames]),
+                            np.stack([d for _, _, d in frames]), bucket, dev)
+        for key in ("found", "boxes"):
+            if not torch.equal(torch.from_numpy(np.stack([by_id[f][key] for f in fids])),
+                               want[key]):
+                raise AssertionError(f"ros_node: {key} of frames {fids} != the eager forward")
+        err = max(err, check(f"ros_node frames {fids}", torch.from_numpy(
+            np.stack([by_id[f]["joints_uvd"] for f in fids])), want["joints_uvd"], DEMO_TOL))
+    log("demo_apps", f"HandNetRosNode over a started PipelineServer (fast, 480x640, bf16, "
+        f"buckets {list(SERVE_BUCKETS)}): {ROS_PAIRS} pairs (16UC1 and 32FC1 in turns; one pair "
+        f"outside the slop left unpaired) published once each with its stamp in "
+        f"{seconds:.3f} s over {len(dispatches)} dispatches "
+        f"{[len(f) for f, _ in dispatches]}; joints_xyz == convert_joints of the payload "
+        f"(max |err| {err_xyz:.3e} mm); payloads == the eager forward of each dispatch's "
+        f"padded wire batch (found, boxes exact; joints max |err| {err:.3e}, tol "
+        f"{DEMO_TOL:g} px); capture launches {capture} in {calls} eager calls, none while "
+        "serving (graph replays)")
+    del server, node
+    return per_call(capture, calls) if calls else capture
+
+
+def a2j_infer_vis(dev, work: str, tree: str, a2j_ckpt: str, device_arg: str) -> None:
+    """``a2j_infer.main --vis`` over 16 of the tree's depth PNGs: one
+    ``_vis.jpg`` per frame; where cv2 imports, the port's drawing ==
+    ``VisualUtil.plot``'s cv2 calls (``cv2.circle``, ``cv2.line``) pixel
+    for pixel, and each file == ``cv2.imwrite``'s bytes."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.apps import a2j_infer
+    from handnet_tpu_torch.utils import vistool
+
+    folder = os.path.join(work, "vis_pngs")
+    os.makedirs(folder)
+    pngs = sorted(glob.glob(os.path.join(tree, "**", "aligned_depth_to_color_*.png"),
+                            recursive=True))[:A2J_VIS_FRAMES]
+    for i, path in enumerate(pngs):
+        os.symlink(path, os.path.join(folder, f"{i:04d}.png"))
+    batch = 8
+    reset_launch_counts()
+    res = a2j_infer.main(["--input", folder, "--output", os.path.join(work, "vis"),
+                          "--torch-checkpoint", a2j_ckpt, "--batch", str(batch), "--vis",
+                          "--device", device_arg])
+    device_sync(dev)
+    launches = launch_counts()
+    names = [os.path.basename(p) for p in res["vis"]]
+    if (names != [f"{i:04d}_vis.jpg" for i in range(len(pngs))]
+            or not all(os.path.exists(p) for p in res["vis"])
+            or launches != {**{k: 0 for k in launches},
+                            "a2j_decode": math.ceil(len(pngs) / batch)}):
+        raise AssertionError(f"a2j_infer --vis: files {names}, launches {launches}")
+    try:
+        import cv2
+    except ImportError:
+        log("demo_apps", f"a2j_infer --vis: {len(names)} _vis.jpg files; cv2 is not installed, "
+            "the drawing is not compared")
+        return
+    vt = vistool.VisualUtil("dexycb")
+    frames = a2j_infer.read_frames(sorted(glob.glob(os.path.join(folder, "*.png"))), 176)
+    for crop, uvd, path in zip(frames, res["uvd"], res["vis"]):
+        vis = np.clip(crop[..., 0] * 255 / max(crop.max(), 1e-6), 0, 255).astype(np.uint8)
+        vis = np.repeat(vis[:, :, None], 3, axis=-1)
+        want = vis.copy()
+        for i, color in enumerate(vistool.COLOR_PRED):   # VisualUtil._plot_fingers with cv2
+            for idx in vt.jt_idx[i]:
+                cv2.circle(want, (int(uvd[idx][0]), int(uvd[idx][1])), 2, color, -1)
+            for s, e in vt.sketch[i]:
+                cv2.line(want, (int(uvd[s][0]), int(uvd[s][1])),
+                         (int(uvd[e][0]), int(uvd[e][1])), color, 1)
+        if not np.array_equal(vt.plot(vis, None, None, uvd), want):
+            raise AssertionError(f"a2j_infer --vis: {path}: the drawing differs from cv2's")
+        ok, encoded = cv2.imencode(".jpg", want)
+        with open(path, "rb") as f:
+            if not ok or f.read() != encoded.tobytes():
+                raise AssertionError(f"a2j_infer --vis: {path} != cv2.imwrite's bytes")
+    log("demo_apps", f"a2j_infer.main --vis over {len(names)} depth PNGs (batch {batch}): one "
+        f"_vis.jpg per frame; the skeletons == cv2 {cv2.__version__}'s circle/line pixel for "
+        f"pixel and the files == cv2.imwrite's bytes; launches {launches}")
+
+
+def statepack_round_trip(dev, work: str) -> None:
+    """``utils/statepack.py``: the [train] and [train_a2j] trained models
+    packed with their configs and read back; the trees and configs equal
+    the saved ones, an A2J rebuilt from the file holds the saved state dict
+    bit for bit, and its ``predict`` through K1 (one launch) equals the
+    saved model's."""
+    import os
+    from types import SimpleNamespace
+
+    import torch
+
+    from handnet_tpu_torch.convert.from_flax import (a2j_state_dict_from_flax,
+                                                     fcos_state_dict_from_flax)
+    from handnet_tpu_torch.models.a2j import A2JSystem
+    from handnet_tpu_torch.utils import statepack
+
+    (fcos, fcfg), (a2j, acfg) = TRAINED["fcos"], TRAINED["a2j"]
+    path = os.path.join(work, "states.msgpack")
+    start = time.perf_counter()
+    statepack.save_trained_states(path, SimpleNamespace(model=fcos), fcfg,
+                                  SimpleNamespace(model=a2j), acfg, synth={"seed": SEED})
+    f_vars, fcfg2, a_vars, acfg2, synth = statepack.load_trained_states(path)
+    seconds = time.perf_counter() - start
+
+    def same(got: dict, want: dict) -> bool:
+        want = {k: v for k, v in want.items() if not k.endswith("num_batches_tracked")}
+        return sorted(got) == sorted(want) and all(
+            torch.equal(got[k].cpu().float(), want[k].cpu().float()) for k in want)
+
+    rebuilt = A2JSystem(acfg2, norm="batch")
+    rebuilt.load_state_dict(a2j_state_dict_from_flax(a_vars))
+    if not ((fcfg2, acfg2, synth) == (fcfg, acfg, {"seed": SEED})
+            and same(fcos_state_dict_from_flax(f_vars), fcos.state_dict())
+            and same(rebuilt.state_dict(), a2j.state_dict())):
+        raise AssertionError("statepack: the file does not give back the saved states")
+    crops = a2j_train_batch(8, SEED + 1)["image"].to(dev)
+    preds = []
+    for model in (a2j, rebuilt):
+        model.to(dev, memory_format=torch.channels_last).eval()
+        reset_launch_counts()
+        with torch.no_grad():
+            preds.append(model.predict(crops))
+        device_sync(dev)
+        launches = launch_counts()
+        if launches != {**{k: 0 for k in launches}, "a2j_decode": 1}:
+            raise AssertionError(f"statepack: predict launched {launches}")
+    if not (torch.equal(preds[0], preds[1]) and bool(torch.isfinite(preds[1]).all())):
+        raise AssertionError("statepack: the loaded A2J predicts otherwise than the saved one")
+    log("demo_apps", f"statepack: [train]'s FCOS and [train_a2j]'s A2J with their configs, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB, written and read in {seconds:.3f} s; every "
+        "parameter and statistic bit-equal; the loaded A2J's predict through K1 (1 launch) on "
+        "8 crops == the saved model's, bit for bit")
+    TRAINED.clear()
+
+
+def phase_demo_apps(dev, cfg_fast, trees: str, device_arg: str = "cuda") -> dict:
+    """The demo apps on the card through their entry points: ``demo.main``
+    (the synthetic source at the default geometry; ``--flip-left
+    --render-mesh``; the folder source over ``[fcos_apps]``' tree),
+    ``a2j_mesh.main``, ``HandNetRosNode`` over a started server,
+    ``a2j_infer --vis`` and a ``statepack`` round trip. Returns the launches
+    per demo frame, per ``a2j_mesh`` sample and per eager call of the ROS
+    node's server."""
+    import os
+    import tempfile
+
+    from handnet_tpu_torch.apps import a2j_mesh, demo, ros_node
+
+    paths = {}
+    tree = os.path.join(trees, "tree")
+    with tempfile.TemporaryDirectory() as work:
+        ckpt = save_reference_checkpoints(demo, work)
+        paths["demo"] = demo_runs(dev, demo, work, ckpt, device_arg)
+        free_device_memory(dev)
+        demo_folder(dev, demo, work, tree, ckpt, device_arg)
+        free_device_memory(dev)
+        paths["a2j_mesh"] = a2j_mesh_run(dev, a2j_mesh, work, ckpt[3], device_arg)
+        free_device_memory(dev)
+        paths["ros_node"] = ros_node_run(dev, ros_node, cfg_fast)
+        free_device_memory(dev)
+        a2j_infer_vis(dev, work, tree, ckpt[3], device_arg)
+        statepack_round_trip(dev, work)
+    free_device_memory(dev)
+    return paths
+
+
 def host_decoders() -> str:
     """What the host could decode images with: the versions of ``cv2``, PIL
     and ``yaml`` (or ``absent``), whether ``g++`` is on the PATH, and the
@@ -4372,6 +4850,9 @@ def main() -> int:
         lap("fcos_apps")
         by_path.update(phase_rcnn(dev, trees, smi)["paths"])
         lap("rcnn")
+        # the demo apps: demo, a2j_mesh, the ROS node, a2j_infer --vis, statepack
+        by_path.update(phase_demo_apps(dev, cfg, trees))
+        lap("demo_apps")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

@@ -10,12 +10,14 @@ pads it. Weights come from a training run's ``params.npz`` and
 ``batch_stats.npz`` (``--checkpoint DIR``) or a reference torch checkpoint
 (``--torch-checkpoint``, whose anchors are transposed); with neither, the
 weights are random. ``--device``: the card by default, which raises where
-there is none. ``--vis`` needs ``utils/vistool.py``, which is not ported
-(ROADMAP 13d), and raises ``NotImplementedError``.
+there is none. ``--vis`` writes ``<name>_vis.jpg`` per frame, the crop with
+the predicted skeleton drawn by ``utils/vistool.py`` (the JAX app's
+``VisualUtil.plot``, without ``cv2``: the same pixels and the same JPEG
+bytes).
 
 Usage:
   python -m handnet_tpu_torch.apps.a2j_infer --input DIR [--output DIR]
-      [--checkpoint DIR | --torch-checkpoint a2j.pth] [--batch 8] [--device cpu]
+      [--checkpoint DIR | --torch-checkpoint a2j.pth] [--batch 8] [--vis] [--device cpu]
 """
 
 from __future__ import annotations
@@ -78,10 +80,30 @@ def predict_frames(system: A2JSystem, frames: np.ndarray, batch: int) -> np.ndar
     return torch.cat(out).cpu().numpy()[:len(frames)]
 
 
+def write_vis(files: List[str], frames: np.ndarray, all_uvd: np.ndarray,
+              out_dir: str) -> List[str]:
+    """``<name>_vis.jpg`` per frame: the crop scaled to 0-255 as grey BGR
+    with the predicted skeleton (``handnet_tpu/apps/a2j_infer.py:102-114``).
+    Returns the paths."""
+    from handnet_tpu_torch.utils.vistool import VisualUtil
+
+    vt = VisualUtil("dexycb")
+    paths = []
+    for f, crop, uvd in zip(files, frames, all_uvd):
+        vis = np.clip(crop[..., 0] * 255 / max(crop.max(), 1e-6),
+                      0, 255).astype(np.uint8)
+        vis = np.repeat(vis[:, :, None], 3, axis=-1)
+        paths.append(os.path.join(out_dir, os.path.basename(f).replace(".png", "_vis.jpg")))
+        vt.plot(vis, paths[-1], None, uvd)
+    return paths
+
+
 def main(argv=None) -> dict:
-    """Write ``all_joints_uvd.npy``. Returns its path, the UVD, the batch
-    count and the seconds spent reading the PNGs (``read_s``) and in the
-    batches (``predict_s``, until the UVD is on the host)."""
+    """Write ``all_joints_uvd.npy`` (and with ``--vis`` the images).
+    Returns its path, the UVD, the batch count, the seconds spent reading
+    the PNGs (``read_s``) and in the batches (``predict_s``, until the UVD
+    is on the host), and the images' paths (``vis``, empty without
+    ``--vis``)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--input", required=True, help="dir of depth pngs (mm)")
     parser.add_argument("--output", default=None)
@@ -93,9 +115,6 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default=None,
                         help="torch device to run on (default: the card)")
     args = parser.parse_args(argv)
-    if args.vis:
-        raise NotImplementedError("a2j_infer --vis: utils/vistool.py is not ported yet "
-                                  "(ROADMAP 13d)")
     device = resolve_device("a2j_infer", args.device)
 
     out_dir = args.output or args.input
@@ -114,8 +133,12 @@ def main(argv=None) -> dict:
     path = os.path.join(out_dir, "all_joints_uvd.npy")
     np.save(path, all_uvd)
     print(f"wrote {path} ({all_uvd.shape})")
+    vis = []
+    if args.vis:
+        vis = write_vis(files, frames, all_uvd, out_dir)
+        print(f"wrote {len(vis)} visualizations")
     return {"path": path, "uvd": all_uvd, "batches": -(-len(frames) // args.batch),
-            "read_s": t1 - t0, "predict_s": t2 - t1}
+            "read_s": t1 - t0, "predict_s": t2 - t1, "vis": vis}
 
 
 if __name__ == "__main__":

@@ -124,7 +124,7 @@ def main(argv=None) -> dict:
     loss), the npz's path and the trained ``state``."""
     parser = argparse.ArgumentParser()
     parser.add_argument("--mano-npz", default=None,
-                        help="converted MANO assets (the JAX package's convert/mano_assets.py)")
+                        help="converted MANO assets (handnet_tpu_torch/convert/mano_assets.py)")
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--steps", type=int, default=200)
     parser.add_argument("--batch", type=int, default=32)

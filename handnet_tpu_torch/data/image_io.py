@@ -1,17 +1,22 @@
-"""The port's image I/O: greyscale PNG (DexYCB's depth), colour JPEG
-(:func:`imread_color`, :func:`imwrite_jpeg` through ``data/jpeg.py``) and
-``cv2``'s fixed-point bilinear resize (:func:`resize_linear_u8`).
+"""The port's image I/O: greyscale and colour PNG, colour JPEG
+(:func:`imread_color`, :func:`imwrite_jpeg` through ``data/jpeg.py``), a
+writer by extension (:func:`imwrite`) and ``cv2``'s fixed-point bilinear
+resize (:func:`resize_linear_u8`).
 
-PNG: non-interlaced greyscale at 8 and 16 bits.
+PNG: non-interlaced greyscale at 8 and 16 bits, and 8-bit RGB.
 
 DexYCB's depth frames are 16-bit greyscale PNGs (millimetres, big-endian
 samples). :func:`read_png` returns the array that ``cv2.imread(path,
 cv2.IMREAD_ANYDEPTH)`` returns for such a file: ``uint16`` (or ``uint8``
 at 8 bits), ``[height, width]``. :func:`write_png` writes one that ``cv2``
-reads back bit for bit. Any other PNG (colour, palette, interlaced, another
-bit depth, another compression or filter method) raises ``ValueError``
-naming the header field; nothing decodes it some other way. A chunk whose
-CRC does not match raises too, as libpng does for critical chunks.
+reads back bit for bit. An 8-bit RGB file (colour type 2) reads as
+``cv2.imread(path)`` reads it, ``uint8 [height, width, 3]`` in BGR order,
+and a ``uint8 [height, width, 3]`` BGR array is written as such a file, as
+``cv2.imwrite`` writes it (the demo's overlays, skeleton images). Any
+other PNG (palette, alpha, interlaced, another bit depth, another
+compression or filter method) raises ``ValueError`` naming the header
+field; nothing decodes it some other way. A chunk whose CRC does not match
+raises too, as libpng does for critical chunks.
 
 The scanline filters take one of two routes:
 
@@ -78,10 +83,12 @@ def _header(body: bytes):
         raise ValueError("PNG: IHDR length")
     width, height, depth, colour, compression, method, interlace = struct.unpack(
         ">IIBBBBB", body)
-    if colour != 0:
-        raise ValueError(f"PNG: colour type {colour} (only greyscale, 0, is read)")
-    if depth not in (8, 16):
-        raise ValueError(f"PNG: bit depth {depth} (only 8 and 16 are read)")
+    if colour not in (0, 2):
+        raise ValueError(f"PNG: colour type {colour} (only greyscale, 0, and RGB, 2, are "
+                         "read)")
+    if depth not in ((8, 16) if colour == 0 else (8,)):
+        raise ValueError(f"PNG: bit depth {depth} of colour type {colour} (greyscale is "
+                         "read at 8 and 16 bits, RGB at 8)")
     if interlace != 0:
         raise ValueError(f"PNG: interlace method {interlace} (only 0 is read)")
     if compression != 0:
@@ -90,7 +97,7 @@ def _header(body: bytes):
         raise ValueError(f"PNG: filter method {method}")
     if width == 0 or height == 0:
         raise ValueError("PNG: width or height 0")
-    return width, height, depth
+    return width, height, depth, 1 if colour == 0 else 3
 
 
 def unfilter_reference(raw: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
@@ -158,7 +165,8 @@ def _unfilter(raw: np.ndarray, rows: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> ``[height, width]`` ``uint8`` or ``uint16`` (native order)."""
+    """PNG bytes -> ``[height, width]`` ``uint8`` or ``uint16`` (native
+    order), or ``uint8 [height, width, 3]`` in BGR order for an RGB file."""
     header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -166,16 +174,18 @@ def decode_png(data: bytes) -> np.ndarray:
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"PLTE":
-            raise ValueError("PNG: a PLTE chunk in a greyscale image")
+            raise ValueError("PNG: a PLTE chunk in a greyscale or RGB image")
     if header is None or not idat:
         raise ValueError("PNG: no IHDR or no IDAT chunk")
-    width, height, depth = header
-    bpp = depth // 8
+    width, height, depth, channels = header
+    bpp = depth // 8 * channels
     stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size < height * (stride + 1):
         raise ValueError("PNG: image data shorter than its header says")
     pixels = _unfilter(raw[:height * (stride + 1)], height, stride, bpp)
+    if channels == 3:
+        return pixels.reshape(height, width, 3)[:, :, ::-1].copy()
     if depth == 8:
         return pixels.reshape(height, width)
     return pixels.view(">u2").reshape(height, width).astype(np.uint16)
@@ -183,8 +193,9 @@ def decode_png(data: bytes) -> np.ndarray:
 
 def read_png(path) -> np.ndarray:
     """The greyscale PNG at ``path``, as ``cv2.imread(path,
-    cv2.IMREAD_ANYDEPTH)`` returns it. A missing file raises
-    ``FileNotFoundError`` (``cv2`` returns None)."""
+    cv2.IMREAD_ANYDEPTH)`` returns it (an RGB file as ``cv2.imread(path)``
+    does, BGR). A missing file raises ``FileNotFoundError`` (``cv2`` returns
+    None)."""
     return decode_png(Path(path).read_bytes())
 
 
@@ -222,30 +233,52 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def encode_png(image: np.ndarray, filter_type=1) -> bytes:
     """A ``[height, width]`` ``uint16`` or ``uint8`` array as greyscale PNG
-    bytes, deflated at zlib level 1 as ``cv2.imwrite`` does by default.
-    ``filter_type``: one type (0-4) for every row (the default, Sub, is
-    what ``cv2.imwrite`` uses), or one per row."""
+    bytes, or a ``uint8 [height, width, 3]`` BGR array as RGB PNG bytes
+    (``cv2.imwrite``'s channel order), deflated at zlib level 1 as
+    ``cv2.imwrite`` does by default. ``filter_type``: one type (0-4) for
+    every row (the default, Sub, is what ``cv2.imwrite`` uses), or one per
+    row."""
     image = np.asarray(image)
-    if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"PNG: writes 2-D uint8 or uint16 only, got {image.dtype} "
-                         f"{image.shape}")
-    height, width = image.shape
-    bpp = image.dtype.itemsize
-    data = image.astype(">u2" if bpp == 2 else np.uint8).view(np.uint8).reshape(height, -1)
+    rgb = image.ndim == 3 and image.shape[2] == 3 and image.dtype == np.uint8
+    if not rgb and (image.ndim != 2 or image.dtype not in (np.uint8, np.uint16)):
+        raise ValueError(f"PNG: writes 2-D uint8 or uint16 and [H, W, 3] uint8 only, got "
+                         f"{image.dtype} {image.shape}")
+    height, width = image.shape[:2]
+    if rgb:
+        image = image[:, :, ::-1]
+    bpp = image.dtype.itemsize * (3 if rgb else 1)
+    data = np.ascontiguousarray(image.astype(">u2" if image.dtype.itemsize == 2 else np.uint8)
+                                ).view(np.uint8).reshape(height, -1)
     kinds = np.broadcast_to(np.asarray(filter_type, np.uint8), (height,))
     rows = np.empty((height, width * bpp + 1), np.uint8)
     rows[:, 0] = kinds
     for kind in np.unique(kinds):
         sel = kinds == kind
         rows[sel, 1:] = _filter_rows(data, int(kind), bpp)[sel]
-    header = struct.pack(">IIBBBBB", width, height, 8 * bpp, 0, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", width, height, 8 * image.dtype.itemsize, 2 if rgb else 0,
+                         0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + _chunk(b"IEND", b""))
 
 
 def write_png(path, image: np.ndarray, filter_type=1) -> None:
-    """Write ``image`` (``uint16`` or ``uint8``, 2-D) as a greyscale PNG."""
+    """Write ``image`` (``uint16`` or ``uint8``, 2-D) as a greyscale PNG, or
+    ``uint8 [H, W, 3]`` BGR as an RGB PNG."""
     Path(path).write_bytes(encode_png(image, filter_type))
+
+
+def imwrite(path, image: np.ndarray) -> None:
+    """``cv2.imwrite(path, image)`` for the formats the port writes, chosen
+    by the extension as OpenCV chooses: ``.jpg``/``.jpeg`` through
+    :func:`imwrite_jpeg` (``uint8 [H, W, 3]`` BGR), ``.png`` through
+    :func:`write_png`. Another extension raises ``ValueError``."""
+    suffix = Path(path).suffix.lower()
+    if suffix in (".jpg", ".jpeg"):
+        imwrite_jpeg(path, image)
+    elif suffix == ".png":
+        write_png(path, image)
+    else:
+        raise ValueError(f"imwrite: {suffix!r} (the port writes .jpg, .jpeg and .png)")
 
 
 # ---------------------------------------------------------------------------

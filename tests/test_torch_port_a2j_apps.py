@@ -139,14 +139,20 @@ def test_eval_hpe_against_jax(trained, tmp_path):
     assert eval_hpe.main(["--res-file", res_file, "--gt-npz", str(gt)]) == want
 
 
-def test_rgbd_and_vis_are_refused(tmp_path):
-    """``--vis`` is refused (ROADMAP 13d). ``--rgbd`` no longer is: it
-    builds the 4-channel A2J and its colour sources (one epoch of it runs in
-    tests/test_torch_port_fcos_apps.py), so it gets as far as the data."""
+def test_rgbd_parses_and_vis_draws(depth_dir, tmp_path):
+    """``--rgbd`` builds the 4-channel A2J and its colour sources (one epoch
+    of it runs in tests/test_torch_port_fcos_apps.py), so it gets as far as
+    the data. ``a2j_infer --vis`` writes one ``<name>_vis.jpg`` per frame
+    (its pixels and bytes are held against the JAX app's in
+    tests/test_torch_port_vis_utils.py)."""
     args = train_a2j.parse_args(["--rgbd", "--device", "cpu", "--output", str(tmp_path)])
     assert args.rgbd and train_a2j.device_keys(args.rgbd)["image"] == "rgbd"
-    with pytest.raises(NotImplementedError, match="13d"):
-        a2j_infer.main(["--input", str(tmp_path), "--vis", "--device", "cpu"])
+    res = a2j_infer.main(["--input", depth_dir, "--output", str(tmp_path / "vis"), "--crop",
+                          "48", "--batch", "2", "--vis", "--device", "cpu"])
+    names = sorted(os.path.basename(p) for p in res["vis"])
+    assert names == sorted(f.replace(".png", "_vis.jpg") for f in os.listdir(depth_dir))
+    assert sorted(os.listdir(tmp_path / "vis")) == sorted(names + ["all_joints_uvd.npy"])
+    assert all(image_io.imread_color(p).shape == (48, 48, 3) for p in res["vis"])
 
 
 def test_apps_default_to_the_card(monkeypatch, tmp_path, depth_dir):

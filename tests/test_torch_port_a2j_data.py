@@ -153,7 +153,8 @@ def _with_header(data: bytes, **fields) -> bytes:
 
 def test_png_outside_the_subset_raises(tmp_path):
     rng = np.random.default_rng(10)
-    cv2.imwrite(str(tmp_path / "rgb.png"), rng.integers(0, 255, size=(8, 9, 3)).astype(np.uint8))
+    # 8-bit RGB reads (tests/test_torch_port_vis_utils.py); 16-bit RGB does not
+    cv2.imwrite(str(tmp_path / "rgb.png"), rng.integers(0, 65535, size=(8, 9, 3)).astype(np.uint16))
     with pytest.raises(ValueError, match="colour type 2"):
         image_io.read_png(tmp_path / "rgb.png")
     grey = image_io.encode_png(rng.integers(0, 65535, size=(8, 9)).astype(np.uint16))

@@ -283,9 +283,26 @@ with torch.no_grad():
 assert tuple(det["boxes"].shape) == (2, 8, 4)
 from handnet_tpu_torch.config import load_config
 assert load_config(yaml_path="configs/fast.yaml").fcos.image_h > 0
+# the demo apps and their utilities: one demo frame, a drawn line, a state file
+import handnet_tpu_torch.apps.a2j_mesh, handnet_tpu_torch.apps.ros_node
+import handnet_tpu_torch.convert.mano_assets, handnet_tpu_torch.utils.meshvis
+from handnet_tpu_torch.apps import demo
+from handnet_tpu_torch.utils import draw, statepack
+res = demo.main(["--frames", "1", "--size", "48", "64", "--net-size", "48", "64", "--crop",
+                 "32", "--score-thresh", "0", "--device", "cpu"])
+assert len(res["results"]) == 1 and np.isfinite(res["results"][0]["joints_xyz"]).all()
+assert draw.line(np.zeros((8, 8, 3), np.uint8), (0, 0), (7, 3), (1, 2, 3))[3, 7].tolist() == [
+    1, 2, 3]
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "states.msgpack")
+    fcfg = C.FCOSConfig(image_h=64, image_w=96, fpn_channels=64, num_convs=2)
+    acfg = C.A2JConfig(crop_h=32, crop_w=32, num_joints=3, head_features=32)
+    statepack.save_trained_states(path, state, fcfg, a2j_state, acfg, synth={"crop": 32})
+    f_vars, fcfg2, a_vars, acfg2, synth = statepack.load_trained_states(path)
+    assert (fcfg2, acfg2, synth) == (fcfg, acfg, {"crop": 32}) and a_vars["params"]
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu",
-                                       "cv2", "yaml", "PIL"))
+                                       "cv2", "yaml", "PIL", "msgpack", "matplotlib", "rclpy"))
 print("LOADED", loaded)
 """
 
@@ -303,10 +320,15 @@ def test_port_imports_no_jax():
     ``PrefetchLoader``, runs ``HPEEvaluator``, imports the A2J and FCOS
     apps, decodes a colour JPEG, builds a ``DetectDataSource`` item and a
     ``VOCDetectSource`` item (a JPEG it writes, resized), reads a config
-    through ``load_config(yaml_path=...)``, and has loaded neither jax,
-    optax, orbax, the JAX package, ``cv2``, ``yaml`` nor PIL (a subprocess:
-    tests/conftest.py imports jax into this one)."""
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    through ``load_config(yaml_path=...)``, imports the demo apps and their
+    utilities, runs one frame of ``demo.main``, draws a line and writes and
+    reads back a ``statepack`` file, and has loaded neither jax, optax,
+    orbax, the JAX package, ``cv2``, ``yaml``, PIL, ``msgpack``,
+    matplotlib nor ``rclpy`` (a subprocess: tests/conftest.py imports jax
+    into this one). One intra-op thread, as the other port tests: alone it
+    takes as long, and beside the other test workers it does not crowd
+    them."""
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
