@@ -211,6 +211,35 @@ demo_apps (after rcnn, on fcos_apps' tree): the demo apps through their
    models (bit-equal back, the loaded A2J's predict through K1 == the
    saved one's).
 
+a2j_2d (after train_a2j): the 2D A2J (``is_3d=False``) at full width
+   (ResNet-50-dilated, 176^2 crops, 21 joints, no depth head). K1xy, K1's
+   depth-free variant, against its plain version at B = 1, 8 and 128 in
+   float32 and bf16 (1e-4 of the coordinate scale, two runs bit-equal), an
+   unaligned shape, strided views refused, its times with its byte bound
+   (cls and reg read, the [B, P, 2] output written); the SHA-256 of the 3D
+   K1's output at B=128, N=1936, P=21, bf16 on seeded heads (``python3
+   k12_device_times.py --k1-hash [--root DIR]`` prints another checkout's,
+   to show that K1 keeps its bits); ``A2JSystem.predict`` at B=128 bf16 (3
+   calls, K1xy once per call and K1 never); in float32 (TF32 off) the K1xy
+   path against the plain path and the CPU run; 3 ``A2JTrainer`` steps at
+   batch 64 bf16 (finite, moving losses, no launch of ours) and the eval
+   step (``[B, P, 2]`` targets through K1xy once; ``[B, P, 3]`` targets
+   refused with ``ValueError``, as JAX's eval step fails to broadcast them).
+
+e2e_eval (after demo_apps, on fcos_apps' tree): ``E2EDataSource`` items
+   (16 of 480x640, colour and depth decoded by the port, the mesh from a
+   synthetic ``ManoLayer`` on the card: the MANO pickle is not in the
+   repository); the fast pipeline on them in bf16 batches of 8 (K2s and K2a
+   24 and K1 1 per call); ``CocoDetEvaluator`` bbox and keypoints of its
+   hands (the GT boxes and joints given back score AP 1.0; the seed-2
+   weights' hands a finite AP in [0, 1]); ``SequenceLoader`` over a tree
+   of 8 cameras x 480x640 16-bit PNGs with its ``meta.yml`` and
+   ``extrinsics.yml``, ``deproject_depth`` on the card against float64
+   numpy (1e-5 m), its device time and the host's PNG read per frame; the
+   offset field card against CPU; ``BOPEvaluator`` with VSD at 480x640 and
+   ``GraspEvaluator`` over 2 scenes of 100 candidate grasps at the 8
+   distance thresholds, each timed on the host.
+
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it; and the host's
 decoders (cv2 and the JPEG library it bundles, PIL, yaml, g++, libnvjpeg),
@@ -218,7 +247,8 @@ which the port does not use.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
-the quant_static run's, ``launches_per_call`` each path's (for the serving
+the quant_static run's (K1xy's: the 2D predict run's, its main path),
+``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
 wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
 ``eval_a2j`` per eval step, ``a2j_apps_eval`` per batch of the CLI's eval
@@ -226,7 +256,9 @@ sweeps, ``a2j_infer`` per batch of the app, ``train_fcos_app`` and
 ``train_fcos_voc_group`` per step of the CLI, ``eval_fcos`` per detect
 call, ``train_a2j_rgbd_eval`` per eval batch, ``demo`` per frame,
 ``a2j_mesh`` per sample, ``ros_node`` per eager call of its server's
-capture), K2s's and K2a's ``shapes``
+capture, ``a2j_2d_predict`` per 2D predict call, ``train_a2j_2d`` per 2D
+train step, ``eval_a2j_2d`` for one 2D eval step, ``e2e_pipeline`` per call
+on the E2E items), K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
 the GroupNorm backbone's.
 
@@ -543,9 +575,7 @@ def phase_a2j_kernel(dev) -> dict:
     anchors = torch.from_numpy(a2j_anchor_grid(11, 11, 16)).to(dev)
 
     def inputs(b, dtype, n=n, p=p):
-        return ((torch.randn(b, n, p, device=dev, generator=gen) * 2).to(dtype),
-                (torch.randn(b, n, p, 2, device=dev, generator=gen) * 5).to(dtype),
-                torch.randn(b, n, p, device=dev, generator=gen).to(dtype))
+        return a2j_heads(gen, dev, b, dtype, n, p)
 
     def compare(name, args):
         want = a2j_decode_reference(*args)
@@ -1055,7 +1085,7 @@ def compare_outputs(name: str, got, want, joint_tol: float) -> float:
 
 def expected_launches(calls: int, gn: int, int8: int = 0) -> dict:
     return {"gn_group_stats": gn * calls, "gn_apply": gn * calls, "a2j_decode": calls,
-            "int8_quantize": int8 * calls, "int8_conv_gemm": int8 * calls}
+            "a2j_decode_xy": 0, "int8_quantize": int8 * calls, "int8_conv_gemm": int8 * calls}
 
 
 def per_call(launches: dict, calls: int) -> dict:
@@ -1126,11 +1156,12 @@ def phase_slice(dev, cfg) -> dict:
 
 def counted_wrappers() -> dict:
     """Every kernel's wrapper, by the kernel's name in the JSON line."""
-    from handnet_tpu_torch.ops.cuda_a2j import a2j_decode
+    from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_xy
     from handnet_tpu_torch.ops.cuda_gn import gn_apply, gn_group_stats
     from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv_gemm, int8_quantize
 
-    return {"a2j_decode": a2j_decode, "gn_group_stats": gn_group_stats, "gn_apply": gn_apply,
+    return {"a2j_decode": a2j_decode, "a2j_decode_xy": a2j_decode_xy,
+            "gn_group_stats": gn_group_stats, "gn_apply": gn_apply,
             "int8_quantize": int8_quantize, "int8_conv_gemm": int8_conv_gemm}
 
 
@@ -1191,7 +1222,8 @@ def phase_quant_slice(dev, cfg, cfg_dynamic):
     for out, bsz in zip(outs, SLICE_REQUESTS):
         check_outputs(out, bsz, crop, joints)
     calls = len(SLICE_REQUESTS)
-    expected = {"a2j_decode": calls, "gn_group_stats": GN_LAYERS_PER_CALL * calls,
+    expected = {"a2j_decode": calls, "a2j_decode_xy": 0,
+                "gn_group_stats": GN_LAYERS_PER_CALL * calls,
                 "gn_apply": GN_LAYERS_PER_CALL * calls,
                 "int8_quantize": INT8_LAUNCHES_PER_CALL * calls,
                 "int8_conv_gemm": INT8_LAUNCHES_PER_CALL * calls}
@@ -1763,7 +1795,8 @@ from handnet_tpu_torch.ops import cuda_a2j, cuda_gn, cuda_int8_conv
 art = ServingArtifact.load(path, device=device)
 load_s = time.perf_counter() - start
 assert not foreign(), foreign()
-counted = {"a2j_decode": cuda_a2j.a2j_decode, "gn_group_stats": cuda_gn.gn_group_stats,
+counted = {"a2j_decode": cuda_a2j.a2j_decode, "a2j_decode_xy": cuda_a2j.a2j_decode_xy,
+           "gn_group_stats": cuda_gn.gn_group_stats,
            "gn_apply": cuda_gn.gn_apply, "int8_quantize": cuda_int8_conv.int8_quantize,
            "int8_conv_gemm": cuda_int8_conv.int8_conv_gemm}
 h, w = art.frame_hw
@@ -4704,6 +4737,519 @@ def phase_demo_apps(dev, cfg_fast, trees: str, device_arg: str = "cuda") -> dict
     return paths
 
 
+A2J_2D_BATCHES = (1, 8, 128)      # K1xy against its plain version
+A2J_2D_PREDICT_CALLS = 3          # 2D A2JSystem.predict calls of batch 128, bf16
+A2J_2D_TRAIN_STEPS = 3            # 2D A2JTrainer steps at batch 64, bf16
+A2J_2D_CPU_BATCH = 2              # the float32 card path against the CPU
+A2J_2D_CPU_TOL = 1e-3             # of the UV scale: the same float32 forward, TF32 off
+
+
+def a2j_heads(gen, dev, b: int, dtype, n: int = 1936, p: int = 21):
+    """Seeded head tensors of K1's checks: cls ``[B, N, P]``, reg
+    ``[B, N, P, 2]`` and depth ``[B, N, P]`` (as :func:`phase_a2j_kernel`)."""
+    import torch
+
+    return ((torch.randn(b, n, p, device=dev, generator=gen) * 2).to(dtype),
+            (torch.randn(b, n, p, 2, device=dev, generator=gen) * 5).to(dtype),
+            torch.randn(b, n, p, device=dev, generator=gen).to(dtype))
+
+
+def k1_output_hash(dev) -> str:
+    """SHA-256 of the 3D K1's output at the main path's shape (B=128,
+    N=1936, P=21, bf16) on heads drawn from a generator seeded with
+    ``SEED``: a checkout whose K1 computes as before prints the same hash
+    (``k12_device_times.py --k1-hash --root DIR`` prints another checkout's)."""
+    import hashlib
+
+    import torch
+
+    from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
+    from handnet_tpu_torch.ops.cuda_a2j import a2j_decode
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    anchors = torch.from_numpy(a2j_anchor_grid(11, 11, 16)).to(dev)
+    out = a2j_decode(*a2j_heads(gen, dev, 128, torch.bfloat16), anchors)
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_a2j_xy_kernel(dev) -> dict:
+    """K1xy (the 2D A2J's decode) against its plain version at B = 1, 8 and
+    128, float32 and bf16, two runs bit-equal, an unaligned shape and
+    strided views refused; K1's output hash. Returns the numbers of K1xy's
+    JSON entry (everything but the launch count)."""
+    import torch
+
+    from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
+    from handnet_tpu_torch.ops.cuda_a2j import a2j_decode_xy, a2j_decode_xy_reference
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n, p = 1936, 21
+    anchors = torch.from_numpy(a2j_anchor_grid(11, 11, 16)).to(dev)
+
+    def compare(name, cls, reg, anc):
+        # tolerance 1e-4 of the coordinate scale: float32 sums in another
+        # order on the same (bf16-rounded) inputs
+        want = a2j_decode_xy_reference(cls, reg, anc)
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        got = same_bits_twice(name, lambda: a2j_decode_xy(cls, reg, anc))
+        return check(name, got, want, tol), tol
+
+    errs, times = [], {}
+    for b in A2J_2D_BATCHES:
+        for dtype in (torch.float32, torch.bfloat16):
+            c, r, _ = a2j_heads(gen, dev, b, dtype)
+            err, tol = compare(f"K1xy B={b} {dtype}", c, r, anchors)
+            errs.append(err)
+            kernel = timed(lambda: a2j_decode_xy(c, r, anchors))
+            line = (f"K1xy a2j_decode_xy B={b} N={n} P={p} {dtype}: max|err| {err:.3e} (tol "
+                    f"{tol:.1e}), two runs bit-equal; kernel on the device {kernel['ms']:.4f} "
+                    f"ms, wrapper loop {kernel['loop_ms']:.4f} ms")
+            if b == 128:
+                plain = timed(lambda: a2j_decode_xy_reference(c, r, anchors))
+                times[dtype] = (kernel, plain, nbytes(c, r))
+                line += (f"; plain on the device {plain['ms']:.4f} ms, loop "
+                         f"{plain['loop_ms']:.4f} ms")
+            log("a2j_2d", line)
+    odd_anchors = torch.randn(50, 2, device=dev, generator=gen) * 40
+    for dtype in (torch.float32, torch.bfloat16):
+        c, r, _ = a2j_heads(gen, dev, 3, dtype, 50, 7)
+        errs.append(compare(f"K1xy N=50 P=7 {dtype}", c, r, odd_anchors)[0])
+    log("a2j_2d", f"K1xy N=50 P=7 B=3 (unaligned runs, element-wise staging) f32 and bf16: "
+        f"max|err| {max(errs[-2:]):.3e}")
+    c, r, _ = a2j_heads(gen, dev, 8, torch.float32)
+    refused = 0
+    for args in ((torch.randn(8, p, n, device=dev, generator=gen).transpose(1, 2), r),
+                 (c, torch.randn(8, n, p, 4, device=dev, generator=gen)[..., ::2])):
+        try:
+            a2j_decode_xy(*args, anchors)
+        except ValueError as exc:
+            refused += "must be contiguous" in str(exc)
+    if refused != 2:
+        raise AssertionError("K1xy: a strided cls or reg view was not refused")
+    log("a2j_2d", "K1xy strided cls and reg views: refused with ValueError (no silent copy)")
+    log("a2j_2d", f"K1 (3D) output hash at B=128 N={n} P={p} bf16, seed {SEED}: "
+        f"{k1_output_hash(dev)}")
+    kernel, plain, heads_bytes = times[torch.bfloat16]
+    # bound at B=128 bf16: cls, reg and the anchors read once, the [B, P, 2]
+    # float32 out written once; per (image, anchor, joint) a max, a
+    # subtraction, an exp and 3 multiply-adds, counted as 10 float32
+    # operations. No single PyTorch call computes it.
+    b = 128
+    moved = heads_bytes + nbytes(anchors) + b * p * 2 * 4
+    result = {"max_abs_err": max(errs), **kernel, "plain_ms": plain["ms"],
+              "plain_loop_ms": plain["loop_ms"],
+              **bound(moved, 10 * b * n * p, F32_FLOPS_PER_S), "library_ms": None}
+    log("a2j_2d", f"K1xy B=128 bf16: bound {result['bound_ms']:.4f} ms ({moved} bytes / 3.35 "
+        f"TB/s; by {result['bound_by']}), {result['bound_ms'] / kernel['ms'] * 100:.0f}% of it "
+        "reached on the device; no library call")
+    return result
+
+
+def phase_a2j_2d(dev) -> dict:
+    """The 2D A2J (``is_3d=False``) at full width: ResNet-50-dilated, 176^2
+    crops, 21 joints, three 256-wide towers without the depth head. K1xy
+    against its plain version (``phase_a2j_xy_kernel``), then
+    ``A2JSystem.predict`` at B=128 bf16 (``A2J_2D_PREDICT_CALLS`` calls: one
+    K1xy launch each and no other), the float32 card path against the CPU,
+    ``A2J_2D_TRAIN_STEPS`` train steps at batch 64 bf16 and the eval step.
+    Returns K1xy's JSON numbers, its launches in the predict run and the
+    launches per call of each 2D path."""
+    import torch
+
+    from handnet_tpu_torch.config import A2JConfig, TrainConfig
+    from handnet_tpu_torch.models.a2j import A2JSystem
+    from handnet_tpu_torch.train.trainer import A2JTrainer
+
+    result = phase_a2j_xy_kernel(dev)
+    cfg = A2JConfig(is_3d=False)
+    model = A2JSystem(cfg)
+    model.init_weights_(torch.Generator().manual_seed(SEED))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model = model.to(dev, memory_format=torch.channels_last).eval()
+    crops = a2j_train_batch(128, SEED, cfg.crop_h, cfg.num_joints)["image"].to(dev)
+
+    def predict():
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return model.predict(crops)
+
+    predict()                                      # cuDNN's set-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [predict() for _ in range(A2J_2D_PREDICT_CALLS)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {**{k: 0 for k in launches}, "a2j_decode_xy": A2J_2D_PREDICT_CALLS}
+    if launches != want:
+        raise AssertionError(f"a2j_2d predict: launches {launches}, expected {want}")
+    for out in outs:
+        if tuple(out.shape) != (128, cfg.num_joints, 2) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"a2j_2d predict: UV {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+    if not all(torch.equal(outs[0], o) for o in outs[1:]):
+        raise AssertionError("a2j_2d predict: calls on the same crops differ")
+    call_ms = cuda_ms(predict, iters=5, warmup=1)
+    log("a2j_2d", f"A2JSystem(is_3d=False).predict B=128 bf16 176^2 21 joints: UV "
+        f"{tuple(outs[0].shape)} finite, {A2J_2D_PREDICT_CALLS} calls bit-equal; launches "
+        f"{per_call(launches, A2J_2D_PREDICT_CALLS)} per call (K1xy once, K1 never); "
+        f"{call_ms:.3f} ms per call (CUDA events)")
+    del outs
+
+    # float32, TF32 off: the kernel path against the plain path and the CPU
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    x = crops[:A2J_2D_CPU_BATCH].float()
+    with torch.inference_mode():
+        got = model.predict(x)
+        model.use_kernels = False
+        plain = model.predict(x)
+        model.use_kernels = True
+    cpu_model = A2JSystem(cfg)
+    cpu_model.load_state_dict(state)
+    with torch.inference_mode():
+        want_cpu = cpu_model.eval().predict(x.cpu())
+    torch.backends.cudnn.allow_tf32 = True
+    scale = want_cpu.abs().max().item()
+    err_plain = check("a2j_2d K1xy vs plain (card, f32)", got, plain, 1e-4 * scale)
+    err_cpu = check("a2j_2d card vs CPU (f32)", got.cpu(), want_cpu, A2J_2D_CPU_TOL * scale)
+    log("a2j_2d", f"f32 (TF32 off) B={A2J_2D_CPU_BATCH}: K1xy path == plain path on the card "
+        f"within {err_plain:.3e} px (tol 1e-4 of {scale:.1f}), card == CPU run within "
+        f"{err_cpu:.3e} px (tol {A2J_2D_CPU_TOL:g} of the scale)")
+    del model, cpu_model, crops, x
+    free_device_memory(dev)
+
+    # training: A2J_2D_TRAIN_STEPS bf16 steps at the recipe's batch, then
+    # the eval step: [B, P, 2] targets through K1xy, [B, P, 3] refused as
+    # JAX's eval step fails to broadcast them
+    tcfg = TrainConfig(batch_size=A2J_TRAIN_BATCH)
+    trainer = A2JTrainer(cfg, tcfg, device=dev)
+    train_state = trainer.init_state(SEED)
+    batch = {k: v.to(dev) for k, v in
+             a2j_train_batch(A2J_TRAIN_BATCH, SEED, cfg.crop_h, cfg.num_joints).items()}
+    reset_launch_counts()
+    losses = [trainer.train_step(train_state, batch)[1]["total_loss"].item()
+              for _ in range(A2J_2D_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    train_launches = launch_counts()
+    if any(train_launches.values()) or not all(math.isfinite(v) for v in losses) or len(
+            set(losses)) != len(losses):
+        raise AssertionError(f"a2j_2d train: losses {losses}, launches {train_launches}")
+    start = time.perf_counter()
+    trainer.train_step(train_state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - start) * 1e3
+    batch_2d = {"image": batch["image"], "jt_uvd": batch["jt_uvd"][..., :2].contiguous()}
+    reset_launch_counts()
+    pred, rmse = trainer.eval_step(train_state, batch_2d)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    if (eval_launches != {**{k: 0 for k in eval_launches}, "a2j_decode_xy": 1}
+            or tuple(pred.shape) != (A2J_TRAIN_BATCH, cfg.num_joints, 2)
+            or not math.isfinite(rmse.item())):
+        raise AssertionError(f"a2j_2d eval: launches {eval_launches}, pred "
+                             f"{tuple(pred.shape)}, rmse {rmse.item()}")
+    try:
+        trainer.eval_step(train_state, batch)
+    except ValueError as exc:
+        refused = "broadcast" in str(exc)
+    else:
+        refused = False
+    if not refused:
+        raise AssertionError("a2j_2d eval: [B, P, 3] targets were not refused")
+    log("a2j_2d", f"A2JTrainer 2D, batch {A2J_TRAIN_BATCH} bf16: total loss by step "
+        + ", ".join(f"{v:.4f}" for v in losses) + f" (finite, moving); one more step "
+        f"{step_ms:.1f} ms (host clock); no launch of ours in training; eval step with "
+        f"[B, P, 2] targets: pred {tuple(pred.shape)}, rmse {rmse.item():.4f} px, K1xy once; "
+        "[B, P, 3] targets refused with ValueError (JAX's eval step fails to broadcast them)")
+    del trainer, train_state, batch, batch_2d
+    free_device_memory(dev)
+    return {"result": result, "launches": launches["a2j_decode_xy"],
+            "paths": {"a2j_2d_predict": per_call(launches, A2J_2D_PREDICT_CALLS),
+                      "train_a2j_2d": per_call(train_launches, A2J_2D_TRAIN_STEPS),
+                      "eval_a2j_2d": eval_launches}}
+
+
+E2E_ITEMS = 16                    # E2EDataSource items of [fcos_apps]' tree
+E2E_BATCH = 8                     # the fast pipeline's calls on them, bf16
+SEQ_CAMERAS = 8                   # DexYCB's 8 serials, one frame each
+SEQ_FRAMES = 2
+DEPROJECT_TOL = 1e-5              # m: float32 on the card against float64 numpy
+OFFSET_TOL = 1e-5                 # the offset field, card against CPU (float32)
+GRASP_SCENES = 2
+GRASP_CANDIDATES = 100
+
+
+def write_sequence_tree(root: str, seed: int) -> tuple:
+    """A DexYCB sequence of ``SEQ_CAMERAS`` cameras x ``SEQ_FRAMES`` frames of
+    480x640 16-bit depth PNGs (a tilted plane and a box in millimetres),
+    their intrinsics (``<serial>_640x480.yml``), a ``meta.yml`` naming the
+    extrinsics and ``extrinsics.yml`` (12 row-major numbers per camera);
+    returns the sequence and the serials."""
+    import os
+
+    import numpy as np
+
+    from handnet_tpu_torch.data import image_io
+    from handnet_tpu_torch.data.dexycb import SERIALS
+
+    rng = np.random.default_rng(seed)
+    seq = "20200709-subject-01/20200709_141754"
+    intr = os.path.join(root, "calibration", "intrinsics")
+    extr = os.path.join(root, "calibration", "extrinsics_20200702_151821")
+    os.makedirs(intr)
+    os.makedirs(extr)
+    yy, xx = np.mgrid[0:480, 0:640]
+    rows = []
+    for i, serial in enumerate(SERIALS[:SEQ_CAMERAS]):
+        os.makedirs(os.path.join(root, seq, serial))
+        for f in range(SEQ_FRAMES):
+            depth = 900 + 0.4 * xx + 0.3 * yy + rng.normal(0, 3, size=xx.shape)
+            depth[200:300, 250:380] -= 300
+            depth[rng.uniform(size=xx.shape) < 0.05] = 0
+            image_io.write_png(os.path.join(root, seq, serial,
+                                            f"aligned_depth_to_color_{f:06d}.png"),
+                               np.clip(depth, 0, 65535).astype(np.uint16))
+        with open(os.path.join(intr, f"{serial}_640x480.yml"), "w") as fh:
+            fh.write(f"color:\n  fx: {610.0 + 3 * i}\n  fy: {609.5 + 2 * i}\n  ppx: "
+                     f"{320.5 - i}\n  ppy: {240.25 + i}\n")
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        m = np.concatenate([q * np.sign(np.linalg.det(q)), rng.normal(size=(3, 1))], axis=1)
+        rows.append(f"  '{serial}': [{', '.join(repr(float(v)) for v in m.ravel())}]\n")
+    with open(os.path.join(extr, "extrinsics.yml"), "w") as fh:
+        fh.write("extrinsics:\n" + "".join(rows) + f"master: '{SERIALS[0]}'\n")
+    with open(os.path.join(root, seq, "meta.yml"), "w") as fh:
+        fh.write("serials:\n" + "".join(f"- '{s}'\n" for s in SERIALS[:SEQ_CAMERAS])
+                 + f"extrinsics: '20200702_151821'\nnum_frames: {SEQ_FRAMES}\n")
+    return seq, list(SERIALS[:SEQ_CAMERAS])
+
+
+def e2e_coco(items, out, evaluator, voc) -> tuple:
+    """COCO bbox and keypoints of the pipeline's found hands (its padded crop
+    box, score and frame-UV joints) against each item's GT hand box and 2D
+    joints, one image per item."""
+    import numpy as np
+
+    annotations, dets, gt_kpts, dt_kpts = {}, [], {}, {}
+    for i, item in enumerate(items):
+        gt = voc.GTObject("hand", item["hand_box"].astype(np.float64))
+        annotations[str(i)] = [gt]
+        gt_kpts[id(gt)] = np.concatenate([item["joints2d_abs"], np.ones((21, 1))], axis=1)
+        if out is None:                            # the GT given back as detections
+            det = voc.Detection(str(i), 1.0, gt.bbox)
+            dt_kpts[id(det)] = item["joints2d_abs"].astype(np.float64)
+        elif out["found"][i]:
+            det = voc.Detection(str(i), float(out["scores"][i]),
+                                np.asarray(out["boxes"][i], np.float64))
+            dt_kpts[id(det)] = np.asarray(out["joints_uvd_full"][i, :, :2], np.float64)
+        else:
+            continue
+        dets.append(det)
+    ev = evaluator(annotations)
+    labels = ["hand"] * len(dets)
+    return (ev.evaluate(dets, labels),
+            ev.evaluate(dets, labels, iou_type="keypoints", gt_keypoints=gt_kpts,
+                        dt_keypoints=dt_kpts))
+
+
+def host_evaluators(seed: int) -> None:
+    """``BOPEvaluator`` with VSD at 480x640 and ``GraspEvaluator`` over
+    ``GRASP_SCENES`` scenes of ``GRASP_CANDIDATES`` candidate grasps at the
+    8 distance thresholds, each timed on the card's host."""
+    import numpy as np
+
+    from handnet_tpu_torch.eval.bop_pose import BOPEvaluator
+    from handnet_tpu_torch.eval.grasp import GraspEvaluator, GraspScene
+    from handnet_tpu_torch.utils.raster import render_depth
+
+    rng = np.random.default_rng(seed)
+
+    def rotation():
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        return q * np.sign(np.linalg.det(q))
+
+    # a closed box mesh of 12 triangles, 80 x 60 x 40 mm, and its surface points
+    corners = np.array([[x, y, z] for x in (-40, 40) for y in (-30, 30) for z in (-20, 20)], float)
+    faces = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                      [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    half = np.array([40.0, 30.0, 20.0])
+    pts = rng.uniform(-1, 1, size=(2000, 3)) * half
+    axis = rng.integers(0, 3, 2000)
+    pts[np.arange(2000), axis] = np.sign(rng.normal(size=2000)) * half[axis]
+    k = np.array([[610.0, 0, 320], [0, 610.0, 240], [0, 0, 1]])
+    gt, est, depth = [], [], {}
+    for i in range(4):
+        r, t = rotation(), np.array([0.0, 0.0, 600.0]) + rng.normal(size=3) * 20
+        gt.append({"image_id": i, "obj_id": 1, "R": r, "t": t})
+        est.append({"image_id": i, "obj_id": 1, "R": r if i % 2 else rotation(),
+                    "t": t + rng.normal(size=3) * 5 * (i + 1)})
+        d = render_depth(corners @ r.T + t, faces, k, 480, 640)
+        depth[i] = np.where(d > 0, d + rng.normal(0, 2, size=d.shape), 0.0)
+    ev = BOPEvaluator({1: pts}, {1: float(np.linalg.norm(2 * half))}, faces={1: faces},
+                      mesh_verts={1: corners})
+    start = time.perf_counter()
+    res = ev.evaluate(est, gt, depth_images=depth, K=k)
+    bop_s = time.perf_counter() - start
+    if res["n_evaluated"] != 4 or not all(0.0 <= res[key] <= 1.0 for key in (
+            "ar_vsd", "ar_mssd", "ar_mspd", "mean_ar", "add_s_recall_0.1d")):
+        raise AssertionError(f"BOPEvaluator: {res}")
+    log("e2e_eval", f"BOPEvaluator, 4 estimates with VSD at 480x640 (software z-buffer, a "
+        f"12-triangle box): {bop_s * 1e3:.1f} ms on the host ({bop_s / 4 * 1e3:.1f} ms per "
+        "estimate); " + ", ".join(f"{key} {res[key]:.4f}" for key in
+                                  ("ar_vsd", "ar_mssd", "ar_mspd", "mean_ar")))
+
+    box = rng.uniform(-1, 1, size=(300, 3)) * [0.04, 0.03, 0.02]
+    scenes = []
+    for _ in range(GRASP_SCENES):
+        cands = []
+        for _ in range(GRASP_CANDIDATES):
+            g = np.eye(4)
+            g[:3, :3] = rotation()
+            g[:3, 3] = g[:3, :3] @ np.array([0, 0, -rng.uniform(0.09, 0.14)])
+            cands.append(g)
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = rotation(), [0.0, 0.0, 0.6]
+        pred = pose.copy()
+        pred[:3, 3] += rng.normal(size=3) * 0.005
+        hand = pose[:3, 3] + rng.normal(size=(100, 3)) * 0.03 + [0.0, 0.09, 0.0]
+        scenes.append(GraspScene(candidate_grasps=np.stack(cands), obj_pose_gt=pose,
+                                 obj_pc=box, obj_pose_pred=pred, hand_verts_gt=hand,
+                                 hand_pc_pred=hand + rng.normal(size=hand.shape) * 0.004))
+    grasp = GraspEvaluator()
+    start = time.perf_counter()
+    rows = grasp.evaluate_scenes(scenes)
+    grasp_s = time.perf_counter() - start
+    if len(rows) != 8 or not all(0.0 <= r[3] <= 1.0 and 0.0 <= r[4] <= 1.0 for r in rows):
+        raise AssertionError(f"GraspEvaluator: rows {rows}")
+    log("e2e_eval", f"GraspEvaluator, {GRASP_SCENES} scenes of {GRASP_CANDIDATES} candidate "
+        f"grasps at the 8 distance thresholds: {grasp_s * 1e3:.1f} ms on the host "
+        f"({grasp_s / GRASP_SCENES * 1e3:.1f} ms per scene); coverage by threshold "
+        + ", ".join(f"{r[2]:.2f}: {r[3]:.3f}" for r in rows))
+
+
+def phase_e2e_eval(dev, cfg_fast, trees: str) -> dict:
+    """On ``[fcos_apps]``' synthetic tree (colour, 480x640): ``E2EDataSource``
+    items with a synthetic ``ManoLayer`` on the card, the fast pipeline on
+    them in bf16 batches of ``E2E_BATCH`` (K2s/K2a 24 and K1 1 per call), COCO
+    bbox and keypoints of its hands (the GT given back: AP 1.0; the seed-2
+    weights: finite, in [0, 1]); ``SequenceLoader`` over a tree of 8 cameras
+    written here, ``deproject_depth`` on the card against float64 numpy; the
+    offset field card against CPU; the BOP and grasp evaluators on the host.
+    Returns the pipeline's launches per call."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.data.dexycb import DexYCBDataset, refine_indices
+    from handnet_tpu_torch.data.e2e_data import E2EDataSource
+    from handnet_tpu_torch.data.sequence import deproject_depth, sequence_loader_from_meta
+    from handnet_tpu_torch.eval import voc
+    from handnet_tpu_torch.eval.coco_det import CocoDetEvaluator
+    from handnet_tpu_torch.models.mano import ManoAssets, ManoLayer
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+    from handnet_tpu_torch.ops.offset_field import joint2offset, offset2joint_softmax
+
+    # 1. E2E samples, the mesh regenerated on the card
+    ds = DexYCBDataset("s0", "train", data_dir=os.path.join(trees, "tree"))
+    layer = ManoLayer(ManoAssets.synthetic(np.random.default_rng(SEED), side="right"),
+                      flat_hand_mean=True, device=dev)
+    source = E2EDataSource(ds, refine_indices(ds), mano_layers={"right": layer})
+    start = time.perf_counter()
+    items = [source[i] for i in range(E2E_ITEMS)]
+    item_ms = (time.perf_counter() - start) * 1e3 / E2E_ITEMS
+    for item in items:
+        if (item["image"].shape != (480, 640, 3) or item["verts3d"].shape != (778, 3)
+                or not np.isfinite(item["verts3d"]).all() or not item["target_valid"].any()):
+            raise AssertionError(f"e2e item: image {item['image'].shape}, verts3d "
+                                 f"{item.get('verts3d', np.zeros(0)).shape}")
+    log("e2e_eval", f"E2EDataSource: {E2E_ITEMS} items of {len(source)} (480x640 colour JPEG "
+        f"and depth PNG decoded on the host, the detection target, verts3d [778, 3] from a "
+        f"synthetic ManoLayer on the card): {item_ms:.1f} ms per item on one host core")
+
+    # 2. the fast pipeline on them, bf16 batches of E2E_BATCH
+    pipe = HandNetPipeline(cfg_fast, dtype=torch.bfloat16, device=dev, seed=SEED)
+    frames = [tuple(torch.from_numpy(np.stack([it[k] for it in items[i:i + E2E_BATCH]])).to(dev)
+                    for k in ("image", "depth", "paras"))
+              for i in range(0, E2E_ITEMS, E2E_BATCH)]
+    pipe(*frames[0])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [pipe(*f) for f in frames]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    calls = len(frames)
+    if launches != expected_launches(calls, GN_LAYERS_PER_CALL):
+        raise AssertionError(f"e2e_eval pipeline: launches {launches} in {calls} calls")
+    out = {k: torch.cat([o[k] for o in outs]).cpu().numpy() for k in outs[0]}
+    if not all(np.isfinite(out[k]).all() for k in ("joints_uvd_full", "scores", "boxes")):
+        raise AssertionError("e2e_eval pipeline: non-finite outputs")
+    log("e2e_eval", f"fast pipeline bf16 on the items, {calls} calls of {E2E_BATCH}: "
+        f"{int(out['found'].sum())}/{E2E_ITEMS} found, outputs finite; launches "
+        f"{per_call(launches, calls)} per call")
+    del pipe, outs, frames
+
+    # 3. COCO bbox and keypoints
+    start = time.perf_counter()
+    bbox, kpts = e2e_coco(items, out, CocoDetEvaluator, voc)
+    coco_ms = (time.perf_counter() - start) * 1e3
+    gt_bbox, gt_kpts = e2e_coco(items, None, CocoDetEvaluator, voc)
+    if gt_bbox["AP"] != 1.0 or gt_kpts["AP"] != 1.0:
+        raise AssertionError(f"COCO on the GT given back: bbox {gt_bbox}, keypoints {gt_kpts}")
+    if not all(0.0 <= r[k] <= 1.0 for r in (bbox, kpts) for k in ("AP", "AP50", "AR")):
+        raise AssertionError(f"COCO of the pipeline's hands: bbox {bbox}, keypoints {kpts}")
+    log("e2e_eval", f"CocoDetEvaluator: the GT boxes and joints given back score bbox AP "
+        f"{gt_bbox['AP']:.1f}, keypoints AP {gt_kpts['AP']:.1f}; the seed-{SEED} weights' hands: "
+        f"bbox AP {bbox['AP']:.4f} (AP50 {bbox['AP50']:.4f}), keypoints AP {kpts['AP']:.4f}, "
+        f"both evaluations {coco_ms:.1f} ms on the host")
+    del items, source, layer
+
+    # 4. deprojection: SequenceLoader over 8 cameras, card vs float64 numpy
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        seq, serials = write_sequence_tree(root, SEED)
+        loader = sequence_loader_from_meta(root, seq, serials, device=dev)
+        start = time.perf_counter()
+        depth = loader.depth_frames(0)
+        read_ms = (time.perf_counter() - start) * 1e3
+        pts, mask = loader.points(0)
+        torch.cuda.synchronize()
+        inv_k = loader.inv_k.double().cpu().numpy()
+        c2w = loader.cam_to_world.double().cpu().numpy()
+        depth_d = torch.from_numpy(depth).to(dev)
+        dep = timed(lambda: deproject_depth(depth_d, loader.inv_k, loader.cam_to_world))
+    ys, xs = np.meshgrid(np.arange(480), np.arange(640), indexing="ij")
+    pix = np.stack([xs, ys, np.ones_like(xs)], -1).reshape(-1, 3).astype(np.float64)
+    cam = np.einsum("cij,nj->cni", inv_k, pix) * depth.astype(np.float64).reshape(
+        len(serials), -1, 1)
+    world = np.einsum("cij,cnj->cni", c2w[:, :3, :3], cam) + c2w[:, None, :3, 3]
+    err = check("deproject_depth card vs float64", pts.double().cpu(),
+                torch.from_numpy(world), DEPROJECT_TOL)
+    if not np.array_equal(mask.cpu().numpy(), depth.reshape(len(serials), -1) > 1e-3):
+        raise AssertionError("deproject_depth: masks differ")
+    log("e2e_eval", f"SequenceLoader, {len(serials)} cameras x 480x640 (meta.yml, "
+        f"extrinsics.yml, 16-bit PNGs): deproject_depth on the card == float64 numpy within "
+        f"{err:.3e} m (tol {DEPROJECT_TOL:g}), masks equal; {dep['ms']:.4f} ms on the device, "
+        f"{dep['loop_ms']:.4f} ms loop; the host's PNG read {read_ms:.1f} ms per frame of "
+        f"{len(serials)} cameras")
+
+    # 5. the offset field, card against CPU
+    gen = np.random.default_rng(SEED)
+    jt = torch.from_numpy(gen.uniform(-0.6, 0.6, size=(8, 21, 3)).astype(np.float32))
+    img = torch.from_numpy(gen.uniform(-0.5, 1.2, size=(8, 1, 176, 176)).astype(np.float32))
+    field = joint2offset(jt.to(dev), img.to(dev), 0.8, 44)
+    back = offset2joint_softmax(field, img.to(dev), 0.8)
+    field_c = joint2offset(jt, img, 0.8, 44)
+    err_f = check("joint2offset card vs CPU", field.cpu(), field_c, OFFSET_TOL)
+    err_b = check("offset2joint_softmax card vs CPU", back.cpu(),
+                  offset2joint_softmax(field_c, img, 0.8), OFFSET_TOL)
+    log("e2e_eval", f"offset field B=8 J=21 F=44 from 176^2 depth: joint2offset card == CPU "
+        f"within {err_f:.3e}, offset2joint_softmax within {err_b:.3e} (tol {OFFSET_TOL:g})")
+    free_device_memory(dev)
+
+    # 6. the host evaluators
+    host_evaluators(SEED)
+    return {"e2e_pipeline": per_call(launches, calls)}
+
+
 def host_decoders() -> str:
     """What the host could decode images with: the versions of ``cv2``, PIL
     and ``yaml`` (or ``absent``), whether ``g++`` is on the PATH, and the
@@ -4833,6 +5379,11 @@ def main() -> int:
     # apps/train_a2j.py's recipe, then the Pose2Mesh app at its defaults
     by_path.update(phase_train_a2j(dev))
     lap("train_a2j")
+    # the 2D A2J: K1xy, predict, training and the eval step
+    a2j_2d = phase_a2j_2d(dev)
+    results["a2j_decode_xy"] = a2j_2d["result"]
+    by_path.update(a2j_2d["paths"])
+    lap("a2j_2d")
     by_path["train_mesh"] = phase_train_mesh(dev)
     lap("train_mesh")
     # the A2J apps through their entry points
@@ -4853,11 +5404,18 @@ def main() -> int:
         # the demo apps: demo, a2j_mesh, the ROS node, a2j_infer --vis, statepack
         by_path.update(phase_demo_apps(dev, cfg, trees))
         lap("demo_apps")
+        # E2E samples, the pipeline and COCO, deprojection, offset field, BOP, grasps
+        by_path.update(phase_e2e_eval(dev, cfg, trees))
+        lap("e2e_eval")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 
     sources = {"a2j_decode": ("handnet_tpu_torch/csrc/a2j_decode.cu",
                               "handnet_tpu/ops/pallas_a2j.py:55"),
+               # K1 without depth (kDepth false): the 2D A2J's decode, which
+               # the JAX package leaves to the einsum (models/a2j.py:145-153)
+               "a2j_decode_xy": ("handnet_tpu_torch/csrc/a2j_decode.cu",
+                                 "handnet_tpu/ops/pallas_a2j.py:55"),
                "gn_group_stats": ("handnet_tpu_torch/csrc/gn_stats.cu",
                                   "handnet_tpu/ops/pallas_gn.py:138"),
                "gn_apply": ("handnet_tpu_torch/csrc/gn_apply.cu",
@@ -4866,8 +5424,10 @@ def main() -> int:
                                  "handnet_tpu/nn/quant.py:135"),
                "int8_conv_gemm": ("handnet_tpu_torch/csrc/int8_conv.cu",
                                   "handnet_tpu/nn/quant.py:139")}
-    # launches: the quant_static run's (4 calls); launches_per_call: each
-    # path's, counted from 0 just before it and read just after
+    # launches: the quant_static run's (4 calls), K1xy's the 2D predict
+    # run's (its main path); launches_per_call: each path's, counted from 0
+    # just before it and read just after
+    launches["a2j_decode_xy"] = a2j_2d["launches"]
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name], **results[name],
                 "launches_per_call": {path: counts[name] for path, counts in by_path.items()}}

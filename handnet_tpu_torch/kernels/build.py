@@ -52,6 +52,9 @@ ENTRY_POINTS = {
     # cls, reg, depth, anchors, out, partials (or null), counters (or null),
     # batch, n, p, vec, rows, splits, per_split, chunk, dtype code, stream
     "hn_a2j_decode": (_P, _P, _P, _P, _P, _P, _P, *(_I64,) * 8, _INT, _P),
+    # K1xy: cls, reg, anchors, out, partials (or null), counters (or null),
+    # batch, n, p, vec, rows, splits, per_split, chunk, dtype code, stream
+    "hn_a2j_decode_xy": (_P, _P, _P, _P, _P, _P, *(_I64,) * 8, _INT, _P),
     # x, sx, sx stride, q, batch, elements per sample, dtype code, stream
     "hn_int8_quantize": (_P, _P, _I64, _P, _I64, _I64, _INT, _P),
     # q, wq, sx, sx stride, sw, bias (or null), out, batch, h, w, cin, cout,

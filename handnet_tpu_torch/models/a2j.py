@@ -5,7 +5,9 @@ Counterpart of ``handnet_tpu/models/a2j.py`` (``A2JHead``, ``A2J``,
 and ``loss_and_predict``). Parameter names
 follow the reference's A2JModel state dict (``Backbone.model.*``,
 ``classificationModel.*``, ``regressionModel.*``, ``DepthRegressionModel.*``),
-so the JAX package's ``convert_a2j`` reads them.
+so the JAX package's ``convert_a2j`` reads them. The 2D A2J (``is_3d``
+False) has no depth head: its heads are ``cls`` and ``reg``, it decodes to
+``[B, P, 2]`` through K1xy and its loss has no depth term.
 
 The heads' NCHW outputs go to NHWC *before* the ``[B, N, P]`` reshape: the
 anchor table is in (h, w, a) order (``ops/anchors.py``). ``cfg.quant`` makes
@@ -31,7 +33,8 @@ from handnet_tpu_torch.config import A2JConfig
 from handnet_tpu_torch.nn.quant import conv_layer
 from handnet_tpu_torch.nn.resnet import init_conv_weights_, make_norm, resnet50_dilated
 from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
-from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_reference
+from handnet_tpu_torch.ops.cuda_a2j import (a2j_decode, a2j_decode_reference, a2j_decode_xy,
+                                            a2j_decode_xy_reference)
 from handnet_tpu_torch.ops.focal import smooth_l1
 
 
@@ -56,16 +59,15 @@ class A2JHead(nn.Module):
 
 
 class A2J(nn.Module):
-    """Dilated ResNet-50 + the classification, regression and depth heads.
-    ``forward`` returns the raw flat head tensors."""
+    """Dilated ResNet-50 + the classification, regression and (3D only)
+    depth heads. ``forward`` returns the raw flat head tensors."""
 
     def __init__(self, cfg: Optional[A2JConfig] = None, norm: str = "frozen"):
         super().__init__()
         cfg = cfg or A2JConfig()
-        if cfg.backbone != "resnet50" or not cfg.is_3d:
-            raise NotImplementedError(
-                f"A2J: backbone {cfg.backbone!r}, is_3d={cfg.is_3d} (only the 3D "
-                "ResNet-50 model is ported; the 2D A2J has no depth head)")
+        if cfg.backbone != "resnet50":
+            raise NotImplementedError(f"A2J: backbone {cfg.backbone!r} (only the dilated "
+                                      "ResNet-50 is ported)")
         if norm == "group":
             # the GroupNorm option is the detector backbone's (train_fcos
             # --backbone-norm); no JAX app trains A2J with it
@@ -77,7 +79,8 @@ class A2J(nn.Module):
         a, p, f = cfg.num_anchors, cfg.num_joints, cfg.head_features
         self.classificationModel = A2JHead(1024, a * p, f, cfg.quant, norm)
         self.regressionModel = A2JHead(2048, a * p * 2, f, cfg.quant, norm)
-        self.DepthRegressionModel = A2JHead(2048, a * p, f, cfg.quant, norm)
+        if cfg.is_3d:
+            self.DepthRegressionModel = A2JHead(2048, a * p, f, cfg.quant, norm)
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """Seeded random init (conv kernels LeCun-normal)."""
@@ -85,8 +88,8 @@ class A2J(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x: ``[B, H, W, C]``, C = 1 (depth) or 4 (RGBD). Returns cls
-        ``[B, N, P]``, reg ``[B, N, P, 2]`` and depth ``[B, N, P]`` with
-        N = feat_h * feat_w * A in (h, w, a) order."""
+        ``[B, N, P]``, reg ``[B, N, P, 2]`` and, for the 3D A2J, depth
+        ``[B, N, P]``, with N = feat_h * feat_w * A in (h, w, a) order."""
         cfg = self.cfg
         if cfg.in_channels == 1 and x.shape[-1] == 1:
             # depth replicated to 3 channels for the RGB stem (a2j/a2j.py:197-199)
@@ -100,9 +103,11 @@ class A2J(nn.Module):
         def flat(t, *trailing):
             return t.permute(0, 2, 3, 1).reshape(b, -1, p, *trailing)
 
-        return {"cls": flat(self.classificationModel(x3)),
-                "reg": flat(self.regressionModel(x4), 2),
-                "depth": flat(self.DepthRegressionModel(x4))}
+        out = {"cls": flat(self.classificationModel(x3)),
+               "reg": flat(self.regressionModel(x4), 2)}
+        if cfg.is_3d:
+            out["depth"] = flat(self.DepthRegressionModel(x4))
+        return out
 
 
 def anchors_for(cfg: A2JConfig) -> np.ndarray:
@@ -112,8 +117,13 @@ def anchors_for(cfg: A2JConfig) -> np.ndarray:
 
 def a2j_postprocess(heads: Dict[str, torch.Tensor], anchors: torch.Tensor,
                     use_kernel: bool = True) -> torch.Tensor:
-    """Anchor aggregation -> UVD keypoints ``[B, P, 3]`` float32: kernel K1
-    (``ops/cuda_a2j.py``), or its plain version when ``use_kernel`` is False."""
+    """Anchor aggregation -> UVD keypoints ``[B, P, 3]`` float32 through
+    kernel K1 (``ops/cuda_a2j.py``), or, for heads without ``"depth"`` (the
+    2D A2J), UV ``[B, P, 2]`` through K1xy; their plain versions when
+    ``use_kernel`` is False."""
+    if "depth" not in heads:
+        decode_xy = a2j_decode_xy if use_kernel else a2j_decode_xy_reference
+        return decode_xy(heads["cls"], heads["reg"], anchors)
     decode = a2j_decode if use_kernel else a2j_decode_reference
     return decode(heads["cls"], heads["reg"], heads["depth"], anchors)
 
@@ -129,10 +139,12 @@ def a2j_loss(heads: Dict[str, torch.Tensor], gt_uvd: torch.Tensor, anchors: torc
     * classification: smooth-L1 (beta 1) between the GT (u, v) and the
       softmax-weighted anchors;
     * regression: smooth-L1 (beta 1) of the softmax-weighted ``anchor +
-      offset``, times ``spatial_factor``, plus the depth term: the *raw L1
-      mean* of the weighted depth's error where ``reference_depth_quirk``
-      (the reference computes a smooth-L1 and adds the L1, anchor.py:145-150),
-      else its smooth-L1 with ``beta=depth_beta``.
+      offset``, times ``spatial_factor``, plus, where the heads hold
+      ``"depth"`` (the 3D A2J), the depth term: the *raw L1 mean* of the
+      weighted depth's error where ``reference_depth_quirk`` (the reference
+      computes a smooth-L1 and adds the L1, anchor.py:145-150), else its
+      smooth-L1 with ``beta=depth_beta``. ``gt_uvd`` may then be ``[B, P,
+      2]``.
 
     Everything runs in float32 with autocast off, whatever the heads' dtype
     and the caller's region: the three einsums are matrix products, which
@@ -148,19 +160,22 @@ def a2j_loss(heads: Dict[str, torch.Tensor], gt_uvd: torch.Tensor, anchors: torc
         pos = anchors[None, :, None, :] + heads["reg"].float()          # [B, N, P, 2]
         pred_xy = torch.einsum("bnp,bnpc->bpc", w, pos)
         reg_loss = smooth_l1(gt_xy - pred_xy, beta=1.0).mean(dim=(1, 2)) * spatial_factor
-        pred_d = torch.einsum("bnp,bnp->bp", w, heads["depth"].float())
-        diff_d = gt_uvd[..., 2].float() - pred_d
-        if reference_depth_quirk:
-            depth_term = diff_d.abs().mean(dim=1)                       # anchor.py:150
-        else:
-            depth_term = smooth_l1(diff_d, beta=depth_beta).mean(dim=1)
-        return anchor_loss.mean(), (reg_loss + depth_term).mean()
+        if "depth" in heads:
+            pred_d = torch.einsum("bnp,bnp->bp", w, heads["depth"].float())
+            diff_d = gt_uvd[..., 2].float() - pred_d
+            if reference_depth_quirk:
+                depth_term = diff_d.abs().mean(dim=1)                   # anchor.py:150
+            else:
+                depth_term = smooth_l1(diff_d, beta=depth_beta).mean(dim=1)
+            reg_loss = reg_loss + depth_term
+        return anchor_loss.mean(), reg_loss.mean()
 
 
 class A2JSystem(A2J):
     """The A2J module plus its anchor table (a non-persistent buffer) and the
     ``predict``, ``losses`` and ``loss_and_predict`` entries. ``use_kernels``
-    decodes through K1 (else its plain version); ``norm`` as :class:`A2J`."""
+    decodes through K1, or K1xy for the 2D A2J (else their plain versions);
+    ``norm`` as :class:`A2J`."""
 
     def __init__(self, cfg: Optional[A2JConfig] = None, use_kernels: bool = True,
                  norm: str = "frozen"):
@@ -186,7 +201,8 @@ class A2JSystem(A2J):
                          reg_loss_factor: float = 3.0
                          ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """The losses of this module's forward on depth crops ``x`` and its
-        decoded UVD ``[B, P, 3]``, in the module's mode: ``train()`` takes a
+        decoded UVD ``[B, P, 3]`` (UV ``[B, P, 2]`` for the 2D A2J), in the
+        module's mode: ``train()`` takes a
         ``"batch"`` model's statistics from the batch and moves its running
         statistics (the JAX package returns them as ``updates``). The
         prediction carries no gradient."""

@@ -1,8 +1,9 @@
 """Camera geometry and joint-space conversions, batched over leading dims.
 
-Counterparts of ``handnet_tpu/ops/geometry.py:18-66`` (reference
-datasets3d/a2jdataset.py:21-38 and a2j/a2j.py:17-43), and the evaluator's
-numpy Procrustes alignment (``:69-107``; reference freihand/eval.py:71-94).
+Counterparts of ``handnet_tpu/ops/geometry.py:18-122`` (reference
+datasets3d/a2jdataset.py:21-38 and a2j/a2j.py:17-43), the evaluator's
+numpy Procrustes alignment (``:69-99``; reference freihand/eval.py:71-94)
+and its batched version in torch (:func:`align_w_scale`).
 """
 
 from __future__ import annotations
@@ -76,3 +77,25 @@ def align_w_scale_np(mtx1: np.ndarray, mtx2: np.ndarray, return_trafo: bool = Fa
     if return_trafo:
         return r, s, s1, t1 - t2
     return mtx2_t
+
+
+def align_w_scale(mtx1: torch.Tensor, mtx2: torch.Tensor) -> torch.Tensor:
+    """Batched Procrustes alignment with scale of ``mtx2`` (pred) to
+    ``mtx1`` (GT), ``[..., N, 3]``, on the inputs' device: the whole HPE
+    metric sweep as one batch instead of the reference's per-sample loop
+    (hpe_eval.py:202-211; ``handnet_tpu/ops/geometry.py:102-122``)."""
+    t1 = mtx1.mean(dim=-2, keepdim=True)
+    t2 = mtx2.mean(dim=-2, keepdim=True)
+    a = mtx1 - t1
+    b = mtx2 - t2
+    s1 = torch.linalg.norm(a, dim=(-2, -1), keepdim=True) + 1e-8
+    s2 = torch.linalg.norm(b, dim=(-2, -1), keepdim=True) + 1e-8
+    a = a / s1
+    b = b / s2
+    # R, s from the SVD of (b^T a)^T = a^T b
+    m = torch.matmul(b.transpose(-1, -2), a).transpose(-1, -2)
+    u, w, vt = torch.linalg.svd(m)
+    r = torch.matmul(u, vt)
+    s = w.sum(dim=-1)[..., None, None]
+    out = torch.matmul(b, r.transpose(-1, -2)) * s
+    return out * s1 + t1

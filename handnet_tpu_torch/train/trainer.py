@@ -127,8 +127,9 @@ class A2JTrainer:
     The model is ``A2JSystem(norm="batch")``: the backbone's and the three
     towers' BatchNorms take the batch's statistics in the train step and
     the running ones in the eval step. ``quant`` is serving-only and forced
-    off, as in the JAX package; a ``mesh`` and the 2D A2J (``is_3d=False``)
-    are not ported and raise ``NotImplementedError``.
+    off, as in the JAX package; a ``mesh`` is not ported and raises
+    ``NotImplementedError``. The 2D A2J (``is_3d=False``) trains without the
+    depth term, as JAX's does; its eval step is JAX's, see :meth:`eval_step`.
 
     ``device``: None (the default) is the card and raises where there is
     none; pass ``"cpu"`` to train there. The batch must be on that device:
@@ -146,9 +147,6 @@ class A2JTrainer:
         self.device = resolve_device("A2JTrainer", device, mesh)
         # int8 is a serving-only path: round() has no useful gradient
         self.model_cfg = dataclasses.replace(model_cfg or A2JConfig(), quant=False)
-        if not self.model_cfg.is_3d:
-            raise NotImplementedError("A2JTrainer: the 2D A2J (is_3d=False: no depth head, "
-                                      "an xy-only decode and loss) is not ported")
         self.train_cfg = train_cfg or TrainConfig()
         self.schedule = step_decay(self.train_cfg.lr, steps_per_epoch, self.train_cfg.lr_step,
                                    self.train_cfg.lr_gamma)
@@ -182,15 +180,30 @@ class A2JTrainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval-mode forward (running statistics), the decode through K1
-        (its plain version where ``state.model.use_kernels`` is False, or on
-        the CPU), and ``rmse = sqrt(mean((jt_uvd - pred)^2))`` over u, v and
-        d together, as the JAX package mixes them. Returns ``(pred [B, P, 3]
-        float32, rmse)``; the decode runs outside the autocast region."""
+        (K1xy for the 2D A2J; the plain versions where
+        ``state.model.use_kernels`` is False, or on the CPU), and ``rmse =
+        sqrt(mean((jt_uvd - pred)^2))`` over u, v and d together, as the JAX
+        package mixes them. Returns ``(pred [B, P, 3] float32, rmse)``, or
+        ``pred [B, P, 2]`` for the 2D A2J; the decode runs outside the
+        autocast region.
+
+        The 2D A2J's ``[B, P, 2]`` prediction against the ``[B, P, 3]``
+        targets of the A2J data path raises ``ValueError``: JAX's eval step
+        (``handnet_tpu/train/trainer.py:147``) subtracts the two and fails
+        to broadcast them. ``[B, P, 2]`` targets give the RMSE over u and v,
+        as JAX's does."""
         model = state.model.eval()
         with self._autocast():
             heads = model(batch["image"])
         pred = a2j_postprocess(heads, model.anchors, use_kernel=model.use_kernels)
-        return pred, torch.sqrt(torch.mean((batch["jt_uvd"] - pred) ** 2))
+        target = batch["jt_uvd"]
+        if target.shape != pred.shape:
+            raise ValueError(
+                f"A2JTrainer.eval_step: jt_uvd {tuple(target.shape)} against the decoded "
+                f"{tuple(pred.shape)} (is_3d={self.model_cfg.is_3d}); the JAX package's eval "
+                "step fails the same way: its 2D A2J decodes (u, v) only, which does not "
+                "broadcast against (u, v, d) targets")
+        return pred, torch.sqrt(torch.mean((target - pred) ** 2))
 
 
 class FCOSTrainer:

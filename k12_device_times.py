@@ -12,6 +12,11 @@ Run from the repository root on a CUDA card::
 ``--sweep`` (this checkout only) adds the B=128 bf16 times for other values of
 the wrappers' blocks-per-SM targets, which set how many splits an image gets.
 
+``--k1-hash`` prints only the SHA-256 of K1's output at B=128, N=1936, P=21,
+bf16 on seeded heads (``chip_smoke.k1_output_hash``; ``chip_smoke.py``'s
+``[a2j_2d]`` phase prints it too): run it with and without ``--root`` in one
+call to check that two checkouts' K1 give the same bits.
+
 ``--root`` names a directory that holds another ``handnet_tpu_torch`` (for
 example the parent commit, unpacked with ``git archive``); its kernels build
 into that directory's ``build/``. A port that has no K2a (``gn_apply``) is
@@ -34,10 +39,12 @@ def main() -> int:
     parser.add_argument("--root", default=None, help="directory holding handnet_tpu_torch")
     parser.add_argument("--sweep", action="store_true",
                         help="also time other blocks-per-SM targets at B=128")
+    parser.add_argument("--k1-hash", action="store_true",
+                        help="print only the hash of K1's output on seeded inputs")
     args = parser.parse_args()
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
-    from chip_smoke import cuda_ms, device_ms
+    from chip_smoke import cuda_ms, device_ms, k1_output_hash
     if args.root:
         sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -61,6 +68,10 @@ def main() -> int:
                 "gn_" in line or "a2j" in line or "registers" in line):
             print("  " + line.strip())
     dev = torch.device("cuda", 0)
+    if args.k1_hash:
+        print(f"[{card}] K1 output hash (B=128 N=1936 P=21 bf16, seed 2): "
+              f"{k1_output_hash(dev)}", flush=True)
+        return 0
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def report(name, n_bytes, fn, cold=None):

@@ -50,7 +50,7 @@ from handnet_tpu_torch.convert.from_flax import pose2mesh_variables_from_state_d
 from handnet_tpu_torch.data import image_io
 from handnet_tpu_torch.models.pipeline import HandNetPipeline
 from handnet_tpu_torch.utils import raster
-from torch_port_fixtures import assert_close
+from torch_port_fixtures import assert_close, fast_compile
 
 H, W, CROP, FRAMES = 48, 64, 32, 2
 PARAS = np.array([600.0, 600.0, 320.0, 240.0], np.float32)
@@ -154,14 +154,6 @@ def test_folder_source_matches_jax(tmp_path):
 
 # ---------------------------------------------------------------------------
 # apps/demo.py: the loop, against the JAX demo's
-
-def fast_compile(fn, *args):
-    """``jax.jit(fn)`` compiled for ``args`` with XLA's backend optimization
-    off: the same operations; for A2J's few calls a third of the time on
-    the CPU (the pipeline runs slower so, and is jitted as usual)."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": "0"})
-
 
 @pytest.fixture(scope="module")
 def port_pipeline():

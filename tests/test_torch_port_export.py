@@ -131,6 +131,10 @@ def _op_cases():
                         t(rng.normal(size=(2, 32, 4, 2)).astype(np.float32)),
                         t(rng.uniform(0.3, 1.0, size=(2, 32, 4)).astype(np.float32)),
                         t(rng.uniform(0, 48, size=(32, 2)).astype(np.float32)))),
+        "a2j_decode_xy": (cuda_a2j.a2j_decode_xy_reference,
+                          (t(rng.normal(size=(2, 32, 4)).astype(np.float32)),
+                           t(rng.normal(size=(2, 32, 4, 2)).astype(np.float32)),
+                           t(rng.uniform(0, 48, size=(32, 2)).astype(np.float32)))),
         "gn_group_stats": (cuda_gn.gn_group_stats_reference, (x, 32)),
         "gn_apply": (cuda_gn.gn_apply_reference,
                      (x, stats, t(rng.uniform(0.5, 1.5, 64).astype(np.float32)),
@@ -146,7 +150,8 @@ def _op_cases():
     }
 
 
-OPS = ("a2j_decode", "gn_group_stats", "gn_apply", "int8_quantize", "int8_conv_gemm")
+OPS = ("a2j_decode", "a2j_decode_xy", "gn_group_stats", "gn_apply", "int8_quantize",
+       "int8_conv_gemm")
 
 
 @pytest.mark.parametrize("name", OPS)
@@ -162,7 +167,8 @@ def test_op_cpu_is_plain_version(name):
     """On a CPU tensor the op, and the public wrapper that calls it, are the
     plain version bit for bit, and count no kernel launch."""
     plain, args = _op_cases()[name]
-    wrapper = {"a2j_decode": cuda_a2j.a2j_decode, "gn_group_stats": cuda_gn.gn_group_stats,
+    wrapper = {"a2j_decode": cuda_a2j.a2j_decode, "a2j_decode_xy": cuda_a2j.a2j_decode_xy,
+               "gn_group_stats": cuda_gn.gn_group_stats,
                "gn_apply": cuda_gn.gn_apply, "int8_quantize": cuda_int8_conv.int8_quantize,
                "int8_conv_gemm": cuda_int8_conv.int8_conv_gemm}[name]
     before = wrapper.launches

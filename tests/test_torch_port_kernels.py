@@ -60,6 +60,55 @@ def test_a2j_decode_plain_matches_pallas_and_einsum(crop, joints, batch, dtype):
     assert_close(got, einsum, rtol=1e-4, atol=1e-4)
 
 
+# K1xy, the 2D A2J's decode: its plain version against the einsum that the
+# JAX package's 2D decode is (models/a2j.py:145-153), 1e-4 as above.
+@pytest.mark.parametrize("crop,joints,batch,dtype", [
+    (64, 8, 2, "float32"),
+    (176, 21, 2, "bfloat16"),
+])
+def test_a2j_decode_xy_plain_matches_einsum(crop, joints, batch, dtype):
+    cls, reg, _, anchors = _a2j_inputs(crop, joints, batch, seed=crop + joints + 1)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jcls, jreg = (jnp.asarray(a).astype(jdt) for a in (cls, reg))
+    einsum = np.asarray(a2j_postprocess({"cls": jcls, "reg": jreg}, jnp.asarray(anchors)))
+    tcls, treg = (torch.from_numpy(a).to(tdt) for a in (cls, reg))
+    got = cuda_a2j.a2j_decode_xy_reference(tcls, treg, torch.from_numpy(anchors))
+    assert got.dtype == torch.float32 and got.shape == (batch, joints, 2)
+    assert_close(got, einsum, rtol=1e-4, atol=1e-4)
+
+
+# K1xy's staging: the main path's (N, P), an unaligned pair and a long N, as
+# K1's cases in tests/test_torch_port_gn.py; without depth a chunk stages
+# three values per element, so it holds at least K1's anchors.
+@pytest.mark.parametrize("n,p,itemsize,batch", [
+    (1936, 21, 2, 128), (1936, 21, 2, 1), (1936, 21, 4, 8),
+    (50, 7, 2, 3), (333, 5, 4, 1), (7744, 21, 4, 128),
+])
+def test_a2j_xy_flat_copies_cover_each_element_once(n, p, itemsize, batch):
+    plan = cuda_a2j.decode_plan(batch, n, p, itemsize, 132, depth=False)
+    plan_3d = cuda_a2j.decode_plan(batch, n, p, itemsize, 132)
+    assert plan._replace(chunk=0) == plan_3d._replace(chunk=0)   # the same blocks
+    assert plan.chunk >= plan_3d.chunk and plan.chunk % plan.vec == 0
+    assert plan.chunk * p * 3 * itemsize <= 42 * 1024
+    if plan.per_split > plan.chunk:   # a chunk of K1xy is as large as 42 KB allows
+        assert (plan.chunk + plan.vec) * p * 3 * itemsize > 42 * 1024
+    copied, read, read_joint = cuda_a2j.staged_elements(plan, n, p, depth=False)
+    flat = np.arange(n * p)
+    assert np.array_equal(np.sort(copied), flat)
+    assert np.array_equal(np.sort(read), flat)
+    assert np.array_equal(read % p, read_joint)
+
+
+def test_a2j_staged_streams_start_on_whole_copies():
+    """The transcription refuses a plan whose staged streams (cls, depth,
+    reg) would not start on a whole 16-byte copy in shared memory."""
+    plan = cuda_a2j.decode_plan(8, 1936, 21, 2, 132)
+    with pytest.raises(AssertionError, match="does not start"):
+        cuda_a2j.staged_elements(plan._replace(chunk=plan.chunk - 1), 1936, 21, depth=False)
+    with pytest.raises(AssertionError, match="does not start"):
+        cuda_a2j.staged_elements(plan._replace(chunk=plan.chunk - 1), 1936, 21)
+
+
 def _ref_stats(x, groups):
     b, h, w, c = x.shape
     g = x.astype(np.float64).reshape(b, h * w, groups, c // groups)
@@ -133,6 +182,22 @@ def test_wrappers_take_plain_path_on_cpu():
                        cuda_a2j.a2j_decode_reference(cls, reg, depth, anchors))
     assert cuda_gn.gn_group_stats.launches == gn_before
     assert cuda_a2j.a2j_decode.launches == a2j_before
+
+
+def test_a2j_decode_xy_takes_plain_path_on_cpu_and_refuses_other_devices():
+    """K1xy's wrapper: a CPU tensor runs the plain version (the u, v of K1's
+    plain version on the same heads) and counts no launch; a meta tensor
+    raises."""
+    before = cuda_a2j.a2j_decode_xy.launches
+    cls, reg, depth, anchors = (torch.from_numpy(a) for a in _a2j_inputs(32, 4, 2, 3))
+    got = cuda_a2j.a2j_decode_xy(cls, reg, anchors)
+    assert torch.equal(got, cuda_a2j.a2j_decode_xy_reference(cls, reg, anchors))
+    assert torch.equal(got, cuda_a2j.a2j_decode_reference(cls, reg, depth, anchors)[..., :2])
+    assert cuda_a2j.a2j_decode_xy.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_a2j.a2j_decode_xy(torch.empty((1, 16, 4), device="meta"),
+                               torch.empty((1, 16, 4, 2), device="meta"),
+                               torch.empty((16, 2), device="meta"))
 
 
 def test_wrappers_refuse_other_devices():

@@ -268,6 +268,19 @@ with tempfile.TemporaryDirectory() as root:
     voc = voc100doh.VOCDetectSource(voc100doh.VOC100DOH(os.path.join(root, "voc")),
                                     target_size=(64, 96))[0]
     assert voc["image"].shape == (64, 96, 3) and voc["target_valid"][0]
+    # the last slice's modules: an E2E item, a deprojection, a COCO evaluation
+    from handnet_tpu_torch.data import e2e_data, imgtrans, sequence
+    from handnet_tpu_torch.eval import bop_pose, coco_det, grasp
+    from handnet_tpu_torch.eval.voc import Detection, GTObject
+    import handnet_tpu_torch.ops.offset_field
+    e2e = e2e_data.E2EDataSource(ds, dexycb.refine_indices(ds))[0]
+    assert e2e["image"].shape == (480, 640, 3) and e2e["target_valid"].any()
+    pts, mask = sequence.deproject_depth(torch.from_numpy(e2e["depth"][None]),
+                                         torch.eye(3)[None], torch.eye(4)[None])
+    assert tuple(pts.shape) == (1, 480 * 640, 3) and bool(mask.any())
+    coco = coco_det.CocoDetEvaluator({"0": [GTObject("hand", e2e["hand_box"])]}).evaluate(
+        [Detection("0", 0.9, e2e["hand_box"])])
+    assert coco["AP"] == 1.0
 from handnet_tpu_torch.models.faster_rcnn import decode_rcnn_detections
 from handnet_tpu_torch.train.trainer import RCNNTrainer
 rcnn = RCNNTrainer(C.FCOSConfig(num_classes=3, image_h=64, image_w=96),
@@ -319,7 +332,10 @@ def test_port_imports_no_jax():
     synthetic DexYCB tree, draws a batch through ``A2JDataSource`` and
     ``PrefetchLoader``, runs ``HPEEvaluator``, imports the A2J and FCOS
     apps, decodes a colour JPEG, builds a ``DetectDataSource`` item and a
-    ``VOCDetectSource`` item (a JPEG it writes, resized), reads a config
+    ``VOCDetectSource`` item (a JPEG it writes, resized), builds an
+    ``E2EDataSource`` item, deprojects its depth, runs ``CocoDetEvaluator``
+    on its hand box, imports the offset field, colour jitter and the BOP
+    and grasp evaluators, reads a config
     through ``load_config(yaml_path=...)``, imports the demo apps and their
     utilities, runs one frame of ``demo.main``, draws a line and writes and
     reads back a ``statepack`` file, and has loaded neither jax, optax,

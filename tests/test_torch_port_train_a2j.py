@@ -281,13 +281,15 @@ def test_a2j_loss_and_gradient_match_jax(quirk):
 
 
 def test_trainer_refusals_and_forced_options(monkeypatch):
-    """``mesh`` and the 2D A2J raise ``NotImplementedError``; ``quant`` is
-    forced off; with no device and no card it raises instead of training on
-    the CPU."""
+    """``mesh`` raises ``NotImplementedError``; the 2D A2J's eval step on
+    ``[B, P, 3]`` targets raises ``ValueError``, as JAX's fails to broadcast
+    its ``[B, P, 2]`` prediction against them; ``quant`` is forced off; with
+    no device and no card it raises instead of training on the CPU."""
     with pytest.raises(NotImplementedError, match="mesh"):
         A2JTrainer(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="is_3d"):
-        A2JTrainer(pconfig.A2JConfig(**SMALL, is_3d=False), device="cpu")
+    trainer_2d = A2JTrainer(pconfig.A2JConfig(**SMALL, is_3d=False), device="cpu")
+    with pytest.raises(ValueError, match="broadcast"):
+        trainer_2d.eval_step(trainer_2d.init_state(SEED), _port_batch(*_batch(5, batch=2)))
     forced = A2JTrainer(pconfig.A2JConfig(**SMALL, quant="static"), device="cpu")
     assert forced.model_cfg.quant is False
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -62,3 +62,14 @@ def nhwc(t: torch.Tensor) -> np.ndarray:
 def assert_close(got, want, rtol: float, atol: float, err_msg: str = "") -> None:
     np.testing.assert_allclose(np.asarray(got, np.float64), np.asarray(want, np.float64),
                                rtol=rtol, atol=atol, err_msg=err_msg)
+
+
+def fast_compile(fn, *args, jitted=None):
+    """``jax.jit(fn)`` (or the already jitted ``jitted``) compiled for
+    ``args`` with XLA's backend optimization off: the same operations; for
+    A2J's few calls a third of the time on the CPU (the pipeline runs slower
+    so, and is jitted as usual)."""
+    import jax
+
+    return (jitted or jax.jit(fn)).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": "0"})
