@@ -109,19 +109,25 @@ train (after mesh, before the idle shares): ``FCOSTrainer`` at the width of
    towers, the extension heads, 3 classes; batch 8, SGD lr 1.25e-3 with
    warmup, bf16, a batch-norm backbone) on a seeded synthetic batch (480x640
    frames with 1-4 boxes each, padded to 8, through ``preprocess``).
-   GroupNorm + ReLU at the P3 train shape [8, 100, 136, 256], float32 and
-   bf16: K2s + K2a and the ops' registered backward against autograd
-   through the plain versions (dx, dscale, dbias), and forward + backward
-   timed beside ``F.group_norm`` + autograd; the matcher at 800x1088 with a
-   float32 area tie, card == CPU; one step of two trainers from one seed
-   with the kernels and with their plain versions, bf16 and float32 (TF32
-   off): every loss term and every parameter's gradient; 20 steps on the
-   repeated batch (K2s and K2a 24 launches per step, K1 and K3 none; every
-   loss finite, the last total below half the first, master weights
-   float32), ms per step by the loop clock after 3 steps, images/s, peak
-   memory, and a profile of one step by kernel (top 10, K2s/K2a's share, the
-   GroupNorm backward's share from its profiler ranges); one step with a
-   frozen backbone (running statistics unchanged, its affine moved).
+   First the GroupNorm backward's kernels against their plain versions at
+   the P3 train shape [8, 100, 136, 256] and the GroupNorm backbone's five
+   shapes, x and parameters in float32 and bf16, ReLU on and off: K2r's
+   sums and dparams to 1e-5 of scale, K2d bit for bit on K2r's sums, two
+   launches of each bit-equal. GroupNorm + ReLU at the P3 train shape,
+   float32 and bf16: K2s + K2a + K2r + K2d against autograd through the
+   plain versions (dx, dscale, dbias); forward + backward, the backward
+   alone, K2r and K2d timed beside their bounds, ``F.group_norm`` +
+   autograd and the gradients registered on the forward ops; the matcher at
+   800x1088 with a float32 area tie, card == CPU; one step of two trainers
+   from one seed with the kernels and with their plain versions, bf16 and
+   float32 (TF32 off): every loss term and every parameter's gradient; 20
+   steps on the repeated batch (K2s, K2a, K2r and K2d 24 launches per step,
+   K1 and K3 none; every loss finite, the last total below half the first,
+   master weights float32), ms per step by the loop clock after 3 steps,
+   images/s, peak memory, and a profile of one step by kernel (top 10, the
+   shares of K2s/K2a and of K2r/K2d, the gradients copied to NHWC); one
+   step with a frozen backbone (running statistics unchanged, its affine
+   moved).
 
 train_a2j (after train): ``A2JTrainer`` at apps/train_a2j.py's recipe
    (176^2 depth crops, dilated ResNet-50, three 256-wide 4-conv towers, 16
@@ -172,10 +178,10 @@ fcos_apps (after a2j_apps, before the idle shares): the FCOS apps through
    and its encode and resize against cv2 (printed), with decode and encode
    ms per 480x640 frame on one core; ``train_fcos.main`` at the recipe
    (800x1088, batch 8, bf16, batch-norm backbone, 2 epochs, 8 loader
-   threads): ms per step, images/s, the loader-wait share, K2s/K2a 24 per
-   step and nothing else, finite losses; a train step alone and beside 8
+   threads): ms per step, images/s, the loader-wait share, K2s/K2a/K2r/K2d
+   24 per step and nothing else, finite losses; a train step alone and beside 8
    busy loader threads; ``train_fcos.main --voc-root --backbone-norm
-   group`` (1 epoch): K2s/K2a 60 per step, the trained backbone's
+   group`` (1 epoch): K2s/K2a/K2r/K2d 60 per step, the trained backbone's
    GroupNorms == their plain versions on one batch (f32, 1e-3 of each
    level's scale); ``eval_fcos.main`` with the first run's weights
    (reference-keyed, classes 0, 1 and 22 as background, object and hand):
@@ -247,7 +253,8 @@ which the port does not use.
 
 In the ``{"kernels": [...]}`` line ``ms``, ``plain_ms`` and ``library_ms``
 are times on the device; ``loop_ms`` is the wrapper loop's; ``launches`` is
-the quant_static run's (K1xy's: the 2D predict run's, its main path),
+the quant_static run's (K1xy's: the 2D predict run's; K2r's and K2d's: the
+20-step learning run's of train; each its main path),
 ``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
 wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
@@ -260,7 +267,11 @@ capture, ``a2j_2d_predict`` per 2D predict call, ``train_a2j_2d`` per 2D
 train step, ``eval_a2j_2d`` for one 2D eval step, ``e2e_pipeline`` per call
 on the E2E items), K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
-the GroupNorm backbone's.
+the GroupNorm backbone's. K2r's and K2d's numbers are at the P3 train
+shape with the train route's pair beside them (``pair_train_*``,
+``backward_*``) and the profiled step's (``step_profile``); their
+``library_ms`` is ``aten.native_group_norm_backward`` for the same outputs
+(dscale and dbias; dx), which computes its own sums and has no ReLU.
 
 Every kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations over the card's peak for
@@ -290,6 +301,9 @@ import time
 SEED = 2
 SLICE_REQUESTS = (8, 8, 8, 128)   # batch sizes of the slice's calls
 GN_LAYERS_PER_CALL = 24           # 2 towers x 4 GroupNorms x 3 FPN levels
+# the GroupNorm kernels of a train step, each once per layer: K2s and K2a
+# forward, K2r and K2d backward
+GN_TRAIN_KERNELS = ("gn_group_stats", "gn_apply", "gn_backward_sums", "gn_backward_dx")
 GN_LEVELS = ((60, 80), (30, 40), (15, 20))  # FPN P3-P5 at 480x640
 INT8_LAYERS = 113                 # QuantConvs: 49 detector + 64 A2J
 INT8_LAUNCHES_PER_CALL = 129      # 105 once, the 8 tower convs at 3 FPN levels
@@ -334,8 +348,9 @@ TRAIN_STEPS_PER_EPOCH = 5         # so the warmup ends at step 5 and the run lea
 # an H100 80GB HBM3 at 700 W: 0.141 of the first)
 TRAIN_LEARN_SHARE = 0.5
 GN_TRAIN_SHAPE = (8, 100, 136, 256)   # P3 of a train step at 800x1088, G=32
-# K2s + K2a and the registered backward against autograd through the plain
-# versions at GN_TRAIN_SHAPE, as a share of each gradient's largest |value|:
+# K2s + K2a + K2r + K2d against autograd through the plain versions at
+# GN_TRAIN_SHAPE, and K2r + K2d's dx against the plain pair's, as a share of
+# each gradient's largest |value| (values set with the registered gradient):
 # float32 differs by the statistics' summation order; bf16 rounds dx to
 # bf16 (an ulp is 2^-8 of a value) in two terms, each path after its own
 # float32 arithmetic (measured: dx 1.9e-7 f32, 1.5e-3 bf16; dscale 3.5e-7)
@@ -344,7 +359,8 @@ GN_GRAD_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # batch): each loss term (relative) and each parameter's gradient (norm of
 # the difference over the norm), bf16 and float32 with TF32 off. The two
 # differ by the statistics' last bits in the forward and by the gradient's
-# formula (registered against autograd's through the plain ops), and cuDNN's
+# formula (K2r + K2d against autograd's through the plain ops; the values
+# were measured with the gradient registered on the ops), and cuDNN's
 # weight gradients sum in no fixed order (measured: bf16 losses 1.4e-4,
 # gradients median 1.7e-2, max 3.6e-2; f32 losses equal, gradients median
 # 2.4e-4, max 4.4e-4)
@@ -1083,9 +1099,11 @@ def compare_outputs(name: str, got, want, joint_tol: float) -> float:
     return err
 
 
-def expected_launches(calls: int, gn: int, int8: int = 0) -> dict:
-    return {"gn_group_stats": gn * calls, "gn_apply": gn * calls, "a2j_decode": calls,
-            "a2j_decode_xy": 0, "int8_quantize": int8 * calls, "int8_conv_gemm": int8 * calls}
+def expected_launches(calls: int, gn: int, int8: int = 0, gn_backward: int = 0) -> dict:
+    return {"gn_group_stats": gn * calls, "gn_apply": gn * calls,
+            "gn_backward_sums": gn_backward * calls, "gn_backward_dx": gn_backward * calls,
+            "a2j_decode": calls, "a2j_decode_xy": 0, "int8_quantize": int8 * calls,
+            "int8_conv_gemm": int8 * calls}
 
 
 def per_call(launches: dict, calls: int) -> dict:
@@ -1157,11 +1175,13 @@ def phase_slice(dev, cfg) -> dict:
 def counted_wrappers() -> dict:
     """Every kernel's wrapper, by the kernel's name in the JSON line."""
     from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_xy
-    from handnet_tpu_torch.ops.cuda_gn import gn_apply, gn_group_stats
+    from handnet_tpu_torch.ops.cuda_gn import (gn_apply, gn_backward_dx, gn_backward_sums,
+                                               gn_group_stats)
     from handnet_tpu_torch.ops.cuda_int8_conv import int8_conv_gemm, int8_quantize
 
     return {"a2j_decode": a2j_decode, "a2j_decode_xy": a2j_decode_xy,
             "gn_group_stats": gn_group_stats, "gn_apply": gn_apply,
+            "gn_backward_sums": gn_backward_sums, "gn_backward_dx": gn_backward_dx,
             "int8_quantize": int8_quantize, "int8_conv_gemm": int8_conv_gemm}
 
 
@@ -1222,11 +1242,7 @@ def phase_quant_slice(dev, cfg, cfg_dynamic):
     for out, bsz in zip(outs, SLICE_REQUESTS):
         check_outputs(out, bsz, crop, joints)
     calls = len(SLICE_REQUESTS)
-    expected = {"a2j_decode": calls, "a2j_decode_xy": 0,
-                "gn_group_stats": GN_LAYERS_PER_CALL * calls,
-                "gn_apply": GN_LAYERS_PER_CALL * calls,
-                "int8_quantize": INT8_LAUNCHES_PER_CALL * calls,
-                "int8_conv_gemm": INT8_LAUNCHES_PER_CALL * calls}
+    expected = expected_launches(calls, GN_LAYERS_PER_CALL, INT8_LAUNCHES_PER_CALL)
     if launches != expected:
         raise AssertionError(f"quant_static launch counts {launches}, expected {expected}")
     log("slice", f"quant_static bf16 calls of batch {list(SLICE_REQUESTS)} in {seconds:.3f} s "
@@ -1796,8 +1812,10 @@ art = ServingArtifact.load(path, device=device)
 load_s = time.perf_counter() - start
 assert not foreign(), foreign()
 counted = {"a2j_decode": cuda_a2j.a2j_decode, "a2j_decode_xy": cuda_a2j.a2j_decode_xy,
-           "gn_group_stats": cuda_gn.gn_group_stats,
-           "gn_apply": cuda_gn.gn_apply, "int8_quantize": cuda_int8_conv.int8_quantize,
+           "gn_group_stats": cuda_gn.gn_group_stats, "gn_apply": cuda_gn.gn_apply,
+           "gn_backward_sums": cuda_gn.gn_backward_sums,
+           "gn_backward_dx": cuda_gn.gn_backward_dx,
+           "int8_quantize": cuda_int8_conv.int8_quantize,
            "int8_conv_gemm": cuda_int8_conv.int8_conv_gemm}
 h, w = art.frame_hw
 rng = np.random.default_rng(seed)
@@ -2608,8 +2626,8 @@ def set_gn_kernels(model, on: bool) -> None:
 
 
 def gn_train_gradient(dev) -> None:
-    """GroupNorm + ReLU at the P3 train shape, float32 and bf16: K2s and K2a
-    (one launch each) with the registered backward against autograd through
+    """GroupNorm + ReLU at the P3 train shape, float32 and bf16: the train
+    route (K2s, K2a, K2r and K2d, one launch each) against autograd through
     the plain versions, on dx, dscale and dbias. Elements whose ReLU mask
     differs between the two outputs (the statistics differ in the last
     bits) are counted and left out of dx."""
@@ -2633,9 +2651,9 @@ def gn_train_gradient(dev) -> None:
         reset_launch_counts()
         got = grads(lambda a, s, t: group_norm(a, s, t, 32, relu=True))
         counts = launch_counts()
-        if (counts["gn_group_stats"], counts["gn_apply"]) != (1, 1):
+        if {k: counts[k] for k in GN_TRAIN_KERNELS} != dict.fromkeys(GN_TRAIN_KERNELS, 1):
             raise AssertionError(f"GroupNorm forward + backward launched {counts}: expected "
-                                 "K2s and K2a once each")
+                                 "K2s, K2a, K2r and K2d once each")
         want = grads(lambda a, s, t: group_norm_reference(a, s, t, 32, relu=True))
         agree = (got[0] > 0) == (want[0] > 0)
         flips = int((~agree).sum())
@@ -2651,56 +2669,251 @@ def gn_train_gradient(dev) -> None:
             if not errs[name] <= tol:
                 raise AssertionError(f"GN gradient {dtype} {name}: max|err| {errs[name]:.3e} "
                                      f"of its scale > {tol:.1e}")
-        log("train", f"GN gradient {list(GN_TRAIN_SHAPE)} G=32 ReLU {dtype}: K2s + K2a + the "
-            "registered backward vs autograd through the plain versions: "
+        log("train", f"GN gradient {list(GN_TRAIN_SHAPE)} G=32 ReLU {dtype}: K2s + K2a + K2r + "
+            "K2d vs autograd through the plain versions: "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
             + f" of scale (tol {tol:g}); {flips} ReLU masks differ (left out of dx)")
         del got, want, agree
 
 
-def gn_train_yardstick(dev) -> None:
-    """Forward + backward of GroupNorm + ReLU at the P3 train shape in bf16:
-    K2s + K2a with the registered backward, against ``F.group_norm`` +
-    ``F.relu`` with autograd's own backward (which the port never calls),
-    on the device and by loop; and their byte bound (the pair's inputs x
-    and dy read once, its outputs y and dx written once)."""
+def output_hash(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def native_group_norm_backward(x, dy, scale, bias, g: int, mask, eps: float = 1e-5):
+    """``fn()`` calling ``aten.native_group_norm_backward`` (the library's
+    GroupNorm backward, which the port never calls) for the outputs that
+    ``mask`` selects (dx, dscale, dbias), on NCHW copies of NHWC ``x`` and
+    ``dy`` with its own statistics, the parameters in x's type, no ReLU."""
+    import torch
+
+    b, h, w, c = x.shape
+    x_nchw, dy_nchw = (t.permute(0, 3, 1, 2).contiguous() for t in (x, dy))
+    w_x, b_x = scale.detach().to(x.dtype), bias.detach().to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_group_norm(x_nchw, w_x, b_x, b, c, h * w, g, eps)
+    return lambda: torch.ops.aten.native_group_norm_backward(dy_nchw, x_nchw, mean, rstd, w_x, b,
+                                                             c, h * w, g, mask)
+
+
+def gn_backward_times(x, dy, stats, scale, bias, g: int, eps: float = 1e-5) -> dict:
+    """K2r and K2d alone at x's shape, ReLU on: device and loop ms, the
+    bound (x and dy read; K2d also writes dx), the plain versions' device ms
+    and the library's ms for the same outputs (``library_ms``:
+    ``native_group_norm_backward`` for dscale and dbias, for dx). Returns
+    the two kernels' JSON numbers."""
+    from handnet_tpu_torch.ops.cuda_gn import (gn_backward_dx, gn_backward_dx_reference,
+                                               gn_backward_sums, gn_backward_sums_reference)
+
+    sums, _ = gn_backward_sums(x, dy, stats, scale, bias, eps, True)
+    small = nbytes(stats, scale, bias)
+    # per element: K2r a subtraction, the mask's multiply, add and compare,
+    # two accumulations; K2d those of the mask, three multiplies and two
+    # subtractions (float32, outside the tensor cores)
+    return {
+        "gn_backward_sums": {
+            **timed(lambda: gn_backward_sums(x, dy, stats, scale, bias, eps, True)),
+            **bound(2 * nbytes(x) + small, 6 * x.numel(), F32_FLOPS_PER_S),
+            "plain_ms": device_ms(lambda: gn_backward_sums_reference(x, dy, stats, scale, bias,
+                                                                     eps, True)),
+            "library_ms": device_ms(native_group_norm_backward(x, dy, scale, bias, g,
+                                                               [False, True, True], eps))},
+        "gn_backward_dx": {
+            **timed(lambda: gn_backward_dx(x, dy, stats, scale, bias, sums, eps, True)),
+            **bound(3 * nbytes(x) + small + nbytes(sums), 9 * x.numel(), F32_FLOPS_PER_S),
+            "plain_ms": device_ms(lambda: gn_backward_dx_reference(x, dy, stats, scale, bias,
+                                                                   sums, eps, True)),
+            "library_ms": device_ms(native_group_norm_backward(x, dy, scale, bias, g,
+                                                               [True, False, False], eps))}}
+
+
+def gn_backward_kernel_checks(dev) -> dict:
+    """K2r and K2d against their plain versions on the card, at the P3 train
+    shape and the GroupNorm backbone's five shapes (B=8, G=32), x in float32
+    and bfloat16, parameters in float32 and bfloat16, ReLU on and off:
+    K2r's sums and dparams to 1e-5 of their scale (the same values summed in
+    another order); K2d bit for bit against its plain version on K2r's sums;
+    dx of K2r + K2d against the plain pair to ``GN_GRAD_TOL``; two launches
+    of each give the same bits (hashes of both runs' outputs). At the
+    backbone's shapes, bf16 with float32 parameters, both are timed
+    (:func:`gn_backward_times`). Returns K2r's largest absolute error
+    (``err``) and the per-kernel times by backbone shape (``backbone``)."""
+    import torch
+
+    from handnet_tpu_torch.ops.cuda_gn import (gn_backward_dx, gn_backward_dx_reference,
+                                               gn_backward_sums, gn_backward_sums_reference,
+                                               gn_group_stats)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    eps, b = 1e-5, TRAIN_BATCH
+    shapes = [GN_TRAIN_SHAPE[1:] + (32,)] + list(BACKBONE_GN_SHAPES)
+    worst = {"sums": 0.0, "dparams": 0.0, "dx": 0.0}
+    worst_abs, cases = 0.0, 0
+    backbone = {"gn_backward_sums": [], "gn_backward_dx": []}
+    for h, w, c, g in shapes:
+        x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
+        dy = torch.randn(b, h, w, c, device=dev, generator=gen)
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.randn(c, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, dyd = x.to(dtype), dy.to(dtype)
+            stats = gn_group_stats(xd, g)
+            tol = GN_GRAD_TOL[str(dtype).split(".")[-1]]
+            for params in (torch.float32, torch.bfloat16):
+                sc, bi = scale.to(params), bias.to(params)
+                for relu in (False, True):
+                    name = f"B={b} {h}x{w}x{c} G={g} x {dtype} params {params} relu={relu}"
+                    runs = [gn_backward_sums(xd, dyd, stats, sc, bi, eps, relu) for _ in range(2)]
+                    hashes = [output_hash(*run) for run in runs]
+                    if hashes[0] != hashes[1]:
+                        raise AssertionError(f"K2r {name}: two runs differ ({hashes})")
+                    sums, dparams = runs[0]
+                    want = gn_backward_sums_reference(xd, dyd, stats, sc, bi, eps, relu)
+                    for key, got, ref in zip(("sums", "dparams"), (sums, dparams), want):
+                        scale_of = ref.abs().max().item()
+                        worst_abs = max(worst_abs, check(f"K2r {key} {name}", got, ref,
+                                                         1e-5 * scale_of))
+                        worst[key] = max(worst[key], ((got - ref).abs().max() / scale_of).item())
+                    dx = [gn_backward_dx(xd, dyd, stats, sc, bi, sums, eps, relu)
+                          for _ in range(2)]
+                    if output_hash(dx[0]) != output_hash(dx[1]):
+                        raise AssertionError(f"K2d {name}: two runs differ")
+                    same_sums = gn_backward_dx_reference(xd, dyd, stats, sc, bi, sums, eps, relu)
+                    if dx[0].dtype != dtype or not torch.equal(dx[0], same_sums):
+                        diff = (dx[0].double() - same_sums.double()).abs()
+                        raise AssertionError(
+                            f"K2d {name}: not bit-equal to its plain version on K2r's sums "
+                            f"({int((diff > 0).sum())} elements differ, max "
+                            f"{diff.max().item():.3e})")
+                    plain = gn_backward_dx_reference(xd, dyd, stats, sc, bi, want[0], eps, relu)
+                    err = ((dx[0].float() - plain.float()).abs().max()
+                           / plain.float().abs().max()).item()
+                    if not err <= tol:
+                        raise AssertionError(f"K2r + K2d {name}: dx max|err| {err:.3e} of its "
+                                             f"scale > {tol:g}")
+                    worst["dx"] = max(worst["dx"], err)
+                    cases += 1
+                    del runs, sums, dparams, want, dx, same_sums, plain
+            line = (f"K2r/K2d B={b} {h}x{w}x{c} G={g} {dtype} (params f32 and bf16, ReLU on and "
+                    f"off): K2r hash {hashes[0][:16]} twice; K2d bit-equal to its plain version "
+                    "on K2r's sums")
+            if dtype == torch.bfloat16 and (h, w, c, g) in BACKBONE_GN_SHAPES:
+                times = gn_backward_times(xd, dyd, stats, scale, bias, g, eps)
+                shape = f"B={b} {h}x{w}x{c} G={g} bf16, f32 params, ReLU"
+                for name, t in times.items():
+                    backbone[name].append({"shape": shape,
+                                           "layers": BACKBONE_GN_SHAPES[(h, w, c, g)], **t})
+                line += "; " + "; ".join(
+                    f"{'K2r' if name == 'gn_backward_sums' else 'K2d'} {t['ms']:.4f} ms on the "
+                    f"device (loop {t['loop_ms']:.4f}), bound {t['bound_ms']:.4f} "
+                    f"({100 * t['bound_ms'] / t['ms']:.0f}%), plain {t['plain_ms']:.4f}, "
+                    f"native_group_norm_backward {t['library_ms']:.4f}"
+                    for name, t in times.items())
+            log("train", line)
+            del xd, dyd, stats
+        del x, dy
+    log("train", f"K2r and K2d at the train shape and the {len(BACKBONE_GN_SHAPES)} backbone "
+        f"shapes, {cases} cases: K2r sums max|err| {worst['sums']:.3e}, dparams "
+        f"{worst['dparams']:.3e} of scale (tol 1e-5); two launches give the same bits; K2d "
+        f"bit-equal to its plain version on the same sums; dx against the plain pair "
+        f"{worst['dx']:.3e} of scale (tol {GN_GRAD_TOL['float32']:g} f32, "
+        f"{GN_GRAD_TOL['bfloat16']:g} bf16)")
+    return {"err": worst_abs, "backbone": backbone}
+
+
+def gn_train_yardstick(dev, k2r_err: float) -> dict:
+    """GroupNorm + ReLU at the P3 train shape in bf16 with float32
+    parameters (as the trainer holds them), on the device and by loop:
+    forward + backward, the backward alone, K2r alone and K2d alone, each
+    beside its byte bound; the route's pair beside ``F.group_norm`` +
+    ``F.relu`` with autograd's own backward (which the port never calls)
+    and beside K2s + K2a with the gradients registered on the ops (the
+    route before K2r and K2d). K2r's yardstick call is
+    ``aten.native_group_norm_backward`` for dscale and dbias, K2d's the
+    same call for dx alone (each computes its own sums, without the ReLU
+    mask), on NCHW copies (:func:`gn_backward_times`). Returns the JSON
+    numbers of K2r and K2d."""
     import torch
     import torch.nn.functional as F
 
-    from handnet_tpu_torch.ops.cuda_gn import group_norm
+    from handnet_tpu_torch.ops.cuda_gn import gn_apply, gn_group_stats, group_norm
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     b, h, w, c = GN_TRAIN_SHAPE
+    g, eps = 32, 1e-5
     x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2).to(torch.bfloat16)
     dy = torch.randn(b, h, w, c, device=dev, generator=gen).to(torch.bfloat16)
-    # float32 parameters, as the trainer holds them; F.group_norm on the card
-    # takes them only in x's type
     sc = (torch.rand(c, device=dev, generator=gen) + 0.5).requires_grad_()
     bi = torch.randn(c, device=dev, generator=gen).requires_grad_()
+    # F.group_norm on the card takes its parameters only in x's type
     sc16, bi16 = (t.detach().to(torch.bfloat16).requires_grad_() for t in (sc, bi))
     xk = x.clone().requires_grad_()
     xc = x.permute(0, 3, 1, 2).detach().requires_grad_()   # NCHW view, channels_last bytes
     dyc = dy.permute(0, 3, 1, 2)
+    inputs = {"route": (xk, sc, bi), "registered": (xk, sc, bi), "library": (xc, sc16, bi16)}
+    forwards = {
+        "route": lambda: group_norm(xk, sc, bi, g, eps, relu=True),
+        "registered": lambda: gn_apply(xk, gn_group_stats(xk, g), sc, bi, eps, True),
+        "library": lambda: F.relu(F.group_norm(xc, g, sc16, bi16, eps)),
+    }
+    grads = {"route": dy, "registered": dy, "library": dyc}
+    pair = {k: timed(lambda k=k, fwd=fwd: torch.autograd.grad(fwd(), inputs[k], grads[k]))
+            for k, fwd in forwards.items()}
+    backward = {}
+    for k, fwd in forwards.items():
+        y = fwd()
+        backward[k] = timed(lambda k=k, y=y: torch.autograd.grad(y, inputs[k], grads[k],
+                                                                 retain_graph=True))
+        del y
+    stats = gn_group_stats(x, g)
+    alone = gn_backward_times(x, dy, stats, sc.detach(), bi.detach(), g, eps)
+    k2r, k2d = alone["gn_backward_sums"], alone["gn_backward_dx"]
+    lib_pair = timed(native_group_norm_backward(x, dy, sc, bi, g, [True, True, True], eps))
+    tensor = nbytes(x)
+    bounds = {"fwd+bwd": bound(4 * tensor, 0, F32_FLOPS_PER_S),
+              "bwd least": bound(3 * tensor, 0, F32_FLOPS_PER_S),
+              "bwd two passes": bound(5 * tensor, 0, F32_FLOPS_PER_S)}
 
-    def ours():
-        torch.autograd.grad(group_norm(xk, sc, bi, 32, relu=True), (xk, sc, bi), dy)
+    def show(t):
+        return f"{t['ms']:.4f} ms (loop {t['loop_ms']:.4f})"
 
-    def library():
-        torch.autograd.grad(F.relu(F.group_norm(xc, 32, sc16, bi16, 1e-5)), (xc, sc16, bi16),
-                            dyc)
-
-    t_ours, t_lib = timed(ours), timed(library)
-    b_ms = bound(4 * nbytes(x), 0, F32_FLOPS_PER_S)["bound_ms"]
-    log("train", f"GroupNorm + ReLU forward + backward at {list(GN_TRAIN_SHAPE)} bf16: K2s + K2a "
-        f"+ registered backward {t_ours['ms']:.4f} ms on the device (loop {t_ours['loop_ms']:.4f}); "
-        f"F.group_norm + F.relu + autograd {t_lib['ms']:.4f} (loop {t_lib['loop_ms']:.4f}); "
-        f"byte bound {b_ms:.4f} ms")
+    log("train", f"GroupNorm + ReLU at {list(GN_TRAIN_SHAPE)} bf16, f32 parameters, on the "
+        f"device (loop): forward + backward K2s+K2a+K2r+K2d {show(pair['route'])}, K2s+K2a + "
+        f"the registered gradients {show(pair['registered'])}, F.group_norm + F.relu + "
+        f"autograd {show(pair['library'])}; byte bound {bounds['fwd+bwd']['bound_ms']:.4f} ms "
+        "(x, dy read once; y, dx written once)")
+    log("train", f"  backward alone: K2r+K2d {show(backward['route'])}, the registered "
+        f"gradients {show(backward['registered'])}, autograd's {show(backward['library'])}; "
+        f"bounds {bounds['bwd least']['bound_ms']:.4f} ms (x, dy read once, dx written once), "
+        f"{bounds['bwd two passes']['bound_ms']:.4f} ms (two passes, the mask recomputed); "
+        f"aten.native_group_norm_backward (NCHW, no ReLU) {show(lib_pair)}")
+    for name, t, outputs in (("K2r", k2r, "dscale, dbias"), ("K2d", k2d, "dx")):
+        log("train", f"  {name} alone {show(t)}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_ms'] / t['ms'] * 100:.1f}%), plain {t['plain_ms']:.4f} ms, "
+            f"native_group_norm_backward ({outputs}) {t['library_ms']:.4f} ms")
+    common = {"shape": f"B={b} {h}x{w}x{c} G={g} bf16, f32 params, ReLU",
+              "pair_train_ms": pair["route"]["ms"],
+              "pair_train_registered_ms": pair["registered"]["ms"],
+              "pair_train_library_ms": pair["library"]["ms"],
+              "backward_ms": backward["route"]["ms"],
+              "backward_registered_ms": backward["registered"]["ms"],
+              "backward_library_ms": backward["library"]["ms"],
+              "backward_bound_ms": bounds["bwd two passes"]["bound_ms"]}
+    return {"gn_backward_sums": {"max_abs_err": k2r_err, **k2r, **common},
+            "gn_backward_dx": {"max_abs_err": 0.0, **k2d, **common}}
 
 
 def train_kernels_vs_plain(dev, cfg, tcfg, batch) -> None:
-    """One step of two trainers from one seed, K2s/K2a on and off, in bf16
-    and in float32 (TF32 off): every loss term and every parameter's
-    gradient within ``TRAIN_KERNEL_TOL``."""
+    """One step of two trainers from one seed, the GroupNorm kernels (K2s,
+    K2a, K2r, K2d) on and off, in bf16 and in float32 (TF32 off): every loss
+    term and every parameter's gradient within ``TRAIN_KERNEL_TOL``."""
     import torch
 
     from handnet_tpu_torch.train.trainer import FCOSTrainer
@@ -2719,8 +2932,9 @@ def train_kernels_vs_plain(dev, cfg, tcfg, batch) -> None:
             state, metrics = trainer.train_step(state, batch)
             counts = launch_counts()
             want = GN_LAYERS_PER_CALL if on else 0
-            if (counts["gn_group_stats"], counts["gn_apply"]) != (want, want):
-                raise AssertionError(f"train step kernels={on}: launches {counts}")
+            if any(counts[k] != want for k in GN_TRAIN_KERNELS):
+                raise AssertionError(f"train step kernels={on}: launches {counts}, expected "
+                                     f"K2s, K2a, K2r and K2d {want} each")
             runs.append(({k: v.item() for k, v in metrics.items()},
                          {n: p.grad.detach().float().clone()
                           for n, p in state.model.named_parameters()}))
@@ -2744,20 +2958,25 @@ def train_kernels_vs_plain(dev, cfg, tcfg, batch) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def train_step_profile(trainer, state, batch, tag: str = "train") -> None:
+def train_step_profile(trainer, state, batch, tag: str = "train") -> dict:
     """One step under torch.profiler: the top 10 kernels by device time, the
-    share of K2s and K2a (the forward's GroupNorms) and of the GroupNorm
-    backward (the ops' registered gradients, read from their profiler
-    ranges); logged under ``tag``."""
+    share of K2s and K2a (the forward's GroupNorms) and of K2r and K2d (the
+    GroupNorm backward), read from the kernels' names; the device time of
+    the plain gradients registered on the forward ops, from their profiler
+    ranges (none on this route); and the gradients that reached the
+    backward in another layout (``group_norm.dy_copies``). Logged under
+    ``tag``; returns the step's kernel ms and the two GroupNorm shares."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from handnet_tpu_torch.ops.cuda_gn import GN_BACKWARD_RANGES
+    from handnet_tpu_torch.ops.cuda_gn import GN_BACKWARD_RANGES, group_norm
 
     torch.cuda.synchronize()
+    copies = group_norm.dy_copies
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_step(state, batch)
         torch.cuda.synchronize()
+    copies = group_norm.dy_copies - copies
     events = prof.key_averages()
     kernels = sorted(((e.key, getattr(e, "self_device_time_total",
                                       getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count)
@@ -2766,36 +2985,51 @@ def train_step_profile(trainer, state, batch, tag: str = "train") -> None:
                       and not getattr(e, "is_user_annotation", False)
                       and e.key not in GN_BACKWARD_RANGES), key=lambda r: -r[1])
     total = sum(ms for _, ms, _ in kernels)
-    gn_fwd = sum(ms for key, ms, _ in kernels if "gn_stats_kernel" in key
-                 or "gn_apply_kernel" in key)
-    gn_bwd = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
-                 for e in events if e.key in GN_BACKWARD_RANGES
-                 and "CPU" in str(getattr(e, "device_type", "")))
+
+    def share(*names):
+        rows = [(ms, n) for key, ms, n in kernels if any(name in key for name in names)]
+        return sum(ms for ms, _ in rows), sum(n for _, n in rows)
+
+    gn_fwd, n_fwd = share("gn_stats_kernel", "gn_apply_kernel")
+    gn_bwd, n_bwd = share("gn_backward_sums_kernel", "gn_backward_dx_kernel")
+    registered = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+                     for e in events if e.key in GN_BACKWARD_RANGES
+                     and "CPU" in str(getattr(e, "device_type", "")))
     if total <= 0:
         log(tag, "profile of one step: the profiler recorded no device time (not measured)")
-        return
+        return {}
     log(tag, f"profile of one step: kernels {total:.3f} ms on the device "
-        f"({sum(n for _, _, n in kernels)} launches); K2s + K2a "
-        f"(forward) {gn_fwd:.3f} ms = {100 * gn_fwd / total:.2f}%; GroupNorm backward (the "
-        f"registered gradients' kernels) {gn_bwd:.3f} ms = {100 * gn_bwd / total:.2f}%"
-        + ("" if gn_bwd > 0 else " (not measured: the ranges recorded no kernels)"))
+        f"({sum(n for _, _, n in kernels)} launches); K2s + K2a (forward) {gn_fwd:.3f} ms = "
+        f"{100 * gn_fwd / total:.2f}% ({n_fwd} launches); K2r + K2d (the GroupNorm backward) "
+        f"{gn_bwd:.3f} ms = {100 * gn_bwd / total:.2f}% ({n_bwd} launches); the registered "
+        f"plain gradients {registered:.3f} ms; gradients copied to NHWC before K2r/K2d: "
+        f"{copies}")
     for key, ms, count in kernels[:10]:
         log(tag, f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
+    return {"kernels_ms": total, "gn_forward_ms": gn_fwd, "gn_backward_ms": gn_bwd,
+            "dy_copies": copies}
 
 
 def phase_train(dev, cfg) -> dict:
     """``FCOSTrainer`` at the full width of the 100DOH run (800x1088,
     ResNet-34, FPN 256, 4-conv GN towers, ext heads, 3 classes; batch 8,
     SGD lr 1.25e-3 with warmup, bf16, batch-norm backbone) on a seeded
-    synthetic batch. Returns K1..K3's launches per train step."""
+    synthetic batch, after K2r and K2d against their plain versions.
+    Returns the kernels' launches per train step (``per_step``), the
+    learning run's launches (``launches``) and K2r's and K2d's JSON
+    numbers (``results``)."""
     import torch
 
     from handnet_tpu_torch.config import TrainConfig
     from handnet_tpu_torch.models.fcos import anchors_for, match_anchors
     from handnet_tpu_torch.train.trainer import FCOSTrainer
 
+    checks = gn_backward_kernel_checks(dev)
+    free_device_memory(dev)
     gn_train_gradient(dev)
-    gn_train_yardstick(dev)
+    results = gn_train_yardstick(dev, checks["err"])
+    for name, rows in checks["backbone"].items():
+        results[name]["backbone_shapes"] = rows
     free_device_memory(dev)
     batch = train_batch(dev, cfg, seed=SEED)
     tcfg = TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, optimizer="sgd",
@@ -2838,11 +3072,11 @@ def phase_train(dev, cfg) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = launch_counts()
-    want = expected_launches(TRAIN_STEPS, GN_LAYERS_PER_CALL)
+    want = expected_launches(TRAIN_STEPS, GN_LAYERS_PER_CALL, gn_backward=GN_LAYERS_PER_CALL)
     want["a2j_decode"] = 0
     if launches != want:
-        raise AssertionError(f"train: launches {launches} over {TRAIN_STEPS} steps: expected K2s "
-                             f"and K2a {GN_LAYERS_PER_CALL} per step, no K1 or K3")
+        raise AssertionError(f"train: launches {launches} over {TRAIN_STEPS} steps: expected K2s, "
+                             f"K2a, K2r and K2d {GN_LAYERS_PER_CALL} per step, no K1 or K3")
     peak = torch.cuda.max_memory_allocated()
     losses = {k: torch.stack([m[k] for m in metrics]).cpu() for k in metrics[0]}
     if not all(bool(torch.isfinite(v).all()) for v in losses.values()):
@@ -2862,7 +3096,9 @@ def phase_train(dev, cfg) -> dict:
     log("train", "total loss by step: " + ", ".join(f"{v:.4f}" for v in total.tolist())
         + f" ({total[-1] / total[0]:.4f} of the first; tol < {TRAIN_LEARN_SHARE})")
     log("train", "last step's terms: " + ", ".join(f"{k} {v[-1]:.4f}" for k, v in losses.items()))
-    train_step_profile(trainer, state, batch)
+    profile = train_step_profile(trainer, state, batch)
+    for name in ("gn_backward_sums", "gn_backward_dx"):
+        results[name]["step_profile"] = profile
     TRAINED["fcos"] = (state.model.cpu(), cfg)   # for [demo_apps]' statepack
     del trainer, state, metrics
     free_device_memory(dev)
@@ -2886,7 +3122,8 @@ def phase_train(dev, cfg) -> dict:
         f"running statistics unchanged; {affine_moved} bn1 weight/bias tensors moved")
     del trainer, state, batch
     free_device_memory(dev)
-    return per_call(launches, TRAIN_STEPS)
+    return {"per_step": per_call(launches, TRAIN_STEPS), "launches": launches,
+            "results": results}
 
 
 # --- training: A2JTrainer (apps/train_a2j.py's recipe) and the Pose2Mesh app ---
@@ -3848,15 +4085,16 @@ def phase_fcos_apps(dev, work: str, device_arg: str = "cuda") -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     steps = sum(e["steps"] for e in res["epochs"])
-    want = {**{k: 0 for k in launches}, "gn_group_stats": GN_LAYERS_PER_CALL * steps,
-            "gn_apply": GN_LAYERS_PER_CALL * steps}
+    want = {**{k: 0 for k in launches},
+            **{k: GN_LAYERS_PER_CALL * steps for k in GN_TRAIN_KERNELS}}
     log_epochs("train_fcos", res)
     losses = [e["losses"] for e in res["epochs"]]
     if launches != want or not all(np.isfinite(list(l.values())).all() for l in losses):
         raise AssertionError(f"train_fcos: launches {launches} over {steps} steps (expected "
                              f"{want}), losses {losses}")
     log("fcos_apps", f"train_fcos: {res['samples']} samples, {steps} steps, launches "
-        f"{launches}: K2s/K2a {GN_LAYERS_PER_CALL} per step, nothing else; losses finite")
+        f"{launches}: K2s/K2a/K2r/K2d {GN_LAYERS_PER_CALL} per step, nothing else; losses "
+        "finite")
     paths["train_fcos_app"] = per_call(launches, steps)
     # the model, reference-keyed, its 23-class logits cut to eval_fcos's 3:
     # background, YCB object 1 as "targetobject" and the hand (22) as "hand"
@@ -3888,8 +4126,7 @@ def phase_fcos_apps(dev, work: str, device_arg: str = "cuda") -> dict:
     launches = launch_counts()
     steps = res["epochs"][0]["steps"]
     per_step = GN_LAYERS_PER_CALL + BACKBONE_GN_LAYERS
-    want = {**{k: 0 for k in launches}, "gn_group_stats": per_step * steps,
-            "gn_apply": per_step * steps}
+    want = {**{k: 0 for k in launches}, **{k: per_step * steps for k in GN_TRAIN_KERNELS}}
     log_epochs("train_fcos --voc-root --backbone-norm group", res)
     if launches != want or not np.isfinite(res["epochs"][0]["losses"]["total_loss"]):
         raise AssertionError(f"train_fcos --voc-root: launches {launches} over {steps} steps "
@@ -3920,8 +4157,9 @@ def phase_fcos_apps(dev, work: str, device_arg: str = "cuda") -> dict:
                 / feats[False][k].abs().max()).item() for k in feats[False]}
     if len(gns) != BACKBONE_GN_LAYERS or not max(errs.values()) <= FCOS_BACKBONE_GN_TOL:
         raise AssertionError(f"backbone GN kernels vs plain: {len(gns)} layers, {errs}")
-    log("fcos_apps", f"train_fcos --voc-root, GroupNorm backbone: {steps} steps, K2s/K2a "
-        f"{per_step} per step ({GN_LAYERS_PER_CALL} head + {BACKBONE_GN_LAYERS} backbone), "
+    log("fcos_apps", f"train_fcos --voc-root, GroupNorm backbone: {steps} steps, "
+        f"K2s/K2a/K2r/K2d {per_step} per step ({GN_LAYERS_PER_CALL} head + "
+        f"{BACKBONE_GN_LAYERS} backbone), "
         f"nothing else; the trained backbone's {len(gns)} GroupNorms on one batch, f32 TF32 "
         f"off, kernels vs plain: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" of each level's scale (tol {FCOS_BACKBONE_GN_TOL:g})")
@@ -4035,10 +4273,10 @@ def phase_fcos_apps(dev, work: str, device_arg: str = "cuda") -> dict:
 
 def rcnn_train_cli(tag: str, argv: list, per_step_gn: int) -> tuple:
     """``train_fcos.main(argv)`` with the launch counts from 0 and the peak
-    device memory: checks that K2s/K2a launched ``per_step_gn`` times per
-    step and nothing else did, and that every epoch's mean loss is finite
-    (``main`` itself exits at the first step whose loss is not). Returns
-    ``(result, launches per step)``."""
+    device memory: checks that K2s, K2a, K2r and K2d launched
+    ``per_step_gn`` times per step and nothing else did, and that every
+    epoch's mean loss is finite (``main`` itself exits at the first step
+    whose loss is not). Returns ``(result, launches per step)``."""
     import numpy as np
     import torch
 
@@ -4050,8 +4288,7 @@ def rcnn_train_cli(tag: str, argv: list, per_step_gn: int) -> tuple:
     torch.cuda.synchronize()
     launches = launch_counts()
     steps = sum(e["steps"] for e in res["epochs"])
-    want = {**{k: 0 for k in launches}, "gn_group_stats": per_step_gn * steps,
-            "gn_apply": per_step_gn * steps}
+    want = {**{k: 0 for k in launches}, **{k: per_step_gn * steps for k in GN_TRAIN_KERNELS}}
     losses = [e["losses"] for e in res["epochs"]]
     if launches != want or not all(np.isfinite(list(l.values())).all() for l in losses):
         raise AssertionError(f"{tag}: launches {launches} over {steps} steps (expected {want}), "
@@ -4062,8 +4299,8 @@ def rcnn_train_cli(tag: str, argv: list, per_step_gn: int) -> tuple:
             f"{100 * e['loader_wait_share']:.2f}% waiting on the loader (loop clock), mean "
             "losses " + ", ".join(f"{k} {v:.4f}" for k, v in e["losses"].items()))
     log("rcnn", f"{tag}: {res['samples']} samples, {steps} steps, every step's loss finite; "
-        f"launches {launches}: K2s/K2a {per_step_gn} per step, nothing else; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"launches {launches}: K2s/K2a/K2r/K2d {per_step_gn} per step, nothing else; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return res, per_call(launches, steps)
 
 
@@ -4189,8 +4426,8 @@ def phase_rcnn(dev, work: str, card: str, device_arg: str = "cuda") -> dict:
     (800x1088, batch 8, bf16, 128 proposals, ResNet-34 + FPN over c2-c5 +
     P6, a 1024-wide TwoMLPHead, 3 classes on VOC): ``train_fcos --net rcnn``
     on ``[fcos_apps]``'s synthetic tree (batch-norm backbone, no launch of
-    ours) and on its VOC tree with the GroupNorm backbone (K2s/K2a 36 per
-    step), the trained GroupNorm backbone's pyramid and RPN objectness with
+    ours) and on its VOC tree with the GroupNorm backbone (K2s, K2a, K2r and
+    K2d 36 per step), the trained GroupNorm backbone's pyramid and RPN objectness with
     kernels against the plain GroupNorm, a train step alone, ``eval_fcos
     --net rcnn`` from a short frozen-backbone run's reference-keyed
     weights, and the device times of RoIAlign, the RPN's ranking and NMS,
@@ -4759,8 +4996,6 @@ def k1_output_hash(dev) -> str:
     N=1936, P=21, bf16) on heads drawn from a generator seeded with
     ``SEED``: a checkout whose K1 computes as before prints the same hash
     (``k12_device_times.py --k1-hash --root DIR`` prints another checkout's)."""
-    import hashlib
-
     import torch
 
     from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
@@ -4768,8 +5003,7 @@ def k1_output_hash(dev) -> str:
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     anchors = torch.from_numpy(a2j_anchor_grid(11, 11, 16)).to(dev)
-    out = a2j_decode(*a2j_heads(gen, dev, 128, torch.bfloat16), anchors)
-    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+    return output_hash(a2j_decode(*a2j_heads(gen, dev, 128, torch.bfloat16), anchors))
 
 
 def phase_a2j_xy_kernel(dev) -> dict:
@@ -5372,7 +5606,9 @@ def main() -> int:
     free_device_memory(dev)
     lap("mesh")
     # apps/train_fcos.py's 100DOH run: FCOSConfig's defaults with 3 classes
-    by_path["train_fcos"] = phase_train(dev, load_config().fcos)
+    train = phase_train(dev, load_config().fcos)
+    by_path["train_fcos"] = train["per_step"]
+    results.update(train["results"])
     log("train", f"device memory after the phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB allocated")
     lap("train")
@@ -5420,14 +5656,24 @@ def main() -> int:
                                   "handnet_tpu/ops/pallas_gn.py:138"),
                "gn_apply": ("handnet_tpu_torch/csrc/gn_apply.cu",
                             "handnet_tpu/ops/pallas_gn.py:167"),
+               # the GroupNorm backward (K2r, K2d): no Pallas kernel had a
+               # backward (pallas_gn is inference-only); they replace the
+               # gradient that XLA derives for the towers' flax GroupNorm
+               "gn_backward_sums": ("handnet_tpu_torch/csrc/gn_backward_sums.cu",
+                                    "handnet_tpu/models/fcos.py:62"),
+               "gn_backward_dx": ("handnet_tpu_torch/csrc/gn_backward_dx.cu",
+                                  "handnet_tpu/models/fcos.py:62"),
                "int8_quantize": ("handnet_tpu_torch/csrc/int8_quantize.cu",
                                  "handnet_tpu/nn/quant.py:135"),
                "int8_conv_gemm": ("handnet_tpu_torch/csrc/int8_conv.cu",
                                   "handnet_tpu/nn/quant.py:139")}
     # launches: the quant_static run's (4 calls), K1xy's the 2D predict
-    # run's (its main path); launches_per_call: each path's, counted from 0
-    # just before it and read just after
+    # run's, K2r's and K2d's the 20-step learning run's of [train] (their
+    # main path); launches_per_call: each path's, counted from 0 just before
+    # it and read just after
     launches["a2j_decode_xy"] = a2j_2d["launches"]
+    for name in ("gn_backward_sums", "gn_backward_dx"):
+        launches[name] = train["launches"][name]
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": launches[name], **results[name],
                 "launches_per_call": {path: counts[name] for path, counts in by_path.items()}}

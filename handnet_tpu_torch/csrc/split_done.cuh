@@ -1,5 +1,5 @@
 // Meeting point of the blocks that share one reduction (K1's anchor splits,
-// K2s's pixel splits): each block stores its partial result in a workspace
+// K2s's and K2r's pixel splits): each block stores its partial result in a workspace
 // and calls last_block_done(); the block that arrives last sees every
 // partial and folds them in split order, so the result does not depend on
 // which block that was. No second launch, no atomics on the data.

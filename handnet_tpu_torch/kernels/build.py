@@ -49,6 +49,15 @@ ENTRY_POINTS = {
     # x, stats, scale, bias, out, batch, hw, channels, groups, cp, rows,
     # splits, per_split, eps, relu, dtype code, scale/bias dtype code, stream
     "hn_gn_apply": (_P, _P, _P, _P, _P, *(_I64,) * 8, ctypes.c_float, _INT, _INT, _INT, _P),
+    # x, dy, stats, scale, bias, sums, dparams, work, counters, batch, hw,
+    # channels, groups, cp, rows, splits, per_split, eps, relu, dtype code,
+    # scale/bias dtype code, stream
+    "hn_gn_backward_sums": (*(_P,) * 9, *(_I64,) * 8, ctypes.c_float, _INT, _INT, _INT, _P),
+    # x, dy, stats, scale, bias, sums, dx, batch, hw, channels, groups, cp,
+    # rows, splits, per_split, eps, 1/n, relu, dtype code, scale/bias dtype
+    # code, stream
+    "hn_gn_backward_dx": (*(_P,) * 7, *(_I64,) * 8, ctypes.c_float, ctypes.c_float, _INT, _INT,
+                          _INT, _P),
     # cls, reg, depth, anchors, out, partials (or null), counters (or null),
     # batch, n, p, vec, rows, splits, per_split, chunk, dtype code, stream
     "hn_a2j_decode": (_P, _P, _P, _P, _P, _P, _P, *(_I64,) * 8, _INT, _P),

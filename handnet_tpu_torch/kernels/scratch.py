@@ -1,6 +1,6 @@
 """Device scratch that outlives a launch: the arrival counters of the kernels
 whose blocks meet in a workspace (``csrc/split_done.cuh``: K1's anchor
-splits, K2s's pixel splits).
+splits, K2s's and K2r's pixel splits).
 
 A counter must be zero when its launch starts, and the launch's last block
 sets it back to zero. So one zeroed tensor per (device, stream) serves every

@@ -1,4 +1,5 @@
-"""GroupNorm over NHWC activations: CUDA kernels K2s and K2a.
+"""GroupNorm over NHWC activations: CUDA kernels K2s and K2a, and the
+backward's K2r and K2d.
 
 Counterpart of ``handnet_tpu/ops/pallas_gn.py:123-169``. On a CUDA tensor
 :func:`group_norm` is two launches: the statistics (per-(image, group) mean
@@ -8,41 +9,56 @@ and biased variance, exact two-pass numerics) from ``csrc/gn_stats.cu``
 fusion. On a CPU tensor both take their plain versions
 (:func:`gn_group_stats_reference`, :func:`gn_apply_reference`).
 
-Both kernels walk an image the same way: a block is ``rows`` pixel rows by
+With grad, :func:`group_norm` is a ``torch.autograd.Function`` whose
+forward is K2s and K2a and whose backward is two more launches: the
+per-group sums ``S1, S2`` and the parameters' gradients in one read of x
+and dy (``csrc/gn_backward_sums.cu``, K2r), then dx in one pass
+(``csrc/gn_backward_dx.cu``, K2d). Both recompute the ReLU mask from x with
+K2a's operations, so no output is saved. The JAX package's ``pallas_gn``
+defines no gradient (its training towers are flax ``GroupNorm``s that XLA
+differentiates), so these two replace no Pallas kernel.
+
+The kernels walk an image the same way: a block is ``rows`` pixel rows by
 ``cp`` 16-byte chunk columns, and each image's pixels are cut into
 ``splits`` runs of ``per_split`` pixels, one block each (:func:`row_plan`).
-K2s's blocks meet in a workspace and the last one folds the splits in order;
-:func:`gn_stats_split_emulation` transcribes that walk and fold, so that a
-CPU test can hold it against the plain version.
+K2s's and K2r's blocks meet in a workspace and the last one folds the
+splits in order; :func:`gn_stats_split_emulation` and
+:func:`gn_backward_split_emulation` transcribe those walks and folds, so
+that a CPU test can hold them against the plain versions.
 
 Each kernel is a ``torch.library`` op (``handnet_torch::gn_group_stats``,
-``handnet_torch::gn_apply``): the CPU implementation is the plain version,
-the CUDA one checks the input and launches the kernel, and the fake one
-gives ``torch.export`` the output's shape. Each op has a registered
-gradient (``torch.library.register_autograd``) in plain PyTorch, so the
-training forward runs K2s and K2a and its backward runs no kernel of this
-module: the JAX package's ``pallas_gn`` defines no gradient, and its
-training towers are flax ``GroupNorm``s that XLA differentiates. The two
-gradients compose into GroupNorm's backward; each works in float32 from
-the saved input and statistics (float64 for a float64 input, which only
-the plain versions take) and returns ``dx`` in x's dtype.
+``gn_apply``, ``gn_backward_sums``, ``gn_backward_dx``): the CPU
+implementation is the plain version, the CUDA one checks the input and
+launches the kernel, and the fake one gives ``torch.export`` the output's
+shape. The two forward ops also have a registered gradient
+(``torch.library.register_autograd``) in plain PyTorch, for whoever
+differentiates an op directly: each works in float32 from the saved input
+and statistics (float64 for a float64 input, which only the plain versions
+take) and returns ``dx`` in x's dtype.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from handnet_tpu_torch.kernels import build, scratch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SUPPORTED_GROUP_WIDTHS = (2, 4, 8, 16)  # GroupNorm(32) over 64..512 channels
-_MAX_THREADS = 256       # kMaxThreads of gn_stats.cu and gn_apply.cu
+_MAX_THREADS = 256       # kMaxThreads of gn_stats.cu, gn_apply.cu and gn_backward_*.cu
 STATS_UNROLL = 8         # kUnroll of gn_stats.cu: loads a thread has in flight
 APPLY_UNROLL = 4         # kUnroll of gn_apply.cu
+SUMS_UNROLL = 4          # kUnroll of gn_backward_sums.cu (loads of x; as many of dy)
+DX_UNROLL = 4            # kUnroll of gn_backward_dx.cu
 STATS_BLOCKS_PER_SM = 8  # blocks the plans aim at, per SM, over the whole batch
 APPLY_BLOCKS_PER_SM = 16
+# K2r: few splits, so that an image's last block folds few partials and the
+# blocks of a train step's maps fit on the card at once
+SUMS_BLOCKS_PER_SM = 2
+DX_BLOCKS_PER_SM = 16
 
 
 class RowPlan(NamedTuple):
@@ -179,26 +195,39 @@ def gn_apply_reference(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor
     return torch.relu_(y) if relu else y
 
 
+def _check_params(name: str, x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                  bias: torch.Tensor, sums: Optional[torch.Tensor] = None) -> int:
+    """What K2a, K2r and K2d take beside x on the card: ``stats`` (and K2d's
+    ``sums``) contiguous float32 ``[B, 2, G]``; ``scale`` and ``bias``
+    contiguous ``[C]``, both float32 or both bfloat16; all on x's device.
+    Returns G."""
+    if stats.dim() != 3:
+        raise ValueError(f"{name}: stats must be [B, 2, G], got {tuple(stats.shape)}")
+    num_groups = stats.shape[-1]
+    _check_nhwc(name, x, num_groups)
+    b, h, w, c = x.shape
+    per_group = [("stats", stats)] + ([("sums", sums)] if sums is not None else [])
+    for key, t in per_group:
+        if (tuple(t.shape) != (b, 2, num_groups) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {key} must be contiguous float32 [{b}, 2, G], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for key, t in (("scale", scale), ("bias", bias)):
+        if tuple(t.shape) != (c,) or not t.is_contiguous() or t.dtype != scale.dtype:
+            raise ValueError(f"{name}: {key} must be contiguous [{c}] of scale's dtype")
+    if scale.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: scale and bias dtype {scale.dtype} (float32 or bfloat16)")
+    for key, t in (*per_group, ("scale", scale), ("bias", bias)):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {key} on {t.device}, x on {x.device}")
+    return num_groups
+
+
 def _gn_apply_cuda(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, eps: float, relu: bool) -> torch.Tensor:
     """CUDA implementation of ``handnet_torch::gn_apply``: launches K2a."""
-    if stats.dim() != 3:
-        raise ValueError(f"gn_apply: stats must be [B, 2, G], got {tuple(stats.shape)}")
-    num_groups = stats.shape[-1]
-    _check_nhwc("gn_apply", x, num_groups)
+    num_groups = _check_params("gn_apply", x, stats, scale, bias)
     b, h, w, c = x.shape
-    if (tuple(stats.shape) != (b, 2, num_groups) or stats.dtype != torch.float32
-            or not stats.is_contiguous()):
-        raise ValueError(f"gn_apply: stats must be contiguous float32 [{b}, 2, G], got "
-                         f"{stats.dtype} {tuple(stats.shape)}")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if tuple(t.shape) != (c,) or not t.is_contiguous() or t.dtype != scale.dtype:
-            raise ValueError(f"gn_apply: {name} must be contiguous [{c}] of scale's dtype")
-    if scale.dtype not in _DTYPE_CODES:
-        raise TypeError(f"gn_apply: scale and bias dtype {scale.dtype} (float32 or bfloat16)")
-    for name, t in (("stats", stats), ("scale", scale), ("bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"gn_apply: {name} on {t.device}, x on {x.device}")
     plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
                     APPLY_UNROLL, APPLY_BLOCKS_PER_SM)
     out = torch.empty_like(x)
@@ -249,8 +278,185 @@ torch.library.register_fake(
     lib=_LIB)
 
 
-# profiler ranges around the two gradients: a profile of a train step reads
-# the GroupNorm backward's device time from them
+def _backward_mask(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward ReLU's mask, ``y > 0`` of K2a's output in x's dtype,
+    recomputed from x with the plain apply's operations (which K2a equals
+    bit for bit)."""
+    return gn_apply_reference(x, stats, scale, bias, eps) > 0
+
+
+def gn_backward_sums_reference(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                               scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+                               relu: bool = False):
+    """Plain version of K2r: GroupNorm's backward sums, in float32 (float64
+    for a float64 ``x``).
+
+    With ``g = dy * [y > 0]`` (``g = dy`` without the ReLU), ``c = x -
+    mean`` and ``inv = rsqrt(var + eps)`` from ``stats [B, 2, G]``, returns
+    ``sums [B, 2, G]`` (``S1 = Σ g·scale`` and ``S2 = Σ g·scale·c`` over each
+    image's group) and ``dparams [2, C]`` (``dscale = Σ g·c·inv`` and
+    ``dbias = Σ g`` over B, H and W)."""
+    acc = _acc_dtype(x)
+    num_groups = stats.shape[-1]
+    k = x.shape[-1] // num_groups
+    g = dy.to(acc)
+    if relu:
+        g = torch.where(_backward_mask(x, stats, scale, bias, eps), g, 0.0)
+    centred = x.to(acc) - _per_channel(stats[:, 0].to(acc), k)
+    inv = torch.rsqrt(stats[:, 1].to(acc) + eps)
+    g_scaled = g * scale.to(acc)
+    sums = torch.stack([_group_sum(g_scaled, num_groups),
+                        _group_sum(g_scaled * centred, num_groups)], dim=1)
+    dscale = (g * centred * _per_channel(inv, k)).sum(dim=(0, 1, 2))
+    return sums, torch.stack([dscale, g.sum(dim=(0, 1, 2))])
+
+
+def gn_backward_dx_reference(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                             scale: torch.Tensor, bias: torch.Tensor, sums: torch.Tensor,
+                             eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """Plain version of K2d: ``dx = inv·(g·scale − S1/n) − c·inv³·S2/n`` from
+    K2r's ``sums``, over each group's ``n = H·W·C/G`` values, in float32
+    (float64 for a float64 ``x``), cast to x's dtype. The operations and
+    their order are K2d's: ``((g·(inv·scale)) − inv·(S1·(1/n))) −
+    c·(inv·inv·inv·(S2·(1/n)))``."""
+    acc = _acc_dtype(x)
+    b, h, w, c = x.shape
+    num_groups = stats.shape[-1]
+    k = c // num_groups
+    inv_n = 1.0 / (h * w * k)
+    inv = torch.rsqrt(stats[:, 1].to(acc) + eps)                          # [B, G]
+    mul = (inv.repeat_interleave(k, dim=-1) * scale.to(acc))[:, None, None, :]
+    shift = _per_channel(inv * (sums[:, 0].to(acc) * inv_n), k)
+    slope = _per_channel(inv * inv * inv * (sums[:, 1].to(acc) * inv_n), k)
+    g = dy.to(acc)
+    if relu:
+        g = torch.where(_backward_mask(x, stats, scale, bias, eps), g, 0.0)
+    centred = x.to(acc) - _per_channel(stats[:, 0].to(acc), k)
+    return (g * mul - shift - centred * slope).to(x.dtype)
+
+
+def _check_backward(name: str, x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                    scale: torch.Tensor, bias: torch.Tensor,
+                    sums: Optional[torch.Tensor] = None) -> int:
+    """What K2r and K2d take on the card: x as K2s takes it, dy of x's
+    shape, dtype and layout, the parameters as K2a takes them. Returns G."""
+    num_groups = _check_params(name, x, stats, scale, bias, sums)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"{name}: dy {dy.dtype} {tuple(dy.shape)} on {dy.device} must match "
+                         f"x {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError(f"{name}: dy must be contiguous NHWC, 16-byte aligned")
+    return num_groups
+
+
+def _gn_backward_sums_cuda(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                           scale: torch.Tensor, bias: torch.Tensor, eps: float, relu: bool):
+    """CUDA implementation of ``handnet_torch::gn_backward_sums``: launches K2r."""
+    num_groups = _check_backward("gn_backward_sums", x, dy, stats, scale, bias)
+    b, h, w, c = x.shape
+    plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
+                    SUMS_UNROLL, SUMS_BLOCKS_PER_SM)
+    sums = torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
+    dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    # each block's per-channel partials, then each image's dparams terms
+    work = torch.empty((b, plan.splits + 1, 2, c), dtype=torch.float32, device=x.device)
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = scratch.split_counters(x.device, stream, b + 1)
+        code = lib.hn_gn_backward_sums(x.data_ptr(), dy.data_ptr(), stats.data_ptr(),
+                                       scale.data_ptr(), bias.data_ptr(), sums.data_ptr(),
+                                       dparams.data_ptr(), work.data_ptr(),
+                                       counters.data_ptr(), b, h * w, c, num_groups, plan.cp,
+                                       plan.rows, plan.splits, plan.per_split, eps, int(relu),
+                                       _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], stream)
+    build.check_launch("hn_gn_backward_sums", code)
+    gn_backward_sums.launches += 1
+    return sums, dparams
+
+
+def gn_backward_sums(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                     scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+                     relu: bool = False):
+    """GroupNorm's backward sums in one read of x and dy: the op
+    ``handnet_torch::gn_backward_sums``. Returns ``(sums [B, 2, G], dparams
+    [2, C])`` float32, as :func:`gn_backward_sums_reference` defines them.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K2r (x and
+    dy of one dtype, float32 or bfloat16, contiguous NHWC, 16-byte aligned;
+    ``stats`` from :func:`gn_group_stats`; ``scale`` and ``bias`` as
+    :func:`gn_apply` takes them) or raises. Two launches on the same inputs
+    give the same bits.
+    """
+    _check_device("gn_backward_sums", x)
+    return torch.ops.handnet_torch.gn_backward_sums(x, dy, stats, scale, bias, eps, relu)
+
+
+gn_backward_sums.launches = 0  # kernel launches, counted by the op's CUDA implementation
+
+
+def _gn_backward_dx_cuda(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor, sums: torch.Tensor,
+                         eps: float, relu: bool) -> torch.Tensor:
+    """CUDA implementation of ``handnet_torch::gn_backward_dx``: launches K2d."""
+    num_groups = _check_backward("gn_backward_dx", x, dy, stats, scale, bias, sums=sums)
+    b, h, w, c = x.shape
+    plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
+                    DX_UNROLL, DX_BLOCKS_PER_SM)
+    dx = torch.empty_like(x)
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.hn_gn_backward_dx(x.data_ptr(), dy.data_ptr(), stats.data_ptr(),
+                                     scale.data_ptr(), bias.data_ptr(), sums.data_ptr(),
+                                     dx.data_ptr(), b, h * w, c, num_groups, plan.cp, plan.rows,
+                                     plan.splits, plan.per_split, eps,
+                                     1.0 / (h * w * (c // num_groups)), int(relu),
+                                     _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], stream)
+    build.check_launch("hn_gn_backward_dx", code)
+    gn_backward_dx.launches += 1
+    return dx
+
+
+def gn_backward_dx(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                   scale: torch.Tensor, bias: torch.Tensor, sums: torch.Tensor,
+                   eps: float = 1e-5, relu: bool = False) -> torch.Tensor:
+    """GroupNorm's dx in one pass, from K2r's ``sums``: the op
+    ``handnet_torch::gn_backward_dx``; a new tensor of x's shape and dtype.
+
+    A CPU tensor takes :func:`gn_backward_dx_reference`; a CUDA tensor
+    launches K2d (inputs as :func:`gn_backward_sums` takes them, ``sums``
+    contiguous float32 ``[B, 2, G]``) or raises. Given the same sums, the
+    kernel and the plain version agree bit for bit.
+    """
+    _check_device("gn_backward_dx", x)
+    return torch.ops.handnet_torch.gn_backward_dx(x, dy, stats, scale, bias, sums, eps, relu)
+
+
+gn_backward_dx.launches = 0  # kernel launches, counted by the op's CUDA implementation
+
+_LIB.define("gn_backward_sums(Tensor x, Tensor dy, Tensor stats, Tensor scale, Tensor bias, "
+            "float eps, bool relu) -> (Tensor, Tensor)")
+_LIB.impl("gn_backward_sums", gn_backward_sums_reference, "CPU")
+_LIB.impl("gn_backward_sums", _gn_backward_sums_cuda, "CUDA")
+torch.library.register_fake(
+    "handnet_torch::gn_backward_sums",
+    lambda x, dy, stats, scale, bias, eps, relu: (
+        x.new_empty((x.shape[0], 2, stats.shape[-1]), dtype=_acc_dtype(x)),
+        x.new_empty((2, x.shape[-1]), dtype=_acc_dtype(x))),
+    lib=_LIB)
+_LIB.define("gn_backward_dx(Tensor x, Tensor dy, Tensor stats, Tensor scale, Tensor bias, "
+            "Tensor sums, float eps, bool relu) -> Tensor")
+_LIB.impl("gn_backward_dx", gn_backward_dx_reference, "CPU")
+_LIB.impl("gn_backward_dx", _gn_backward_dx_cuda, "CUDA")
+torch.library.register_fake(
+    "handnet_torch::gn_backward_dx",
+    lambda x, dy, stats, scale, bias, sums, eps, relu: torch.empty_like(x), lib=_LIB)
+
+
+# profiler ranges around the two registered gradients: a profile reads the
+# device time of an op's plain gradient from them
 GN_BACKWARD_RANGES = ("handnet_torch::gn_group_stats_backward",
                       "handnet_torch::gn_apply_backward")
 
@@ -331,6 +537,38 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
                               eps, relu)
 
 
+def _nhwc_grad(dy: torch.Tensor) -> torch.Tensor:
+    """dy as K2r and K2d read it: contiguous NHWC, 16-byte aligned. A copy
+    is made only where dy is not, and counted in ``group_norm.dy_copies``."""
+    if dy.is_contiguous() and dy.data_ptr() % 16 == 0:
+        return dy
+    group_norm.dy_copies += 1
+    return dy.clone(memory_format=torch.contiguous_format)
+
+
+class _GroupNormFunction(torch.autograd.Function):
+    """``group_norm`` with grad: K2s and K2a forward, K2r and K2d backward
+    (their plain versions on the CPU). Saves x, the statistics and the
+    parameters; the backward recomputes the ReLU mask from them."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, relu):
+        stats = gn_group_stats(x, num_groups)
+        ctx.save_for_backward(x, stats, scale, bias)
+        ctx.eps, ctx.relu = eps, relu
+        return gn_apply(x, stats, scale, bias, eps, relu)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, stats, scale, bias = ctx.saved_tensors
+        dy = _nhwc_grad(dy)
+        sums, dparams = gn_backward_sums(x, dy, stats, scale, bias, ctx.eps, ctx.relu)
+        dx = (gn_backward_dx(x, dy, stats, scale, bias, sums, ctx.eps, ctx.relu)
+              if ctx.needs_input_grad[0] else None)
+        return dx, dparams[0].to(scale.dtype), dparams[1].to(bias.dtype), None, None, None
+
+
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float = 1e-5, relu: bool = False,
                use_kernel: bool = True) -> torch.Tensor:
@@ -341,12 +579,21 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     use_fast_variance=False)`` to fp tolerance:
     ``(x - mean) * rsqrt(var + eps) * scale + bias`` in float32, returned in
     ``x.dtype``. On a CUDA tensor it is K2s then K2a, two launches and no
-    other pass over the activation; on a CPU tensor, or with ``use_kernel``
-    False, it is :func:`group_norm_reference`.
+    other pass over the activation; when grad is on and x, scale or bias
+    requires it, the backward is K2r then K2d, two more
+    (:class:`_GroupNormFunction`). On a CPU tensor the same calls take the
+    plain versions; with ``use_kernel`` False it is
+    :func:`group_norm_reference`, which autograd differentiates.
     """
     if not use_kernel:
         return group_norm_reference(x, scale, bias, num_groups, eps, relu)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormFunction.apply(x, scale, bias, num_groups, eps, relu)
     return gn_apply(x, gn_group_stats(x, num_groups), scale, bias, eps, relu)
+
+
+group_norm.dy_copies = 0  # gradients copied to contiguous NHWC before K2r and K2d
 
 
 class _Stat(NamedTuple):
@@ -440,3 +687,61 @@ def gn_stats_split_emulation(x: torch.Tensor, num_groups: int, plan: RowPlan,
     if total.n != hw * k:
         raise AssertionError(f"{plan} covers {total.n} values per group, not {hw * k}")
     return torch.stack([total.mean, total.m2 / total.n], dim=1)
+
+
+def gn_backward_split_emulation(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                                scale: torch.Tensor, bias: torch.Tensor, eps: float,
+                                relu: bool, plan: RowPlan):
+    """K2r's walk and fold (``csrc/gn_backward_sums.cu``) in float32 tensor
+    code, for any ``plan``: each thread's running per-channel sums of ``g``
+    and ``g·c`` over its pixels in order, the tree over a block's rows, the
+    splits of an image in order, the group sums of ``scale·Σ``, each image's
+    ``dscale`` and ``dbias`` terms, and the images in order.
+
+    It shares the kernel's structure, not its bits (the kernel fuses
+    multiply-adds); a CPU test holds it against
+    :func:`gn_backward_sums_reference`. Returns ``(sums, dparams)``.
+    """
+    b, h, w, c = x.shape
+    hw, num_groups = h * w, stats.shape[-1]
+    k = c // num_groups
+    g = dy.float().reshape(b, hw, c)
+    if relu:
+        g = torch.where(_backward_mask(x, stats, scale, bias, eps).reshape(b, hw, c), g, 0.0)
+    mean = stats[:, 0].float().repeat_interleave(k, dim=-1)                   # [B, C]
+    centred = x.float().reshape(b, hw, c) - mean[:, None, :]
+    zero = torch.zeros(b, 2, c)
+    seen = torch.zeros(hw, dtype=torch.int64)
+    image = []
+    for split in range(plan.splits):
+        p0, p1 = split * plan.per_split, min(hw, (split + 1) * plan.per_split)
+        rows = []
+        for row in range(plan.rows):                       # a thread's pixels, in order
+            acc = zero.clone()
+            for p in range(p0 + row, p1, plan.rows):
+                acc[:, 0] += g[:, p]
+                acc[:, 1] += g[:, p] * centred[:, p]
+                seen[p] += 1
+            rows.append(acc)
+        active = len(rows)                                 # the block's tree over rows
+        while active > 1:
+            half = (active + 1) // 2
+            for row in range(active - half):
+                rows[row] = rows[row] + rows[row + half]
+            active = half
+        image.append(rows[0])                              # the block's partial [B, 2, C]
+    if not bool((seen == 1).all()):
+        raise AssertionError(f"{plan} does not cover each of {hw} pixels once")
+    folded = zero.clone()
+    for part in image:                                     # an image's splits, in order
+        folded = folded + part
+    scaled = (folded * scale.float()).unflatten(-1, (num_groups, k))        # [B, 2, G, K]
+    sums = scaled[..., 0]
+    for i in range(1, k):                                  # a group's channels, in order
+        sums = sums + scaled[..., i]
+    inv = torch.rsqrt(stats[:, 1].float() + eps).repeat_interleave(k, dim=-1)
+    terms = torch.stack([inv * folded[:, 1], folded[:, 0]], dim=1)          # [B, 2, C]
+    dparams = terms[0]
+    for i in range(1, b):                                  # the images, in order
+        dparams = dparams + terms[i]
+    return sums, dparams

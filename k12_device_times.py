@@ -17,6 +17,13 @@ bf16 on seeded heads (``chip_smoke.k1_output_hash``; ``chip_smoke.py``'s
 ``[a2j_2d]`` phase prints it too): run it with and without ``--root`` in one
 call to check that two checkouts' K1 give the same bits.
 
+``--gn-backward`` times only GroupNorm + ReLU's train route at
+``chip_smoke.GN_TRAIN_SHAPE`` ([8, 100, 136, 256], G=32) in bf16 with
+float32 parameters: forward + backward, the backward alone, and K2r and
+K2d alone. A port without K2r (``gn_backward_sums``) is timed with the
+gradients registered on its forward ops, so one call with and without
+``--root`` gives the times before and after.
+
 ``--root`` names a directory that holds another ``handnet_tpu_torch`` (for
 example the parent commit, unpacked with ``git archive``); its kernels build
 into that directory's ``build/``. A port that has no K2a (``gn_apply``) is
@@ -41,10 +48,12 @@ def main() -> int:
                         help="also time other blocks-per-SM targets at B=128")
     parser.add_argument("--k1-hash", action="store_true",
                         help="print only the hash of K1's output on seeded inputs")
+    parser.add_argument("--gn-backward", action="store_true",
+                        help="time only GroupNorm + ReLU forward + backward at the P3 train shape")
     args = parser.parse_args()
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
-    from chip_smoke import cuda_ms, device_ms, k1_output_hash
+    from chip_smoke import GN_TRAIN_SHAPE, cuda_ms, device_ms, k1_output_hash
     if args.root:
         sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -81,6 +90,10 @@ def main() -> int:
         if cold:
             line += f", device over {len(cold)} input sets in turn {device_ms(cold):.4f} ms"
         print(line, flush=True)
+
+    if args.gn_backward:
+        gn_backward(GN_TRAIN_SHAPE, dev, gen, cuda_gn, report)
+        return 0
 
     n, p = 1936, 21
     anchors = torch.from_numpy(a2j_anchor_grid(11, 11, 16)).to(dev)
@@ -121,6 +134,45 @@ def main() -> int:
     if args.sweep:
         sweep(card, dev, gen, cuda_a2j, cuda_gn, anchors, device_ms)
     return 0
+
+
+def gn_backward(shape, dev, gen, cuda_gn, report) -> None:
+    """GroupNorm + ReLU with grad at ``shape`` (B, H, W, C), G=32, bf16
+    activations and float32 parameters, as the trainer runs it: forward +
+    backward, the backward alone (one graph, kept), and, where the port has
+    them, K2r and K2d alone."""
+    import torch
+
+    b, h, w, c = shape
+    x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2).bfloat16()
+    dy = torch.randn(b, h, w, c, device=dev, generator=gen).bfloat16()
+    scale = (torch.rand(c, device=dev, generator=gen) + 0.5).requires_grad_()
+    bias = torch.randn(c, device=dev, generator=gen).requires_grad_()
+    xk = x.clone().requires_grad_()
+    inputs = (xk, scale, bias)
+    tensor = x.numel() * 2
+    kernels = hasattr(cuda_gn, "gn_backward_sums")
+    route = ("K2s+K2a, K2r+K2d" if kernels
+             else "K2s+K2a, the registered plain gradient")
+    name = f"B={b} {h}x{w}x{c} G=32 bf16, f32 params, ReLU"
+
+    def forward():
+        return cuda_gn.group_norm(xk, scale, bias, 32, relu=True)
+
+    report(f"GroupNorm+ReLU forward + backward ({route}) {name}", 4 * tensor,
+           lambda: torch.autograd.grad(forward(), inputs, dy))
+    y = forward()
+    report(f"GroupNorm+ReLU backward alone ({route.split(', ')[1]}) {name}; bound: x, dy read, "
+           "dx written", 3 * tensor,
+           lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True))
+    if kernels:
+        stats = cuda_gn.gn_group_stats(x, 32)
+        sc, bi = scale.detach(), bias.detach()
+        sums, _ = cuda_gn.gn_backward_sums(x, dy, stats, sc, bi, 1e-5, True)
+        report(f"K2r gn_backward_sums {name}", 2 * tensor,
+               lambda: cuda_gn.gn_backward_sums(x, dy, stats, sc, bi, 1e-5, True))
+        report(f"K2d gn_backward_dx {name}", 3 * tensor,
+               lambda: cuda_gn.gn_backward_dx(x, dy, stats, sc, bi, sums, 1e-5, True))
 
 
 def sweep(card, dev, gen, cuda_a2j, cuda_gn, anchors, device_ms) -> None:

@@ -301,11 +301,18 @@ def test_port_tree_hygiene():
     assert "handnet_tpu/ops/resize.py" in resize and "torch.bmm" in resize
     assert "handnet_tpu_torch.kernels" not in resize
     sources = sorted((pkg / "csrc").glob("*.cu"))
-    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_apply.cu", "gn_stats.cu",
+    assert [p.name for p in sources] == ["a2j_decode.cu", "gn_apply.cu", "gn_backward_dx.cu",
+                                         "gn_backward_sums.cu", "gn_stats.cu",
                                          "int8_conv.cu", "int8_quantize.cu"]
     replaces = {"a2j_decode.cu": ("_decode_kernel", "a2j_decode_pallas",
                                   "handnet_tpu/ops/pallas_a2j.py"),
                 "gn_apply.cu": ("pallas_group_norm", "handnet_tpu/ops/pallas_gn.py:152-169"),
+                # the backward replaces no Pallas kernel: it names the flax
+                # GroupNorm whose gradient XLA derives
+                "gn_backward_dx.cu": ("pallas_group_norm", "no VJP",
+                                      "handnet_tpu/models/fcos.py:62-65"),
+                "gn_backward_sums.cu": ("pallas_group_norm", "no VJP",
+                                        "handnet_tpu/models/fcos.py:62-65"),
                 "gn_stats.cu": ("_stats_kernel", "gn_group_stats",
                                 "handnet_tpu/ops/pallas_gn.py"),
                 "int8_conv.cu": ("QuantConv", "conv_general_dilated", "wgmma",
@@ -318,7 +325,8 @@ def test_port_tree_hygiene():
             assert name in text, (src.name, name)
         assert "mma.sync" not in text, src.name   # the pre-Hopper K3 is gone
     headers = sorted(p.name for p in (pkg / "csrc").glob("*.cuh"))
-    assert headers == ["chunk16.cuh", "round_to_byte.cuh", "split_done.cuh", "wgmma_s8.cuh"]
+    assert headers == ["chunk16.cuh", "gn_backward.cuh", "round_to_byte.cuh", "split_done.cuh",
+                       "wgmma_s8.cuh"]
     included = "".join(src.read_text() for src in sources)
     for header in headers:
         assert f'#include "{header}"' in included, header

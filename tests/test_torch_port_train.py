@@ -72,6 +72,13 @@ def _gn_case(seed, shape=(2, 5, 7, 64), dtype=np.float64):
     return x, scale, bias
 
 
+def _gn_through_ops(x, scale, bias, relu):
+    """GroupNorm as the two forward ops, so that autograd composes their
+    registered gradients (``group_norm`` with grad takes K2r and K2d's
+    Function instead: tests/test_torch_port_gn_backward.py)."""
+    return cuda_gn.gn_apply(x, cuda_gn.gn_group_stats(x, 32), scale, bias, 1e-5, relu)
+
+
 @pytest.mark.parametrize("relu", [False, True])
 def test_gn_ops_gradcheck_in_float64(relu):
     """``torch.autograd.gradcheck`` of the registered gradients, float64, at
@@ -80,8 +87,7 @@ def test_gn_ops_gradcheck_in_float64(relu):
     projections of the Jacobians): the full one takes 25 s a case here."""
     x, scale, bias = (_t(a).requires_grad_() for a in _gn_case(1))
     assert torch.autograd.gradcheck(
-        lambda x, s, b: cuda_gn.group_norm(x, s, b, 32, relu=relu), (x, scale, bias),
-        fast_mode=True)
+        lambda x, s, b: _gn_through_ops(x, s, b, relu), (x, scale, bias), fast_mode=True)
     stats = cuda_gn.gn_group_stats(x.detach(), 32).requires_grad_()
     assert torch.autograd.gradcheck(
         lambda x, st, s, b: cuda_gn.gn_apply(x, st, s, b, 1e-5, relu), (x, stats, scale, bias),
@@ -103,7 +109,7 @@ def test_gn_gradient_matches_reference_and_flax(relu):
         args = [_t(a).requires_grad_() for a in (x, scale, bias)]
         return [g.numpy() for g in torch.autograd.grad(fn(*args), args, _t(dy))]
 
-    got = torch_grads(lambda x, s, b: cuda_gn.group_norm(x, s, b, 32, relu=relu))
+    got = torch_grads(lambda x, s, b: _gn_through_ops(x, s, b, relu))
     plain = torch_grads(lambda x, s, b: cuda_gn.group_norm_reference(x, s, b, 32, relu=relu))
 
     gn = fnn.GroupNorm(num_groups=32, epsilon=1e-5, use_fast_variance=False)
