@@ -129,7 +129,28 @@ train (after mesh, before the idle shares): ``FCOSTrainer`` at the width of
    step with a frozen backbone (running statistics unchanged, its affine
    moved).
 
-train_a2j (after train): ``A2JTrainer`` at apps/train_a2j.py's recipe
+ddp (after train): data parallelism on the one card. ``train_fcos`` at
+   800x1088, batch 8, bf16, 3 steps on a synthetic tree (8 sequences):
+   without torchrun (after a warm-up run), as one NCCL rank (torchrun's environment in this
+   process, its launches counted) and under ``python -m
+   torch.distributed.run --nproc-per-node 1 -m
+   handnet_tpu_torch.apps.train_fcos``; metrics.json and the checkpoint
+   must equal the first run's bit for bit (K2s/K2a/K2r/K2d 24 per step; ms
+   per step with and without DDP). Two gloo ranks sharing the card (NCCL
+   refuses two ranks on one device), CUDA tensors: one float32 step (TF32
+   off) of ``FCOSTrainer`` at the [train] width (4 frames a rank) and of
+   ``A2JTrainer`` at the recipe (32 crops a rank), against the one-process
+   whole-batch steps (losses to 1e-4; gradients, running statistics and
+   FCOS's SGD update in relative L2 to 1e-2, A2J's to 5e-2, the tolerance
+   of tests/test_parallel.py for JAX's own mesh step), the ranks' losses and
+   parameters equal, K2s/K2a/K2r/K2d 24 per FCOS step, none per A2J step,
+   A2J's eval step on each rank's inner module (K1 once).
+   ``PipelineServer(mesh=create_mesh(1))`` at fast, buckets 8/128, bf16:
+   264 frames queued before start == the one-device server's bit for bit
+   (dispatches 128, 128, 8), K1 1 and K2s/K2a 24 per capture call, both
+   ``sustained_fps`` beside the card's name and power limit.
+
+train_a2j (after ddp): ``A2JTrainer`` at apps/train_a2j.py's recipe
    (176^2 depth crops, dilated ResNet-50, three 256-wide 4-conv towers, 16
    anchors, 21 joints; batch 64, AdamW 3.5e-4, bf16, batch-norm A2J) on a
    seeded synthetic batch (a hand of discs nearer than the background, in
@@ -258,7 +279,10 @@ the quant_static run's (K1xy's: the 2D predict run's; K2r's and K2d's: the
 ``launches_per_call`` each path's (for the serving
 paths, per eager warm-up or capture call: a replay launches through no
 wrapper; ``train_fcos``, ``train_a2j`` and ``train_mesh`` per train step,
-``eval_a2j`` per eval step, ``a2j_apps_eval`` per batch of the CLI's eval
+``eval_a2j`` per eval step, ``ddp_train_fcos_nccl`` per step of the
+one-rank CLI, ``ddp_gloo_fcos`` and ``ddp_gloo_a2j`` per rank and step,
+``ddp_gloo_eval_a2j`` per rank's eval step, ``ddp_serve_mesh`` per warm-up
+or capture call of the mesh server, ``a2j_apps_eval`` per batch of the CLI's eval
 sweeps, ``a2j_infer`` per batch of the app, ``train_fcos_app`` and
 ``train_fcos_voc_group`` per step of the CLI, ``eval_fcos`` per detect
 call, ``train_a2j_rgbd_eval`` per eval batch, ``demo`` per frame,
@@ -3126,6 +3150,375 @@ def phase_train(dev, cfg) -> dict:
             "results": results}
 
 
+# --- data parallel: train_fcos under torchrun, two ranks on the card, the mesh server ---
+
+DDP_CLI_SEQUENCES = 8             # synthetic sequences x 4 frames: 3 steps of batch 8
+DDP_CLI_WORKERS = 4
+DDP_RANKS = 2                     # gloo ranks sharing the one card
+DDP_TIMEOUT_S = 240               # every collective's, and the ranks' join
+# a DDP step against the whole-batch step in float32 (TF32 off): another
+# batching of the same sums, whose rounding the backbones' BatchNorms
+# amplify (tests/test_torch_port_parallel.py: 1e-3 of FCOS's first conv's
+# gradient at 64x96; equal to 1e-13 in float64). The relative L2 error of
+# the gradients, the running statistics and FCOS's update: FCOS 1e-2; A2J
+# 5e-2, the tolerance tests/test_parallel.py gives JAX's own mesh step
+# against its one-device step on this graph (its measured floor: 2%). A
+# wrong normalizer or unsynchronized statistics move the losses and the
+# running statistics by far more than DDP_LOSS_TOL.
+DDP_LOSS_TOL = 1e-4               # relative, each loss term
+DDP_GRAD_TOL = {"fcos": 1e-2, "a2j": 5e-2}
+DDP_SERVE_FRAMES = 264            # 2 dispatches of 128 and one of 8, queued before start
+
+
+def ddp_setup() -> dict:
+    """[ddp]'s models and batches: the [train] FCOS (800x1088, 3 classes)
+    on its batch of 8 frames, and A2J at the recipe (176^2, 21 joints) on a
+    [train_a2j] batch of 64 crops."""
+    from handnet_tpu_torch.config import A2JConfig, load_config
+
+    return {"fcos": load_config().fcos, "a2j": A2JConfig(), "a2j_batch": A2J_TRAIN_BATCH}
+
+
+def ddp_batches(dev, setup: dict) -> dict:
+    """[ddp]'s global batches on ``dev``."""
+    a2j = setup["a2j"]
+    batch = a2j_train_batch(setup["a2j_batch"], SEED, a2j.crop_h, a2j.num_joints)
+    return {"fcos": train_batch(dev, setup["fcos"], SEED),
+            "a2j": {k: v.to(dev) for k, v in batch.items()}}
+
+
+def ddp_steps(dev, mesh, setup: dict) -> dict:
+    """One float32 step of ``FCOSTrainer`` (batch-norm backbone, SGD) and
+    one of ``A2JTrainer`` (batch-norm A2J, AdamW) at ``setup``'s widths on
+    ``mesh``'s shard of [ddp]'s batches (the whole batches without a mesh),
+    then A2J's eval step on the shard: per trainer the losses, every
+    gradient as the optimizer received it, every parameter before and after
+    and every buffer (the running statistics) after, each flattened in
+    order, and the launches of the step (of the eval step)."""
+    import torch
+
+    from handnet_tpu_torch.config import TrainConfig
+    from handnet_tpu_torch.parallel import shard_batch
+    from handnet_tpu_torch.train.trainer import A2JTrainer, FCOSTrainer
+
+    batches = ddp_batches(dev, setup)
+    if mesh is not None:
+        batches = {k: shard_batch(mesh, v)[0] for k, v in batches.items()}
+    trainers = {
+        "fcos": FCOSTrainer(setup["fcos"],
+                            TrainConfig(batch_size=TRAIN_BATCH, lr=TRAIN_LR, optimizer="sgd",
+                                        warmup_epochs=1, bf16=False),
+                            mesh=mesh, backbone_norm="batch", device=dev),
+        "a2j": A2JTrainer(setup["a2j"], TrainConfig(batch_size=setup["a2j_batch"], bf16=False),
+                          mesh=mesh, device=dev)}
+    def flat(tensors):
+        return torch.cat([t.detach().flatten().float() for t in tensors]).cpu()
+
+    out = {}
+    for name, trainer in trainers.items():
+        state = trainer.init_state(SEED)
+        params0 = flat(state.model.parameters())
+        grads = []
+        step = state.optimizer.step
+
+        def capture(*a, _state=state, _step=step, **k):
+            grads.append(torch.cat([p.grad.flatten() for p in _state.model.parameters()]))
+            return _step(*a, **k)
+
+        state.optimizer.step = capture
+        reset_launch_counts()
+        state, metrics = trainer.train_step(state, batches[name])
+        device_sync(dev)
+        out[name] = {"losses": {k: float(v) for k, v in metrics.items()},
+                     "grads": grads[0].float().cpu(), "launches": launch_counts(),
+                     "params0": params0, "params": flat(state.model.parameters()),
+                     "buffers": flat(state.model.buffers())}
+        if name == "a2j":   # the eval step on the inner module, K1 once
+            reset_launch_counts()
+            trainer.eval_step(state, batches[name])
+            device_sync(dev)
+            out[name]["eval_launches"] = launch_counts()
+        del trainer, state
+        free_device_memory(dev)
+    return out
+
+
+def ddp_rank(rank: int, init_file: str, out_dir: str, device: str, setup: dict) -> None:
+    """One of [ddp]'s gloo ranks on the one card (NCCL refuses two ranks on
+    one device, so gloo is asked for): :func:`ddp_steps` on its shard.
+    Rank 0 saves all, the other rank its losses, launches and parameters'
+    checksum."""
+    import datetime
+    import os
+
+    import torch
+
+    from handnet_tpu_torch.parallel import init_data_parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_data_parallel("gloo", rank=rank, world_size=DDP_RANKS,
+                              init_method=f"file://{init_file}", device=device,
+                              timeout=datetime.timedelta(seconds=DDP_TIMEOUT_S))
+    try:
+        out = ddp_steps(mesh.device, mesh, setup)
+        if rank:
+            out = {k: {**v, "grads": None, "params0": None, "buffers": None,
+                       "params": float(v["params"].double().sum())} for k, v in out.items()}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def rel_l2(got, want) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def ddp_two_ranks(dev, work: str, setup: dict) -> dict:
+    """Two gloo ranks on the card, each stepping on half of [ddp]'s batches,
+    against the one-process whole-batch steps. Returns the launches per
+    rank and step."""
+    import os
+
+    import torch
+    import torch.multiprocessing as mp
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.perf_counter()
+    whole = ddp_steps(dev, None, setup)
+    whole_s = time.perf_counter() - start
+    start = time.perf_counter()
+    ctx = mp.start_processes(ddp_rank, args=(os.path.join(work, "init"), work, str(dev), setup),
+                             nprocs=DDP_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("ddp: the two ranks did not finish in time")
+    ranks_s = time.perf_counter() - start
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(DDP_RANKS)]
+    paths = {}
+    for name, want in whole.items():
+        got = ranks[0][name]
+        if any(r[name]["losses"] != got["losses"] for r in ranks[1:]):
+            raise AssertionError(f"ddp {name}: the ranks report different losses")
+        if any(r[name]["params"] != float(got["params"].double().sum()) for r in ranks[1:]):
+            raise AssertionError(f"ddp {name}: the ranks end with different parameters")
+        if not torch.equal(got["params0"], want["params0"]):
+            raise AssertionError(f"ddp {name}: the ranks start from other parameters")
+        loss_err = max(abs(got["losses"][k] - w) / max(abs(w), 1e-6)
+                       for k, w in want["losses"].items())
+        errs = {"gradients": rel_l2(got["grads"], want["grads"]),
+                "running statistics": rel_l2(got["buffers"], want["buffers"])}
+        if name == "fcos":   # SGD: the update is linear in the gradient
+            errs["update"] = rel_l2(got["params"] - got["params0"],
+                                    want["params"] - want["params0"])
+        if not (loss_err <= DDP_LOSS_TOL and max(errs.values()) <= DDP_GRAD_TOL[name]):
+            raise AssertionError(f"ddp {name}: 2 ranks vs the whole batch: losses {loss_err:.3e} "
+                                 f"(tol {DDP_LOSS_TOL:g}), relative L2 errors {errs} (tol "
+                                 f"{DDP_GRAD_TOL[name]:g})")
+        launches = [r[name]["launches"] for r in ranks]
+        expect = ({**{k: 0 for k in want["launches"]},
+                   **{k: GN_LAYERS_PER_CALL for k in GN_TRAIN_KERNELS}}
+                  if name == "fcos" else {k: 0 for k in want["launches"]})
+        if any(l != expect for l in launches) or want["launches"] != expect:
+            raise AssertionError(f"ddp {name}: launches per rank {launches}, whole batch "
+                                 f"{want['launches']} (expected {expect})")
+        paths[f"ddp_gloo_{name}"] = launches[0]
+        msg = ""
+        if name == "a2j":
+            evals = [r[name]["eval_launches"] for r in ranks]
+            k1 = {**{k: 0 for k in evals[0]}, "a2j_decode": 1}
+            if any(e != k1 for e in evals):
+                raise AssertionError(f"ddp a2j: eval launches per rank {evals} (expected {k1})")
+            paths["ddp_gloo_eval_a2j"] = evals[0]
+            msg = "; the eval step on each rank's inner module: K1 once"
+        log("ddp", f"{DDP_RANKS} gloo ranks on the card (CUDA tensors), {name} float32 (TF32 "
+            f"off): losses within {loss_err:.2e} of the whole-batch step (tol "
+            f"{DDP_LOSS_TOL:g}), relative L2 errors "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f" (tol {DDP_GRAD_TOL[name]:g}), the ranks' losses and parameters equal; launches "
+            f"per rank and step {launches[0]}{msg}")
+    log("ddp", f"whole-batch steps {whole_s:.1f} s, the two ranks (spawn, CUDA init, both "
+        f"steps) {ranks_s:.1f} s")
+    return paths
+
+
+def ddp_cli_runs(dev, work: str, device_arg: str = "cuda", image=(800, 1088)) -> dict:
+    """apps/train_fcos.py at the recipe (800x1088, batch 8, bf16, batch-norm
+    backbone) for one epoch on a synthetic tree: without torchrun (once to
+    warm up, then timed), as one NCCL rank (the torchrun environment, in
+    this process: its launches are counted), and under ``python -m
+    torch.distributed.run --nproc-per-node 1 -m
+    handnet_tpu_torch.apps.train_fcos``. The epoch's losses (metrics.json)
+    and the checkpoint must equal the plain run's. Returns the launches per
+    step."""
+    import json as json_
+    import os
+    import socket
+    import subprocess as sp
+
+    import torch
+
+    from handnet_tpu_torch.apps import train_fcos
+    from handnet_tpu_torch.data.synthetic import make_synthetic_dexycb
+
+    root = os.path.join(work, "tree")
+    make_synthetic_dexycb(root, n_sequences=DDP_CLI_SEQUENCES, n_frames=4)
+    argv = ["--data-dir", root, "--synthetic", str(DDP_CLI_SEQUENCES), "--epochs", "1",
+            "--batch", str(TRAIN_BATCH), "--workers", str(DDP_CLI_WORKERS),
+            "--image-h", str(image[0]), "--image-w", str(image[1]), "--device", device_arg]
+
+    def in_process(name: str, env: dict) -> tuple:
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            reset_launch_counts()
+            res = train_fcos.main(argv + ["--output", os.path.join(work, name)])
+            device_sync(dev)
+            return res["epochs"][0], launch_counts()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def outputs(name: str) -> tuple:
+        with open(os.path.join(work, name, "metrics.json")) as f:
+            metrics = json_.load(f)
+        ckpt = torch.load(os.path.join(work, name, "checkpoints", "0.pt"), map_location="cpu",
+                          weights_only=True)
+        return metrics, ckpt["model"]
+
+    def max_diff(a: dict, b: dict) -> float:
+        if a.keys() != b.keys():
+            raise AssertionError("ddp train_fcos: checkpoints with other keys")
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    in_process("warm-up", {})   # the codec's first build, the first decodes
+    plain, plain_launches = in_process("plain", {})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    nccl, nccl_launches = in_process("nccl", {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                                              "MASTER_ADDR": "127.0.0.1",
+                                              "MASTER_PORT": str(port)})
+    if torch.distributed.is_initialized():
+        raise AssertionError("ddp train_fcos: the CLI left its process group")
+    start = time.perf_counter()
+    proc = sp.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", "1", "-m", "handnet_tpu_torch.apps.train_fcos", *argv,
+                   "--output", os.path.join(work, "torchrun")],
+                  capture_output=True, text=True, timeout=DDP_TIMEOUT_S)
+    torchrun_s = time.perf_counter() - start
+    if proc.returncode:
+        raise AssertionError(f"ddp: torchrun train_fcos exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    steps = plain["steps"]
+    ref_metrics, ref_model = outputs("plain")
+    for name in ("nccl", "torchrun"):
+        metrics, model = outputs(name)
+        diff = max_diff(model, ref_model)
+        if metrics != ref_metrics or diff:
+            raise AssertionError(f"ddp train_fcos {name}: metrics {metrics} vs {ref_metrics}, "
+                                 f"checkpoint max |diff| {diff:.3e}")
+    want = {**{k: 0 for k in plain_launches},
+            **{k: GN_LAYERS_PER_CALL * steps for k in GN_TRAIN_KERNELS}}
+    if plain_launches != want or nccl_launches != want or nccl["steps"] != steps:
+        raise AssertionError(f"ddp train_fcos: launches {plain_launches} plain, {nccl_launches} "
+                             f"one NCCL rank, over {steps} steps (expected {want})")
+    log("ddp", f"train_fcos at {TRAIN_BATCH} x {image[0]}x{image[1]}, bf16, {steps} steps: one rank "
+        f"(torchrun's environment, in this process) and `python -m torch.distributed.run "
+        f"--nproc-per-node 1 -m handnet_tpu_torch.apps.train_fcos` ({torchrun_s:.1f} s with "
+        f"its start) == the run without torchrun: metrics.json and every checkpoint tensor "
+        f"bit for bit; launches per step {per_call(nccl_launches, steps)}")
+    log("ddp", f"ms per step (the CLI's loop clock, {steps} steps with the first, loader "
+        f"included, after a warm-up run): {plain['ms_per_step']:.1f} without DDP, "
+        f"{nccl['ms_per_step']:.1f} as one NCCL rank")
+    return {"ddp_train_fcos_nccl": per_call(nccl_launches, steps)}
+
+
+def ddp_mesh_server(dev, cfg, smi: str) -> dict:
+    """``PipelineServer(mesh=create_mesh(1))`` at fast (buckets 8 and 128,
+    bf16) against the mesh-less server on the same weights and
+    :data:`DDP_SERVE_FRAMES` frames queued before each starts (so both
+    dispatch 128, 128 and 8): every result bit for bit. Returns the
+    launches per warm-up or capture call."""
+    import numpy as np
+
+    from handnet_tpu_torch.apps.serve import PipelineServer
+    from handnet_tpu_torch.graphs import WARMUP_CALLS
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+    from handnet_tpu_torch.parallel import create_mesh
+
+    state_dict = HandNetPipeline(cfg, dtype=cfg_dtype(dev), device=dev, seed=SEED).state_dict()
+    rgb, depth = wire_frames(8, SEED + 7)
+    results, fps = {}, {}
+    launches = None
+    for name, kw in (("one device", {"device": dev}),
+                     ("mesh", {"mesh": create_mesh(1, device=dev.type)})):
+        server = PipelineServer(cfg, batch_size=128, state_dict=state_dict, frame_hw=(480, 640),
+                                dtype=cfg_dtype(dev), batch_buckets=(8, 128), **kw)
+        reset_launch_counts()
+        server.compile()
+        if name == "mesh":
+            launches = per_call(launch_counts(), (WARMUP_CALLS + 1) * 2)
+        for i in range(DDP_SERVE_FRAMES):
+            server.submit(i % 4, i, rgb[i % 8], depth[i % 8])
+        server.start()
+        try:
+            got = {}
+            for _ in range(DDP_SERVE_FRAMES):
+                sid, fid, out = server.get(timeout=120)
+                if "error" in out:
+                    raise AssertionError(f"ddp serve {name}: {out['error']}")
+                got[fid] = out
+        finally:
+            server.stop()
+        if server.bucket_dispatches != {8: 1, 128: 2}:
+            raise AssertionError(f"ddp serve {name}: dispatches {server.bucket_dispatches}")
+        results[name], fps[name] = got, server.sustained_fps
+        del server
+        free_device_memory(dev)
+    for fid, want in results["one device"].items():
+        got = results["mesh"][fid]
+        if got.keys() != want.keys() or not all(np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"ddp serve: frame {fid} differs between the mesh server and "
+                                 "the one-device server")
+    want = {**{k: 0 for k in launches}, "a2j_decode": 1, "gn_group_stats": GN_LAYERS_PER_CALL,
+            "gn_apply": GN_LAYERS_PER_CALL}
+    if launches != want:
+        raise AssertionError(f"ddp serve: launches per capture call {launches} (expected {want})")
+    log("ddp", f"PipelineServer(mesh=create_mesh(1)) at fast, buckets 8/128, bf16: "
+        f"{DDP_SERVE_FRAMES} frames == the one-device server bit for bit (dispatches 128, 128, "
+        f"8 each); launches per warm-up or capture call {launches}; sustained_fps "
+        f"{fps['one device']:.1f} one device, {fps['mesh']:.1f} mesh on {smi}")
+    return {"ddp_serve_mesh": launches}
+
+
+def phase_ddp(dev, cfg, smi: str, device_arg: str = "cuda", setup=None,
+              cli_image=(800, 1088)) -> dict:
+    """Data parallelism on the one card: train_fcos as one NCCL rank and
+    under torchrun against the plain CLI, two gloo ranks against the
+    whole-batch steps, and the mesh server against the one-device server.
+    Returns the launches per step or call of each path."""
+    import tempfile
+
+    paths = {}
+    with tempfile.TemporaryDirectory() as work:
+        paths.update(ddp_cli_runs(dev, work, device_arg, cli_image))
+        free_device_memory(dev)
+        paths.update(ddp_two_ranks(dev, work, setup or ddp_setup()))
+        free_device_memory(dev)
+    paths.update(ddp_mesh_server(dev, cfg, smi))
+    return paths
+
+
 # --- training: A2JTrainer (apps/train_a2j.py's recipe) and the Pose2Mesh app ---
 
 def a2j_train_batch(batch: int, seed: int, crop: int = 176, joints: int = 21) -> dict:
@@ -5612,6 +6005,10 @@ def main() -> int:
     log("train", f"device memory after the phase: {torch.cuda.memory_allocated() / 2**30:.2f} "
         f"GiB allocated")
     lap("train")
+    # data parallel: train_fcos under torchrun, two ranks, the mesh server
+    by_path.update(phase_ddp(dev, cfg, smi))
+    free_device_memory(dev)
+    lap("ddp")
     # apps/train_a2j.py's recipe, then the Pose2Mesh app at its defaults
     by_path.update(phase_train_a2j(dev))
     lap("train_a2j")

@@ -26,6 +26,13 @@ K2a in its forward, their ops' registered gradients in its backward),
 ``train.trainer.A2JTrainer`` (A2J's train step; its eval step decodes
 through K1), ``apps.train_pose2mesh`` (Pose2Mesh's, with
 ``train.pose2mesh_loss``), ``train.schedules`` and ``train.checkpoints``.
+
+Data parallel: ``parallel`` (``create_mesh``, ``init_data_parallel``,
+``shard_batch``, ``replicate``): the trainers' ``mesh`` trains through
+``DistributedDataParallel`` with global BatchNorm statistics and loss
+normalizers, the training CLIs run under ``torchrun``, and
+``PipelineServer(mesh=...)`` shards every bucket over the cards of one
+process.
 """
 
 __version__ = "0.1.0"

@@ -15,9 +15,14 @@ launches from Python. Frames travel in the wire format, uint8 RGB and
 uint16 mm depth, through two pinned host staging buffers used in turn and
 ``non_blocking`` copies, and are widened on the card.
 
+With a ``mesh`` (``parallel.create_mesh``: the cards of this process, the
+JAX server's ``mesh=``) every bucket is sharded over the cards: one
+pipeline replica and one CUDA graph per bucket block on each card
+(``graphs.MeshGraphs``), the blocks concatenated in order.
+
 Run the built-in throughput check (synthetic frames, host-thread fed):
 
-    python -m handnet_tpu_torch.apps.serve --frames 512 --batch 128
+    python -m handnet_tpu_torch.apps.serve --frames 512 --batch 128 [--mesh N]
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from handnet_tpu_torch.config import HandNetConfig, load_config, pipeline_outputs
-from handnet_tpu_torch.graphs import BucketGraphs, dequantize_wire, wire_dtypes, zeros
+from handnet_tpu_torch.graphs import BucketGraphs, MeshGraphs, dequantize_wire, wire_dtypes, zeros
+from handnet_tpu_torch.parallel.mesh import DataMesh, replicate
 
 _STOP = object()
 DEFAULT_FIELDS = ("joints_uvd", "boxes", "found", "scores")
@@ -43,6 +49,28 @@ def _check_fields(out_fields: Iterable[str], available: Iterable[str], source: s
     missing = sorted(set(out_fields) - set(available))
     if missing:
         raise ValueError(f"{source} does not emit {missing} (it emits {list(available)})")
+
+
+def _wire_forward(pipe):
+    """A replica's forward on wire frames."""
+    def forward(images: torch.Tensor, depth: torch.Tensor):
+        return pipe(*dequantize_wire(images, depth))
+    return forward
+
+
+def _check_mesh(mesh: DataMesh, device, batch_size: int, batch_buckets) -> None:
+    """A server's mesh: one process's devices, every bucket dividing over
+    them (``handnet_tpu/apps/serve.py:97-104``)."""
+    if not isinstance(mesh, DataMesh):
+        raise TypeError(f"PipelineServer: mesh is a parallel.DataMesh, not {type(mesh).__name__}")
+    if mesh.world_size != 1:
+        raise ValueError("PipelineServer: a mesh of one process's devices (create_mesh), not a "
+                         "rank of a process group")
+    if device is not None:
+        raise ValueError("PipelineServer: the mesh names the devices; pass device=None")
+    bad = [b for b in sorted(set(batch_buckets or ()) | {batch_size}) if b % mesh.size]
+    if bad:
+        raise ValueError(f"batch buckets {bad} must divide over mesh size {mesh.size}")
 
 
 class PipelineServer:
@@ -63,14 +91,18 @@ class PipelineServer:
       dtype: compute dtype of the convolutions.
       quantized_transfer: ship frames as uint8 RGB and uint16 mm depth
         (5 bytes a pixel to the card instead of float32's 16), widened there.
-      mesh: multi-card serving; only None (one card) is supported here.
+      mesh: a one-process ``parallel.DataMesh`` (``create_mesh(n)``): every
+        bucket is sharded over its ``mesh.size`` devices, one pipeline
+        replica each, and must divide over them (``ValueError``). None is
+        one device.
       batch_buckets: optional batch-size ladder, e.g. ``(1, 8, 32)``. A
         collected microbatch of n frames is padded only to the SMALLEST
         bucket >= n (``batch_size`` is always the top rung), so a 1-frame
         trickle runs the batch-1 graph. One CUDA graph per bucket, captured
         in :meth:`compile`.
       device: where the pipeline runs: None (the card; raises without one)
-        or ``"cpu"``, where every dispatch runs the forward eagerly.
+        or ``"cpu"``, where every dispatch runs the forward eagerly. Under a
+        mesh, the mesh's devices (``device`` must be None).
     """
 
     def __init__(self, cfg: Optional[HandNetConfig] = None,
@@ -80,21 +112,26 @@ class PipelineServer:
                  out_fields: Iterable[str] = DEFAULT_FIELDS,
                  dtype: torch.dtype = torch.bfloat16,
                  quantized_transfer: bool = True,
-                 mesh: Optional[Any] = None,
+                 mesh: Optional[DataMesh] = None,
                  batch_buckets: Optional[Iterable[int]] = None,
                  device: Optional[torch.device | str] = None):
-        if mesh is not None:
-            raise NotImplementedError("PipelineServer: one card only (mesh=None); serve on "
-                                      "more cards by running one server per card")
         from handnet_tpu_torch.models.pipeline import HandNetPipeline
 
         _check_fields(out_fields, pipeline_outputs(cfg or HandNetConfig()), "the pipeline")
+        if mesh is not None:
+            _check_mesh(mesh, device, batch_size, batch_buckets)
+            device = mesh.device
         self.pipe = HandNetPipeline(cfg, dtype=dtype, device=device)
         if state_dict is not None:
             self.pipe.load_state_dict(state_dict)
-        pipe_device = next(self.pipe.parameters()).device
-        graphs = BucketGraphs(self._pipeline_forward, frame_hw, quantized_transfer,
-                              pipe_device)
+        if mesh is None:
+            self.replicas = [self.pipe]
+            graphs = BucketGraphs(self._pipeline_forward, frame_hw, quantized_transfer,
+                                  next(self.pipe.parameters()).device)
+        else:
+            self.replicas = replicate(mesh, self.pipe)
+            graphs = MeshGraphs([_wire_forward(p) for p in self.replicas], frame_hw,
+                                quantized_transfer, mesh.devices)
         self._setup(self.pipe.cfg, batch_size, frame_hw, flush_timeout, out_fields,
                     quantized_transfer, batch_buckets, graphs)
 
@@ -143,6 +180,11 @@ class PipelineServer:
     def _pipeline_forward(self, images: torch.Tensor, depth: torch.Tensor):
         return self.pipe(*dequantize_wire(images, depth))
 
+    def _sync_replicas(self) -> None:
+        """The first replica's state (a calibration) into the others."""
+        for replica in self.replicas[1:]:
+            replica.load_state_dict(self.pipe.state_dict())
+
     @classmethod
     def from_artifact(cls, path, out_fields: Optional[Iterable[str]] = None,
                       flush_timeout: float = 0.002, mesh: Optional[Any] = None,
@@ -153,7 +195,8 @@ class PipelineServer:
         loaded program (a CUDA graph on the card); model code is never
         imported. ``path`` is the artifact's directory, loaded onto
         ``device`` (``ServingArtifact.load``), or an artifact loaded
-        already, whose graphs the server then shares. ``mesh`` is refused."""
+        already, whose graphs the server then shares. ``mesh`` is refused
+        with ``ValueError``, as the JAX package's export refuses one."""
         from handnet_tpu_torch.export import ServingArtifact, read_manifest
 
         if mesh is not None:
@@ -172,6 +215,7 @@ class PipelineServer:
         art = loaded or ServingArtifact.load(path, device=device)
         server = cls.__new__(cls)
         server.pipe = None
+        server.replicas = []
         server._setup(art.config(), art.buckets[-1], art.frame_hw, flush_timeout, out_fields,
                       art.quantized_wire, art.buckets, art.graphs)
         return server
@@ -213,12 +257,14 @@ class PipelineServer:
         float [B,H,W] meters. A no-op for float and dynamic-int8 configs."""
         self.pipe.calibrate(torch.as_tensor(images, dtype=torch.float32, device=self.device),
                             torch.as_tensor(depth, dtype=torch.float32, device=self.device))
+        self._sync_replicas()
 
     def load_calibration(self, path: str) -> None:
         """Load a saved static-int8 calibration (``nn.quant.save_calibration``,
         or the JAX package's file) into this server's pipeline."""
         from handnet_tpu_torch.nn.quant import load_calibration
         load_calibration(path, self.pipe)
+        self._sync_replicas()
 
     def start(self) -> "PipelineServer":
         # fail loudly if a quant="static" model was never calibrated:
@@ -227,7 +273,8 @@ class PipelineServer:
         # artifact was checked when it was exported)
         if self.pipe is not None:
             from handnet_tpu_torch.nn.quant import assert_calibrated
-            assert_calibrated(self.pipe)
+            for replica in self.replicas:
+                assert_calibrated(replica)
         self.compile()
         self._stop.clear()
         self._thread = threading.Thread(target=self._serve_loop, daemon=True)
@@ -430,6 +477,9 @@ def main(argv=None):
                              "frames (only used by static-int8 profiles)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="shard every bucket over N devices of this process (N cards, or "
+                             "N CPU replicas with --device cpu); 0: one device")
     args = parser.parse_args(argv)
 
     import os
@@ -439,8 +489,12 @@ def main(argv=None):
 
     cfg = resolve_config(args.profile, quant={"1": True}.get(args.quant, args.quant))
     buckets = ([int(b) for b in args.buckets.split(",")] if args.buckets else None)
+    mesh = None
+    if args.mesh:
+        from handnet_tpu_torch.parallel.mesh import create_mesh
+        mesh = create_mesh(args.mesh, device=args.device or "cuda")
     server = PipelineServer(cfg, batch_size=args.batch, batch_buckets=buckets,
-                            device=args.device)
+                            device=None if mesh else args.device, mesh=mesh)
 
     rng = np.random.default_rng(0)
     # sensor-native frames: no per-frame float->uint8 conversion on submit

@@ -1,4 +1,4 @@
-"""A2J training CLI: DexYCB -> train loop on one card -> checkpoints -> HPE eval.
+"""A2J training CLI: DexYCB -> train loop on the cards -> checkpoints -> HPE eval.
 
 The port's ``handnet_tpu/apps/train_a2j.py``, with its flags and its files
 (``train.txt``, ``val.txt``, ``metrics.json``/``.html``, the 64-field
@@ -10,7 +10,13 @@ raises where there is none; ``--device cpu`` trains on the CPU.
 
 The recipe is the reference's (AdamW 3.5e-4 / wd 1e-4 / StepLR 0.2 every
 10 / bs 64 / 45 epochs) through ``train/trainer.py``'s ``A2JTrainer``. One
-card takes the whole batch (``--batch``). The loader's threads decode and
+card takes the whole batch (``--batch``); launched by ``torchrun`` the
+ranks train data parallel (``parallel/mesh.py``, one card each, NCCL; gloo
+on the CPU with ``--device cpu``): ``--batch`` is the global batch, rounded
+down to a multiple of the world size as the JAX CLI rounds it over its
+devices, each rank loads its share of it (``PrefetchLoader(shard_id=rank,
+num_shards=world)``), rank 0 alone runs the eval sweep (the table of a
+one-process run) and writes the logs, checkpoints and npz files. The loader's threads decode and
 augment each batch and pin it (``PrefetchLoader(device_put=...)``); the
 loop copies it to the card without blocking and keeps the step's losses on
 the card until the epoch ends, so the host runs ahead of the card. The
@@ -26,6 +32,7 @@ Usage:
   python -m handnet_tpu_torch.apps.train_a2j --data-dir $DEX_YCB_DIR
       [--epochs 45] [--batch 64] [--output models/a2j_torch] [--device cpu]
       [--synthetic N]   # N synthetic sequences instead of real data
+  torchrun --nproc-per-node N -m handnet_tpu_torch.apps.train_a2j ...
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from handnet_tpu_torch.data.dexycb import DexYCBDataset, hpe_ground_truth, refin
 from handnet_tpu_torch.data.loader import PrefetchLoader
 from handnet_tpu_torch.eval.hpe import HPEEvaluator, format_result_line
 from handnet_tpu_torch.ops.geometry import convert_joints
+from handnet_tpu_torch.parallel.mesh import barrier, rank_zero_first, torchrun_mesh
 from handnet_tpu_torch.train.checkpoints import CheckpointManager, save_params_npz
 from handnet_tpu_torch.train.trainer import A2JTrainer, resolve_device
 from handnet_tpu_torch.utils.meters import AverageMeters
@@ -131,34 +139,41 @@ def main(argv=None) -> dict:
     the loop's clock (``epochs``: seconds, ms per step, samples/s and the
     share of the epoch spent waiting on the loader), per eval sweep its
     result file, HPE numbers and batch count (``evals``), the params and
-    batch-stats npz paths and the trained ``state``."""
+    batch-stats npz paths and the trained ``state`` (on every rank under
+    ``torchrun``, whose process group it leaves at the end)."""
     args = parse_args(argv)
-    device = resolve_device("train_a2j", args.device)
+    mesh = torchrun_mesh(args.device)
+    device = resolve_device("train_a2j", args.device, mesh)
+    main_rank = mesh is None or mesh.is_main
+    log = print if main_rank else (lambda *a, **k: None)
 
-    os.makedirs(args.output, exist_ok=True)
-    train_src, test_src, test_ds = build_sources(args)
-    print(f"train samples: {len(train_src)}  test samples: {len(test_src)}")
+    with rank_zero_first(mesh):
+        os.makedirs(args.output, exist_ok=True)
+        train_src, test_src, test_ds = build_sources(args)
+    log(f"train samples: {len(train_src)}  test samples: {len(test_src)}")
 
-    batch = args.batch
-    loader = PrefetchLoader(train_src, batch, shuffle=True,
-                            num_workers=args.workers, device_put=pinned(device, args.rgbd))
+    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    batch = max(args.batch // world * world, world)
+    loader = PrefetchLoader(train_src, batch // world, shuffle=True,
+                            num_workers=args.workers, shard_id=rank, num_shards=world,
+                            device_put=pinned(device, args.rgbd))
     steps_per_epoch = max(len(loader), 1)
 
     model_cfg = A2JConfig(crop_h=args.crop, crop_w=args.crop,
                           in_channels=4 if args.rgbd else 1)
     train_cfg = TrainConfig(batch_size=batch, lr=args.lr, bf16=args.bf16,
                             epochs=args.epochs)
-    trainer = A2JTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
+    trainer = A2JTrainer(model_cfg, train_cfg, mesh=mesh, steps_per_epoch=steps_per_epoch,
                          device=device)
     state = trainer.init_state(train_cfg.seed)
 
-    ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"))
-    monitor = Monitor(args.output)
+    ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"), mesh=mesh)
+    monitor = Monitor(args.output, write=main_rank)
     start_epoch = 0
     if args.resume and ckpt.latest_epoch() is not None:
         state = ckpt.restore(state)
         start_epoch = ckpt.latest_epoch() + 1
-        print(f"resumed from epoch {ckpt.latest_epoch()}")
+        log(f"resumed from epoch {ckpt.latest_epoch()}")
 
     epochs, evals = [], []
     for epoch in range(start_epoch, args.epochs):
@@ -178,6 +193,7 @@ def main(argv=None) -> dict:
             step_metrics.append(metrics)
         for metrics in step_metrics:   # the one wait for the card in the epoch
             meters.update({k: float(v) for k, v in metrics.items()})
+        meters.reduce(mesh)
         dt = time.perf_counter() - t0
         avg = meters.averages()
         steps = len(step_metrics)
@@ -185,7 +201,7 @@ def main(argv=None) -> dict:
                        "ms_per_step": dt / max(steps, 1) * 1e3,
                        "samples_per_s": steps * batch / max(dt, 1e-9),
                        "loader_wait_share": waited / max(dt, 1e-9)})
-        print(f"epoch {epoch}: loss={avg.get('total_loss', 0):.4f} "
+        log(f"epoch {epoch}: loss={avg.get('total_loss', 0):.4f} "
               f"({dt:.1f}s, {steps * batch / max(dt, 1e-9):.0f} samples/s, "
               f"{epochs[-1]['ms_per_step']:.1f} ms/step, "
               f"{100 * epochs[-1]['loader_wait_share']:.1f}% waiting on the loader)")
@@ -193,7 +209,9 @@ def main(argv=None) -> dict:
         ckpt.save(epoch, state)
 
         if (epoch + 1) % args.eval_every == 0 or epoch == args.epochs - 1:
-            evals.append(evaluate(trainer, state, test_src, test_ds, args, epoch, monitor))
+            if main_rank:
+                evals.append(evaluate(trainer, state, test_src, test_ds, args, epoch, monitor))
+            barrier(mesh)
 
     monitor.metrics.save_metrics()
     monitor.metrics.plot_metrics()
@@ -201,9 +219,13 @@ def main(argv=None) -> dict:
     # pipelines load
     params = os.path.join(args.output, "params.npz")
     batch_stats = os.path.join(args.output, "batch_stats.npz")
-    save_params_npz(params, state.model, "params")
-    save_params_npz(batch_stats, state.model, "batch_stats")
-    print(f"done; logs + params.npz in {args.output}")
+    if main_rank:
+        save_params_npz(params, state.model, "params")
+        save_params_npz(batch_stats, state.model, "batch_stats")
+    barrier(mesh)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    log(f"done; logs + params.npz in {args.output}")
     return {"epochs": epochs, "evals": evals, "params_npz": params,
             "batch_stats_npz": batch_stats, "state": state}
 

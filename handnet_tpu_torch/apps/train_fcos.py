@@ -1,4 +1,4 @@
-"""FCOS detector training CLI on one card.
+"""FCOS detector training CLI on the cards.
 
 The port's ``handnet_tpu/apps/train_fcos.py`` (reference
 trainval_net_fcos.py:26-265: warmup + MultiStepLR, the NaN guard,
@@ -24,7 +24,10 @@ head's 24 GroupNorms, and a ``group`` backbone's 36, run kernels K2s and
 K2a on the card. ``--net rcnn`` trains the Faster R-CNN alternative
 instead (``RCNNTrainer``, ``--num-proposals`` per image; only a ``group``
 backbone launches kernels, 36 of each per step). One card takes the whole
-batch (``--batch``). A non-finite loss stops the run with exit code 1, as
+batch (``--batch``); launched by ``torchrun`` the ranks train data
+parallel as ``train_a2j`` does (``parallel/mesh.py``: the global
+``--batch`` rounded to a multiple of the world size, each rank's share
+from its loader shard, rank 0 writing the logs and checkpoints). A non-finite loss stops the run with exit code 1, as
 the JAX CLI does; the check reads each step's loss after the next step is
 launched, so the host does not wait for the card at every step.
 
@@ -33,6 +36,7 @@ Usage:
       [--synthetic N] [--voc-root DIR] [--epochs 45] [--batch 8]
       [--image-h 800 --image-w 1088] [--backbone-norm batch|frozen|group]
       [--net fcos|rcnn] [--num-proposals 128] [--device cpu]
+  torchrun --nproc-per-node N -m handnet_tpu_torch.apps.train_fcos ...
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from handnet_tpu_torch.config import FCOSConfig, TrainConfig
 from handnet_tpu_torch.data.detect_data import DetectDataSource
 from handnet_tpu_torch.data.dexycb import DexYCBDataset, refine_indices
 from handnet_tpu_torch.data.loader import PrefetchLoader
+from handnet_tpu_torch.parallel.mesh import rank_zero_first, torchrun_mesh
 from handnet_tpu_torch.train.checkpoints import CheckpointManager
 from handnet_tpu_torch.train.trainer import FCOSTrainer, RCNNTrainer, resolve_device
 from handnet_tpu_torch.utils.meters import AverageMeters
@@ -164,17 +169,22 @@ def main(argv=None) -> dict:
     """Train. Returns per epoch the mean losses and the loop's clock
     (``epochs``: seconds, steps, ms per step, images/s and the share of the
     epoch spent waiting on the loader), the sample count and the trained
-    ``state``."""
+    ``state`` (on every rank under ``torchrun``, whose process group it
+    leaves at the end)."""
     args = parse_args(argv)
-    device = resolve_device("train_fcos", args.device)
+    mesh = torchrun_mesh(args.device)
+    device = resolve_device("train_fcos", args.device, mesh)
+    log = print if mesh is None or mesh.is_main else (lambda *a, **k: None)
 
-    os.makedirs(args.output, exist_ok=True)
-    src = build_source(args)
-    print(f"train samples: {len(src)}")
+    with rank_zero_first(mesh):
+        os.makedirs(args.output, exist_ok=True)
+        src = build_source(args)
+    log(f"train samples: {len(src)}")
 
-    batch = args.batch
-    loader = PrefetchLoader(src, batch, shuffle=True, num_workers=args.workers,
-                            device_put=pinned(device))
+    world, rank = (1, 0) if mesh is None else (mesh.world_size, mesh.rank)
+    batch = max(args.batch // world * world, world)
+    loader = PrefetchLoader(src, batch // world, shuffle=True, num_workers=args.workers,
+                            shard_id=rank, num_shards=world, device_put=pinned(device))
     steps_per_epoch = max(len(loader), 1)
 
     model_cfg = FCOSConfig(num_classes=args.num_classes,
@@ -182,21 +192,21 @@ def main(argv=None) -> dict:
     train_cfg = TrainConfig(batch_size=batch, lr=args.lr, bf16=args.bf16,
                             optimizer="sgd", warmup_epochs=1)
     if args.net == "rcnn":
-        trainer = RCNNTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
+        trainer = RCNNTrainer(model_cfg, train_cfg, mesh=mesh, steps_per_epoch=steps_per_epoch,
                               backbone_norm=args.backbone_norm,
                               num_proposals=args.num_proposals, device=device)
     else:
-        trainer = FCOSTrainer(model_cfg, train_cfg, steps_per_epoch=steps_per_epoch,
+        trainer = FCOSTrainer(model_cfg, train_cfg, mesh=mesh, steps_per_epoch=steps_per_epoch,
                               backbone_norm=args.backbone_norm, device=device)
     state = trainer.init_state(train_cfg.seed)
 
-    ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"))
-    monitor = Monitor(args.output)
+    ckpt = CheckpointManager(os.path.join(args.output, "checkpoints"), mesh=mesh)
+    monitor = Monitor(args.output, write=mesh is None or mesh.is_main)
     start_epoch = 0
     if args.resume and ckpt.latest_epoch() is not None:
         state = ckpt.restore(state)
         start_epoch = ckpt.latest_epoch() + 1
-        print(f"resumed from epoch {ckpt.latest_epoch()}")
+        log(f"resumed from epoch {ckpt.latest_epoch()}")
 
     epochs = []
     for epoch in range(start_epoch, args.epochs):
@@ -223,13 +233,14 @@ def main(argv=None) -> dict:
         if pending is not None:
             _finite_or_exit(pending)
             meters.update({k: float(v) for k, v in pending.items()})
+        meters.reduce(mesh)
         dt = time.perf_counter() - t0
         avg = meters.averages()
         epochs.append({"epoch": epoch, "losses": avg, "seconds": dt, "steps": steps,
                        "ms_per_step": dt / max(steps, 1) * 1e3,
                        "images_per_s": steps * batch / max(dt, 1e-9),
                        "loader_wait_share": waited / max(dt, 1e-9)})
-        print(f"epoch {epoch}: loss={avg.get('total_loss', 0):.4f} "
+        log(f"epoch {epoch}: loss={avg.get('total_loss', 0):.4f} "
               f"({dt:.1f}s, {epochs[-1]['images_per_s']:.1f} images/s, "
               f"{epochs[-1]['ms_per_step']:.1f} ms/step, "
               f"{100 * epochs[-1]['loader_wait_share']:.1f}% waiting on the loader)")
@@ -238,6 +249,8 @@ def main(argv=None) -> dict:
 
     monitor.metrics.save_metrics()
     monitor.metrics.plot_metrics()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return {"epochs": epochs, "samples": len(src), "state": state}
 
 

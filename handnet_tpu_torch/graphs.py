@@ -26,6 +26,8 @@ tensors, all on that stream. Facts the capture relies on:
   the wrappers, not on replay.
 
 On the CPU there are no graphs: :meth:`BucketGraphs.run` calls the forward.
+:class:`MeshGraphs` runs one :class:`BucketGraphs` per device of a
+one-process data mesh, each on its block of the bucket.
 On the card a failed capture raises; nothing falls back to eager serving.
 
 The wire format is the JAX server's (``handnet_tpu/apps/serve.py:117-120``):
@@ -177,3 +179,44 @@ class BucketGraphs:
         for t in out.values():
             t.record_stream(caller)
         return out
+
+
+class MeshGraphs:
+    """:class:`BucketGraphs` over the devices of a one-process data mesh
+    (``parallel.create_mesh``), the JAX server's bucket sharded over
+    ``mesh.size`` devices: one forward (a pipeline replica) and one set of
+    graphs per device. A bucket of B frames runs as ``mesh.size``
+    contiguous blocks of ``B / mesh.size``, block i on device i, whose
+    outputs are concatenated in order on the first device. A bucket that
+    does not divide raises ``ValueError``.
+
+    K3g's tensor maps are encoded per launch and the kernels' arrival
+    counters are kept per (device, stream) (``kernels/scratch.py``), so
+    the devices' graphs share nothing.
+    """
+
+    def __init__(self, forwards, frame_hw: Tuple[int, int], quantized_wire: bool, devices):
+        self.parts = [BucketGraphs(f, frame_hw, quantized_wire, d)
+                      for f, d in zip(forwards, devices)]
+        self.device = self.parts[0].device
+
+    def _block(self, bucket: int) -> int:
+        """Frames per device of a bucket."""
+        if bucket % len(self.parts):
+            raise ValueError(f"bucket {bucket} does not divide over {len(self.parts)} devices")
+        return bucket // len(self.parts)
+
+    def capture(self, bucket: int) -> None:
+        k = self._block(bucket)
+        for part in self.parts:
+            part.capture(k)
+
+    def run(self, bucket: int, images: torch.Tensor, depth: torch.Tensor,
+            fields: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+        """:meth:`BucketGraphs.run` of each block on its device (each queued
+        before the next, so the devices compute together), the outputs
+        concatenated on the first device."""
+        k = self._block(bucket)
+        outs = [part.run(k, images[i * k:(i + 1) * k], depth[i * k:(i + 1) * k], fields=fields)
+                for i, part in enumerate(self.parts)]
+        return {key: torch.cat([o[key].to(self.device) for o in outs]) for key in outs[0]}

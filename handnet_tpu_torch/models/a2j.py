@@ -150,6 +150,12 @@ def a2j_loss(heads: Dict[str, torch.Tensor], gt_uvd: torch.Tensor, anchors: torc
     and the caller's region: the three einsums are matrix products, which
     autocast would run in bf16, where the JAX package computes them in
     float32 on float32 inputs.
+
+    Data parallel: both losses are means over the batch, so over equal
+    shards the mean of the ranks' losses, which ``DistributedDataParallel``'s
+    gradient average differentiates, is the whole-batch loss: unlike
+    ``fcos_loss`` and the R-CNN losses it needs no global normalizer and no
+    world-size scale.
     """
     with torch.autocast(heads["cls"].device.type, enabled=False):
         w = torch.softmax(heads["cls"].float(), dim=1)                  # [B, N, P]

@@ -51,6 +51,7 @@ from handnet_tpu_torch.nn.resnet import init_conv_weights_, resnet34
 from handnet_tpu_torch.ops.boxes import box_iou, clip_boxes, delta_decode, delta_encode
 from handnet_tpu_torch.ops.focal import bce_with_logits, smooth_l1
 from handnet_tpu_torch.ops.nms import batched_nms_fixed, nms_fixed, topk_candidates
+from handnet_tpu_torch.parallel.mesh import DataMesh, all_reduce_sum, dp_scale
 
 ROI_SIZE = 7
 
@@ -238,17 +239,27 @@ class TwoMLPHead(nn.Module):
 class Dropout(nn.Module):
     """flax's ``nn.Dropout``: in training, ``where(keep, x / keep_prob, 0)``
     with ``keep`` drawn from ``generator`` (the default generator where
-    None); the identity in eval mode."""
+    None); the identity in eval mode.
+
+    ``mesh`` (set by a data-parallel trainer): ``x`` is this rank's block of
+    the global batch's rows, and ``keep`` is that block of the global draw,
+    as JAX draws the mask of the sharded array: every rank draws the whole
+    mask from the same generator state and keeps its rows."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.mesh = None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        world, rank = ((1, 0) if self.mesh is None
+                       else (self.mesh.world_size, self.mesh.rank))
+        n = x.shape[0]
+        draw = torch.rand((world * n, *x.shape[1:]), generator=generator, device=x.device)
+        keep = draw[rank * n:(rank + 1) * n] < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -483,17 +494,19 @@ def decode_rcnn_detections(outputs: Dict[str, torch.Tensor], num_classes: int,
             "dxdymags": _take(dxdy.reshape(b, -1, 3), top_idx)}
 
 
-def _sampler_weights(fg: torch.Tensor, bg: torch.Tensor, fg_cap: int, total: int):
+def _sampler_weights(fg: torch.Tensor, bg: torch.Tensor, fg_cap: int, total: int,
+                     mesh: Optional[DataMesh] = None):
     """Per-row weights and the normalizer of the expectation of
     torchvision's ``BalancedPositiveNegativeSampler``, per image: fg rows
     ``min(n_fg, fg_cap) / n_fg``, bg rows ``min(n_bg, total - n_fg_s) /
-    n_bg``, normalizer ``max(sum(n_fg_s + n_bg_s), 1)``."""
+    n_bg``, normalizer ``max(sum(n_fg_s + n_bg_s), 1)``, the sum over the
+    global batch under a data ``mesh`` (the caps stay per image)."""
     n_fg_i, n_bg_i = fg.sum(1), bg.sum(1)
     n_fg_s = n_fg_i.clamp(max=fg_cap)
     n_bg_s = torch.minimum(n_bg_i, total - n_fg_s)
     w = (fg * (n_fg_s / n_fg_i.clamp(min=1))[:, None]
          + bg * (n_bg_s / n_bg_i.clamp(min=1))[:, None]).float()
-    return w, (n_fg_s + n_bg_s).sum().clamp(min=1)
+    return w, all_reduce_sum((n_fg_s + n_bg_s).sum(), mesh).clamp(min=1)
 
 
 def _safe(boxes: torch.Tensor) -> torch.Tensor:
@@ -509,7 +522,7 @@ def _pick(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def rcnn_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
-              num_classes: int) -> Dict[str, torch.Tensor]:
+              num_classes: int, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """The RoI heads' losses (``handnet_tpu/models/faster_rcnn.py:387``;
     reference roi_heads.py:16-117), float32: proposals matched to GTs at
     IoU 0.5 (argmax, first index on ties), the classifier's cross entropy
@@ -517,7 +530,13 @@ def rcnn_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor]
     encodings) weighted by the expectation of the 512-per-image,
     25%-positive sampler and divided by its sampled count; with
     ``box_info``, the 0.1-weighted side BCE, dxdy MSE and contact cross
-    entropy over the positives at their matched class."""
+    entropy over the positives at their matched class.
+
+    Under a data ``mesh`` (a rank of ``DistributedDataParallel``) the
+    sampled count and the positives are counted over the global batch
+    before their clamps, as under JAX's sharded ``jit``, and every term,
+    a sum over rows, is scaled by the world size for DDP's gradient average
+    (``parallel.mesh.dp_scale``): the ranks' mean is the whole-batch loss."""
     props = outputs["proposals"]
     iou = box_iou(props, targets["boxes"])
     iou = torch.where(targets["valid"][:, None, :], iou, torch.full_like(iou, -1.0))
@@ -529,33 +548,34 @@ def rcnn_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor]
     fg = best_iou >= 0.5
     bg = (best_iou < 0.5) & (best_iou >= 0.0)
     cls_target = torch.where(fg, gt_labels, torch.zeros_like(gt_labels)).long()
-    w, n_sample = _sampler_weights(fg, bg, 128, 512)
+    w, n_sample = _sampler_weights(fg, bg, 128, 512, mesh)
+    scale = dp_scale(mesh)
 
     logits = outputs["scores"].float()
     ce = -F.log_softmax(logits, dim=-1).gather(-1, cls_target[..., None])[..., 0]
-    loss_cls = (w * ce).sum() / n_sample
+    loss_cls = (w * ce).sum() * scale / n_sample
 
     b, r = fg.shape
     deltas = outputs["deltas"].float().reshape(b, r, num_classes, 4)
     sel = _pick(deltas, cls_target)
     reg_target = delta_encode(_safe(gt_boxes), _safe(props), weights=(10.0, 10.0, 5.0, 5.0))
-    n_fg = fg.sum().clamp(min=1)
+    n_fg = all_reduce_sum(fg.sum(), mesh).clamp(min=1)
     loss_reg = torch.where(fg[..., None], w[..., None] * smooth_l1(sel - reg_target, 1.0 / 9.0),
-                           0.0).sum() / n_sample
+                           0.0).sum() * scale / n_sample
 
     losses = {"loss_classifier": loss_cls, "loss_box_reg": loss_reg}
     if "box_info" in targets:
         info = _take(targets["box_info"], match)
         side_sel = _pick(outputs["side"].float().reshape(b, r, num_classes, 1), cls_target)[..., 0]
         bce = bce_with_logits(side_sel, info[..., 1])
-        losses["loss_hand_side"] = 0.1 * (torch.where(fg, bce, 0.0).sum() / n_fg)
+        losses["loss_hand_side"] = 0.1 * (torch.where(fg, bce, 0.0).sum() * scale / n_fg)
         dxdy_sel = _pick(outputs["dxdy"].float().reshape(b, r, num_classes, 3), cls_target)
         mse = ((dxdy_sel - info[..., 2:]) ** 2).mean(-1)
-        losses["loss_dxdymag"] = 0.1 * (torch.where(fg, mse, 0.0).sum() / n_fg)
+        losses["loss_dxdymag"] = 0.1 * (torch.where(fg, mse, 0.0).sum() * scale / n_fg)
         contact_sel = _pick(outputs["contact"].float().reshape(b, r, num_classes, 5), cls_target)
         contact_ce = -F.log_softmax(contact_sel, dim=-1).gather(
             -1, info[..., 0].clamp(min=0).long()[..., None])[..., 0]
-        losses["loss_contact"] = 0.1 * (torch.where(fg, contact_ce, 0.0).sum() / n_fg)
+        losses["loss_contact"] = 0.1 * (torch.where(fg, contact_ce, 0.0).sum() * scale / n_fg)
     return losses
 
 
@@ -577,19 +597,22 @@ def rpn_assign(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Te
 
 
 def rpn_loss(outputs: Dict[str, torch.Tensor], anchors: torch.Tensor,
-             targets: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+             targets: Dict[str, torch.Tensor],
+             mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """The RPN's losses (``handnet_tpu/models/faster_rcnn.py:502``;
     torchvision ``RegionProposalNetwork``, fg/bg IoU 0.7/0.3), float32:
     objectness BCE and box smooth-L1 (beta 1/9, on (1, 1, 1, 1)-weighted
     encodings) over every non-ignored anchor, weighted by the expectation
     of the 256-per-image, 50%-positive sampler and divided by its sampled
-    count (:func:`rpn_assign` assigns)."""
+    count (:func:`rpn_assign` assigns); a data ``mesh`` as in
+    :func:`rcnn_loss`."""
     obj = outputs["rpn_objectness"].float()
     deltas = outputs["rpn_deltas"].float()
     fg, bg, match = rpn_assign(anchors, targets["boxes"], targets["valid"])
-    w, n_sample = _sampler_weights(fg, bg, 128, 256)
-    obj_loss = (w * bce_with_logits(obj, fg.float())).sum() / n_sample
+    w, n_sample = _sampler_weights(fg, bg, 128, 256, mesh)
+    scale = dp_scale(mesh)
+    obj_loss = (w * bce_with_logits(obj, fg.float())).sum() * scale / n_sample
     reg_target = delta_encode(_safe(_take(targets["boxes"], match)), anchors[None])
     box_loss = torch.where(fg[..., None], w[..., None] * smooth_l1(deltas - reg_target, 1.0 / 9.0),
-                           0.0).sum() / n_sample
+                           0.0).sum() * scale / n_sample
     return {"loss_objectness": obj_loss, "loss_rpn_box_reg": box_loss}

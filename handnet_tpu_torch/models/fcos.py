@@ -40,6 +40,7 @@ from handnet_tpu_torch.ops.boxes import giou_loss, linear_decode, linear_encode
 from handnet_tpu_torch.ops.focal import bce_with_logits, sigmoid_focal_loss
 from handnet_tpu_torch.ops.nms import batched_nms_fixed
 from handnet_tpu_torch.ops.resize import resize_bilinear_matmul
+from handnet_tpu_torch.parallel.mesh import DataMesh, all_reduce_sum, dp_scale
 
 
 class ConvTower(nn.Sequential):
@@ -348,7 +349,7 @@ def match_anchors(anchors: torch.Tensor, anchor_sizes: torch.Tensor, level_slice
 
 def fcos_loss(head: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
               anchors: torch.Tensor, anchor_sizes: torch.Tensor, level_slices,
-              cfg: FCOSConfig) -> Dict[str, torch.Tensor]:
+              cfg: FCOSConfig, mesh: Optional[DataMesh] = None) -> Dict[str, torch.Tensor]:
     """All FCOS losses (reference ``FCOSHead.compute_loss``, fcos.py:44-178;
     ``handnet_tpu/models/fcos.py:362``), in float32 whatever the head's dtype.
 
@@ -358,6 +359,15 @@ def fcos_loss(head: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
     is divided by the number of foreground anchors over the whole batch;
     ``hand_dxdy`` is a mean over all anchors before that division, as in the
     reference. Keys in the JAX package's order.
+
+    Under a data ``mesh`` (a rank of ``DistributedDataParallel``, its shard
+    of the batch) the number of foreground anchors is summed over the world
+    before its clamp at 1, as it is a sum over the global batch under JAX's
+    sharded ``jit``, and each term is this rank's share of the whole-batch
+    loss in the form DDP's gradient average expects: the sums times the
+    world size (:func:`~handnet_tpu_torch.parallel.mesh.dp_scale`),
+    ``hand_dxdy``'s mean over equal shards as it is. The ranks' mean of each
+    term is the whole-batch term.
     """
     cls_logits = head["cls_logits"].float()
     reg = head["bbox_regression"].float()
@@ -367,7 +377,8 @@ def fcos_loss(head: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
     matched = match_anchors(anchors, anchor_sizes, level_slices, targets["boxes"],
                             targets["valid"], cfg.center_sampling_radius)    # [B, N]
     fg = matched >= 0
-    num_fg = fg.sum().clamp(min=1).float()
+    num_fg = all_reduce_sum(fg.sum(), mesh).clamp(min=1).float()
+    scale = dp_scale(mesh)
     midx = matched.clamp(min=0)
     gt_boxes_at = _take_rows(targets["boxes"], midx)                         # [B, N, 4]
     fg_col = fg[..., None]
@@ -394,12 +405,14 @@ def fcos_loss(head: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
     ctr_target = torch.sqrt((ratio(lr_) * ratio(tb)).abs())
     loss_ctr = torch.where(fg, bce_with_logits(ctrness, ctr_target), 0.0).sum()
 
-    losses = {"classification": loss_cls / num_fg, "bbox_regression": loss_reg / num_fg,
-              "bbox_ctrness": loss_ctr / num_fg, "hand_lr": loss_hand_lr / num_fg}
+    losses = {"classification": loss_cls * scale / num_fg,
+              "bbox_regression": loss_reg * scale / num_fg,
+              "bbox_ctrness": loss_ctr * scale / num_fg, "hand_lr": loss_hand_lr * scale / num_fg}
     if cfg.ext and "hand_contact_state" in head and box_info is not None:
         contact = _take_rows(box_info[..., 0], midx).to(torch.int32)
         losses["hand_contact_state"] = sigmoid_focal_loss(
-            head["hand_contact_state"].float(), _one_hot(contact, 5) * fg_col).sum() * 1e-2 / num_fg
+            head["hand_contact_state"].float(), _one_hot(contact, 5) * fg_col
+        ).sum() * 1e-2 * scale / num_fg
         gt_dxdy = _take_rows(box_info[..., 2:5], midx)
         losses["hand_dxdy"] = (head["hand_dxdy"].float() - gt_dxdy).square().mean() * 10.0 / num_fg
     return losses

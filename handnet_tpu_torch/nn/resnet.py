@@ -7,7 +7,8 @@ torchvision (``conv1``, ``bn1``, ``layer{L}.{B}.conv{N}``,
 
 ``norm`` picks the norm layers as ``make_norm`` does there: ``"frozen"``
 (the default; fixed statistics, trainable affine), ``"batch"`` (flax's
-trainable BatchNorm) or ``"group"`` (flax's ``GroupNorm(32)``, eps 1e-6,
+trainable BatchNorm), ``"batch_sync"`` (the same, refusing to train without
+a data mesh) or ``"group"`` (flax's ``GroupNorm(32)``, eps 1e-6,
 through kernels K2s and K2a on the card, the ReLU fused into K2a where one
 follows directly). The two batch norms hold ``weight``, ``bias``,
 ``running_mean`` and ``running_var``; a GroupNorm holds ``weight`` and
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 
 from handnet_tpu_torch.nn.quant import conv_layer
 from handnet_tpu_torch.ops.cuda_gn import group_norm
+from handnet_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class FrozenBatchNorm2d(nn.Module):
@@ -74,6 +76,13 @@ class BatchNorm2d(nn.Module):
     would store the unbiased one. In eval mode it normalizes by the running
     statistics. Either way ``(x - mean) * (rsqrt(var + eps) * weight) +
     bias`` is computed in float32 and cast to x's dtype.
+
+    ``mesh`` (a ``parallel.DataMesh``, set by a data-parallel trainer): over
+    a world of several ranks the training statistics are the global batch's,
+    as flax's under a sharded ``jit``: each rank's per-channel sums of x and
+    x^2 and its element count are summed over the world (differentiably)
+    before the same formulas, so every rank normalizes alike and moves its
+    running statistics alike.
     """
 
     momentum = 0.9   # flax's: the running statistics keep 0.9 of themselves
@@ -81,16 +90,27 @@ class BatchNorm2d(nn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.mesh = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def _batch_statistics(self, xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.mesh is None or self.mesh.world_size == 1:
+            mean = xf.mean(dim=(0, 2, 3))
+            return mean, (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                                         count]), self.mesh)
+        mean = sums[:c] / sums[-1]
+        return mean, (sums[c:2 * c] / sums[-1] - mean.square()).clamp(min=0.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
+            mean, var = self._batch_statistics(xf)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -100,6 +120,22 @@ class BatchNorm2d(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
+
+
+class SyncBatchNorm2d(BatchNorm2d):
+    """``make_norm("batch_sync")``: flax's ``BatchNorm(axis_name="data")``,
+    statistics over the data mesh's ranks. Under a mesh it is
+    :class:`BatchNorm2d`, whose statistics are global there too. Training
+    without a mesh raises ``ValueError``: there is no axis to reduce over
+    (JAX's ``batch_sync`` fails so under its trainers' ``jit``, with "unbound
+    axis name: data")."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.mesh is None:
+            raise ValueError("SyncBatchNorm2d (norm 'batch_sync'): training needs a data mesh "
+                             "(a trainer's mesh=) to take its statistics over; without one "
+                             "use norm 'batch'")
+        return super().forward(x)
 
 
 def group_norm_nchw(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -135,19 +171,18 @@ class GroupNorm(nn.Module):
                                self.relu if relu is None else relu, self.use_kernel)
 
 
-NORMS = {"frozen": FrozenBatchNorm2d, "batch": BatchNorm2d}
+NORMS = {"frozen": FrozenBatchNorm2d, "batch": BatchNorm2d, "batch_sync": SyncBatchNorm2d}
 
 
 def make_norm(norm: str, use_kernel: bool = True):
     """The norm layer class for ``norm`` (``handnet_tpu/nn/resnet.py:57-70``):
-    ``"group"`` is flax's ``nn.GroupNorm(num_groups=32)``, eps 1e-6.
-    ``"batch_sync"`` (statistics across cards) is not ported."""
+    ``"group"`` is flax's ``nn.GroupNorm(num_groups=32)``, eps 1e-6;
+    ``"batch_sync"`` takes its statistics over the data mesh's ranks
+    (:class:`SyncBatchNorm2d`)."""
     if norm in NORMS:
         return NORMS[norm]
     if norm == "group":
         return functools.partial(GroupNorm, 32, eps=1e-6, use_kernel=use_kernel)
-    if norm == "batch_sync":
-        raise NotImplementedError(f"ResNet: norm {norm!r} is not ported (frozen, batch or group)")
     raise ValueError(f"unknown norm {norm!r}")
 
 

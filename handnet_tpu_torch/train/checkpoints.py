@@ -10,6 +10,11 @@ Pose2Mesh, under the flax tree's keys, the JAX package's
 ``save_params_npz`` format, so that ``handnet_tpu``'s ``load_params_npz``
 reads a model trained here;
 :func:`load_params_npz` reads such a file back into the nested tree.
+
+Data parallel: a ``CheckpointManager`` given a rank's mesh writes on rank 0
+only; every rank restores. ``state.model`` is the inner module, not its
+``DistributedDataParallel`` wrapper, so the keys have no ``module.``
+prefix and the files are those of a one-card run.
 """
 
 from __future__ import annotations
@@ -37,11 +42,14 @@ __all__ = ["CheckpointManager", "save_params_npz", "load_params_npz"]
 class CheckpointManager:
     """``save(epoch, state, extra)``, ``latest_epoch()``, ``restore(state,
     epoch)``; ``max_to_keep`` keeps the newest epochs only, as orbax's
-    ``CheckpointManagerOptions(max_to_keep=...)`` does."""
+    ``CheckpointManagerOptions(max_to_keep=...)`` does. Under a ``mesh``
+    only rank 0 writes (and makes the directory)."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = None):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None, mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.writes = mesh is None or mesh.is_main
+        if self.writes:
+            os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def _path(self, epoch: int) -> str:
@@ -49,10 +57,14 @@ class CheckpointManager:
 
     def epochs(self) -> List[int]:
         """The saved epochs, oldest first."""
+        if not os.path.isdir(self.directory):
+            return []
         found = (re.fullmatch(r"(\d+)\.pt", name) for name in os.listdir(self.directory))
         return sorted(int(m.group(1)) for m in found if m)
 
     def save(self, epoch: int, state, extra: Optional[dict] = None) -> None:
+        if not self.writes:
+            return
         payload = {"step": state.step, "model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict()}
         if extra:

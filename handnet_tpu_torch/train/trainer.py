@@ -17,6 +17,19 @@ donates its state, so no caller keeps the old one either).
   (K2s and K2a, 36 of each per step); RoIAlign, the RPN's ranking and NMS
   and the heads' products are PyTorch.
 
+Data parallel (``mesh=``, a rank's ``parallel.DataMesh`` from
+``init_data_parallel``; the JAX trainers' ``mesh`` with the batch sharded on
+``data``): each rank steps on its shard of the global batch through
+``DistributedDataParallel``, which averages the gradients. The step is the
+whole-batch step, as under JAX's sharded ``jit``: the BatchNorms take the
+global batch's statistics (``nn/resnet.py``), the R-CNN's dropout keeps the
+rank's rows of the global draw, and the losses count their normalizers over
+the world and scale their sums for DDP's average (``fcos_loss``,
+``rcnn_loss``, ``rpn_loss``; ``a2j_loss``'s means need neither). The returned
+metrics are the global losses, the same on every rank; the eval steps run
+on the inner module. DDP gets ``broadcast_buffers=False``: the running
+statistics move alike on every rank already.
+
 bf16 (``train_cfg.bf16``) has flax's ``dtype=bfloat16, param_dtype=float32``
 meaning: the parameters and the optimizer state stay float32, convolutions
 compute in bf16, GroupNorm and BatchNorm reduce in float32, and the losses
@@ -38,9 +51,10 @@ import torch.nn as nn
 
 from handnet_tpu_torch.config import A2JConfig, FCOSConfig, TrainConfig
 from handnet_tpu_torch.models.a2j import A2JSystem, a2j_postprocess
-from handnet_tpu_torch.models.faster_rcnn import FasterRCNNFPN, rcnn_loss, rpn_loss
-from handnet_tpu_torch.models.fcos import FCOSSystem
-from handnet_tpu_torch.nn.resnet import make_norm
+from handnet_tpu_torch.models.faster_rcnn import Dropout, FasterRCNNFPN, rcnn_loss, rpn_loss
+from handnet_tpu_torch.models.fcos import FCOSSystem, fcos_loss
+from handnet_tpu_torch.nn.resnet import BatchNorm2d, make_norm
+from handnet_tpu_torch.parallel.mesh import DataMesh, reduce_mean, replicate
 from handnet_tpu_torch.train.schedules import Schedule, multistep_with_warmup, step_decay
 
 
@@ -54,6 +68,13 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Schedule
+    # the model's DistributedDataParallel wrapper under a mesh
+    wrapped: Optional[nn.Module] = None
+
+    @property
+    def forward_module(self) -> nn.Module:
+        """What a train step calls: the DDP wrapper, else the model."""
+        return self.model if self.wrapped is None else self.wrapped
 
     def apply_gradients(self) -> None:
         """One optimizer update from the parameters' ``.grad``, at the
@@ -70,13 +91,56 @@ class TrainState:
         """Back-propagate ``total`` into fresh gradients and apply them.
         optax moves every parameter (the decay at least), and torch's
         optimizers skip one whose grad is None, so such a parameter gets a
-        zero gradient."""
+        zero gradient (under DDP too, which leaves the grad of a parameter
+        that no rank used None)."""
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
         for p in self.model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.apply_gradients()
+
+
+def data_parallel(model: nn.Module, mesh: Optional[DataMesh]) -> Optional[nn.Module]:
+    """Under a mesh: hand the mesh to the model's BatchNorms and dropouts,
+    broadcast rank 0's parameters and buffers (``replicate``; DDP's own
+    broadcast at construction would skip the buffers), and wrap the model
+    in ``DistributedDataParallel``; None without a mesh."""
+    if mesh is None:
+        return None
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, Dropout)):
+            m.mesh = mesh
+    replicate(mesh, model)
+    device = mesh.device
+    return nn.parallel.DistributedDataParallel(
+        model, device_ids=[device.index] if device.type == "cuda" else None,
+        process_group=mesh.group, broadcast_buffers=False, init_sync=False)
+
+
+def touch_outputs(total: torch.Tensor, outputs: Dict[str, torch.Tensor],
+                  mesh: Optional[DataMesh]) -> torch.Tensor:
+    """Under a mesh, ``total`` plus zero times every output that carries a
+    gradient, so that every parameter gets one: DDP's reducer waits for all
+    of them at each step. A detector's loss leaves its extension heads out
+    where the targets have no ``box_info`` (FCOS's ``hand_lr_layer``,
+    ``hand_contact_state_layer`` and ``hand_dydx_layer``; the R-CNN
+    predictor's ``hand_lr_layer``, ``hand_contact_state_layer`` and
+    ``hand_dydx_layer``); their zero gradients are what
+    :meth:`TrainState.update` gives them without a mesh.
+    ``find_unused_parameters`` cannot see them (their outputs are among the
+    forward's) and a static graph does not keep them apart. A2J's loss uses
+    every output. Without a mesh, ``total``."""
+    if mesh is None:
+        return total
+    return total + sum(v.float().sum() * 0.0 for v in outputs.values() if v.requires_grad)
+
+
+def global_metrics(losses: Dict[str, torch.Tensor], mesh: Optional[DataMesh]
+                   ) -> Dict[str, torch.Tensor]:
+    """The losses detached; under a mesh the ranks' mean of each, which is
+    the whole-batch loss."""
+    return dict(zip(losses, reduce_mean(list(losses.values()), mesh)))
 
 
 def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]) -> torch.optim.Optimizer:
@@ -102,13 +166,21 @@ def make_optimizer(cfg: TrainConfig, params: Iterable[torch.Tensor]) -> torch.op
     raise ValueError(cfg.optimizer)
 
 
-def resolve_device(name: str, device, mesh=None) -> torch.device:
+def resolve_device(name: str, device, mesh: Optional[DataMesh] = None) -> torch.device:
     """The training entry points' device: None means the card, and raises
-    where there is none instead of training on the CPU. A ``mesh`` (data
-    parallel over several cards) is not ported and raises."""
+    where there is none instead of training on the CPU. Under a ``mesh`` it
+    is the mesh's device; the mesh must be a rank of a process group
+    (``init_data_parallel``), and ``device``, if given, of its type."""
     if mesh is not None:
-        raise NotImplementedError(f"{name}: mesh (data parallel over several cards) "
-                                  "is not ported; the port trains on one card")
+        if not isinstance(mesh, DataMesh):
+            raise TypeError(f"{name}: mesh is a parallel.DataMesh, not {type(mesh).__name__}")
+        if mesh.group is None or len(mesh.devices) != 1:
+            raise ValueError(f"{name}: a training mesh is one rank of a process group driving "
+                             "one device (init_data_parallel, under torchrun); create_mesh's "
+                             "one-process meshes serve")
+        if device is not None and torch.device(device).type != mesh.device.type:
+            raise ValueError(f"{name}: device {device!r} is not the mesh's {mesh.device}")
+        return mesh.device
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -119,6 +191,14 @@ def resolve_device(name: str, device, mesh=None) -> torch.device:
     return torch.device(device)
 
 
+def _check_norm(name: str, norm: str, mesh: Optional[DataMesh]) -> None:
+    make_norm(norm)   # raises for a norm the port has not
+    if norm == "batch_sync" and mesh is None:
+        raise ValueError(f"{name}: backbone_norm 'batch_sync' takes its statistics over a "
+                         "data mesh: pass mesh=, or use 'batch' (the JAX package's batch_sync "
+                         "fails under its trainers' jit: unbound axis name 'data')")
+
+
 class A2JTrainer:
     """A2J training: AdamW lr 3.5e-4, wd 1e-4, StepLR 0.2 every 10 epochs,
     batch 64 (config/a2j.yaml:8-30); loss = cls + 3 * reg
@@ -126,9 +206,9 @@ class A2JTrainer:
 
     The model is ``A2JSystem(norm="batch")``: the backbone's and the three
     towers' BatchNorms take the batch's statistics in the train step and
-    the running ones in the eval step. ``quant`` is serving-only and forced
-    off, as in the JAX package; a ``mesh`` is not ported and raises
-    ``NotImplementedError``. The 2D A2J (``is_3d=False``) trains without the
+    the running ones in the eval step (over the global batch under a
+    ``mesh``, see the module's docstring). ``quant`` is serving-only and
+    forced off, as in the JAX package. The 2D A2J (``is_3d=False``) trains without the
     depth term, as JAX's does; its eval step is JAX's, see :meth:`eval_step`.
 
     ``device``: None (the default) is the card and raises where there is
@@ -145,6 +225,7 @@ class A2JTrainer:
                  train_cfg: Optional[TrainConfig] = None, mesh=None,
                  steps_per_epoch: int = 1000, device=None):
         self.device = resolve_device("A2JTrainer", device, mesh)
+        self.mesh = mesh
         # int8 is a serving-only path: round() has no useful gradient
         self.model_cfg = dataclasses.replace(model_cfg or A2JConfig(), quant=False)
         self.train_cfg = train_cfg or TrainConfig()
@@ -163,7 +244,7 @@ class A2JTrainer:
         model.init_weights_(torch.Generator().manual_seed(seed))
         model.to(self.device, memory_format=torch.channels_last)
         return TrainState(0, model, make_optimizer(self.train_cfg, model.parameters()),
-                          self.schedule)
+                          self.schedule, data_parallel(model, self.mesh))
 
     def train_step(self, state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -172,10 +253,10 @@ class A2JTrainer:
         and ``total_loss`` entries, detached."""
         model = state.model.train()
         with self._autocast():
-            heads = model(batch["image"])
+            heads = state.forward_module(batch["image"])
         losses = model.losses(heads, batch["jt_uvd"], self.model_cfg.reg_loss_factor)
         state.update(losses["total_loss"])
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, global_metrics(losses, self.mesh)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -217,9 +298,10 @@ class FCOSTrainer:
     (flax's GroupNorm(32), eps 1e-6: its 36 layers run K2s and K2a in the
     forward, as the head's 24 do, and their registered plain gradients in
     the backward). Only a ``"batch"`` backbone runs its forward in training
-    mode; a GroupNorm normalizes alike in either. ``"batch_sync"`` and a
-    ``mesh`` (data parallel over several cards) are not ported and raise
-    ``NotImplementedError``. int8 (``quant``) and
+    mode; a GroupNorm normalizes alike in either. ``"batch_sync"`` is
+    ``"batch"`` under a ``mesh`` (global statistics either way, see the
+    module's docstring) and raises ``ValueError`` without one. int8
+    (``quant``) and
     ``gn_fast_variance`` are serving-only and forced off, as in the JAX
     package; the fused-tower head is refused (``ValueError``), since the JAX
     package's fused GroupNorm normalizes over other axes.
@@ -239,14 +321,15 @@ class FCOSTrainer:
                  milestones_epochs: Sequence[int] = (20, 35),
                  backbone_norm: str = "frozen", device=None):
         self.device = resolve_device("FCOSTrainer", device, mesh)
-        make_norm(backbone_norm)   # raises for a norm the port has not
+        _check_norm("FCOSTrainer", backbone_norm, mesh)
+        self.mesh = mesh
         model_cfg = model_cfg or FCOSConfig()
         # serving-only, as in the JAX package: round() has no useful
         # gradient, and the E[x^2] - E[x]^2 variance NaNs gradients
         self.model_cfg = dataclasses.replace(model_cfg, quant=False, gn_fast_variance=False)
         self.train_cfg = train_cfg or TrainConfig()
         self.backbone_norm = backbone_norm
-        self._norm_trains = backbone_norm == "batch"
+        self._norm_trains = backbone_norm in ("batch", "batch_sync")
         self.schedule = multistep_with_warmup(
             self.train_cfg.lr, steps_per_epoch, milestones_epochs,
             warmup_epochs=1.0 if self.train_cfg.warmup_epochs else 0.0)
@@ -258,7 +341,7 @@ class FCOSTrainer:
         model.init_weights_(torch.Generator().manual_seed(seed))
         model.to(self.device, memory_format=torch.channels_last)
         return TrainState(0, model, make_optimizer(self.train_cfg, model.parameters()),
-                          self.schedule)
+                          self.schedule, data_parallel(model, self.mesh))
 
     def train_step(self, state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -273,12 +356,12 @@ class FCOSTrainer:
         model.train(self._norm_trains)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.train_cfg.bf16):
-            losses = model.loss(batch["image"], batch["targets"])
+            head = state.forward_module(batch["image"])
+            losses = fcos_loss(head, batch["targets"], model.anchors, model.anchor_sizes,
+                               model.level_slices, model.cfg, self.mesh)
         total = sum(losses.values())
-        state.update(total)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        return state, metrics
+        state.update(touch_outputs(total, head, self.mesh))
+        return state, global_metrics({**losses, "total_loss": total}, self.mesh)
 
 
 class RCNNTrainer:
@@ -308,7 +391,8 @@ class RCNNTrainer:
                  milestones_epochs: Sequence[int] = (20, 35),
                  backbone_norm: str = "frozen", num_proposals: int = 128, device=None):
         self.device = resolve_device("RCNNTrainer", device, mesh)
-        make_norm(backbone_norm)   # raises for a norm the port has not
+        _check_norm("RCNNTrainer", backbone_norm, mesh)
+        self.mesh = mesh
         self.model_cfg = model_cfg or FCOSConfig()
         self.train_cfg = train_cfg or TrainConfig()
         self.backbone_norm = backbone_norm
@@ -327,7 +411,7 @@ class RCNNTrainer:
         model.init_weights_(torch.Generator().manual_seed(seed))
         model.to(self.device, memory_format=torch.channels_last)
         return TrainState(0, model, make_optimizer(self.train_cfg, model.parameters()),
-                          self.schedule)
+                          self.schedule, data_parallel(model, self.mesh))
 
     def dropout_generator(self, step: int) -> torch.Generator:
         """The contact head's dropout draws at ``step``."""
@@ -343,11 +427,9 @@ class RCNNTrainer:
         model = state.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.train_cfg.bf16):
-            out = model(batch["image"], self.dropout_generator(state.step))
-        losses = rcnn_loss(out, batch["targets"], self.model_cfg.num_classes)
-        losses.update(rpn_loss(out, model.anchors, batch["targets"]))
+            out = state.forward_module(batch["image"], self.dropout_generator(state.step))
+        losses = rcnn_loss(out, batch["targets"], self.model_cfg.num_classes, self.mesh)
+        losses.update(rpn_loss(out, model.anchors, batch["targets"], self.mesh))
         total = sum(losses.values())
-        state.update(total)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
-        return state, metrics
+        state.update(touch_outputs(total, out, self.mesh))
+        return state, global_metrics({**losses, "total_loss": total}, self.mesh)

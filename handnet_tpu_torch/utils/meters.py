@@ -4,8 +4,10 @@ Reference equivalents: AverageMeters (utils/evaluation/evalutils.py:1-28) and
 SmoothedValue/MetricLogger (fpn_utils/utils.py:11-67,113-180).
 
 The port's copy of ``handnet_tpu/utils/meters.py``: plain host-side
-accumulators. A value that needs a reduction across processes is reduced
-before it reaches a meter.
+accumulators. Under data parallelism :meth:`AverageMeters.reduce` sums each
+meter's total and count over the ranks (the reference's
+``synchronize_between_processes``, fpn_utils/utils.py:29-41), so every rank
+averages over the whole world.
 """
 
 from __future__ import annotations
@@ -48,6 +50,25 @@ class AverageMeters:
 
     def averages(self) -> Dict[str, float]:
         return {k: m.avg for k, m in self.meters.items()}
+
+    def reduce(self, mesh) -> None:
+        """Sum every meter's total and count over the ranks of ``mesh`` (a
+        ``parallel.DataMesh``; nothing to do without one or for one rank),
+        in one collective. Every rank must hold the same meter names."""
+        if mesh is None or mesh.world_size == 1:
+            return
+        import torch
+
+        from handnet_tpu_torch.parallel.mesh import all_reduce_sum
+
+        names = sorted(self.meters)
+        local = torch.tensor([[self.meters[k].sum, self.meters[k].count] for k in names],
+                             dtype=torch.float64, device=mesh.device)
+        total = all_reduce_sum(local, mesh).cpu().tolist()
+        for k, (sum_, count) in zip(names, total):
+            meter = self.meters[k]
+            meter.sum, meter.count = sum_, int(count)
+            meter.avg = meter.sum / max(meter.count, 1)
 
     def __getitem__(self, key: str) -> AverageMeter:
         return self.meters[key]

@@ -72,11 +72,15 @@ def _svg_line_plot(xs, ys, title: str, w: int = 420, h: int = 220) -> str:
 
 
 class Metrics:
-    """Per-epoch metric store with save/plot (monitoring.py:31-68)."""
+    """Per-epoch metric store with save/plot (monitoring.py:31-68).
+    ``write=False`` (a data-parallel rank other than 0) keeps the metrics
+    and writes no file."""
 
-    def __init__(self, checkpoint_dir: str):
+    def __init__(self, checkpoint_dir: str, write: bool = True):
         self.checkpoint = checkpoint_dir
-        os.makedirs(checkpoint_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(checkpoint_dir, exist_ok=True)
         self.evolution: Dict[str, Dict[int, float]] = defaultdict(dict)
 
     def add(self, epoch: int, values: Dict[str, float]):
@@ -84,6 +88,8 @@ class Metrics:
             self.evolution[k][epoch] = float(v)
 
     def save_metrics(self, path: Optional[str] = None):
+        if not self.write:
+            return
         path = path or os.path.join(self.checkpoint, "metrics.json")
         with open(path, "w") as f:
             json.dump({k: v for k, v in self.evolution.items()}, f, indent=1)
@@ -99,6 +105,8 @@ class Metrics:
         """One HTML page, one chart per metric (the plotly-dashboard
         equivalent of monitoring.py:42-68)."""
         path = path or os.path.join(self.checkpoint, "metrics.html")
+        if not self.write:
+            return path
         charts = []
         for name, series in sorted(self.evolution.items()):
             epochs = sorted(series)
@@ -122,19 +130,24 @@ def save_args(args, directory: str, name: str = "opt"):
 
 
 class Monitor:
-    """Train/val log files + Metrics (monitoring.py:10-29)."""
+    """Train/val log files + Metrics (monitoring.py:10-29). ``write=False``
+    (a data-parallel rank other than 0) writes no file: only rank 0 logs."""
 
-    def __init__(self, checkpoint_dir: str):
+    def __init__(self, checkpoint_dir: str, write: bool = True):
         self.checkpoint = checkpoint_dir
-        os.makedirs(checkpoint_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(checkpoint_dir, exist_ok=True)
         self.train_log = os.path.join(checkpoint_dir, "train.txt")
         self.val_log = os.path.join(checkpoint_dir, "val.txt")
-        self.metrics = Metrics(checkpoint_dir)
+        self.metrics = Metrics(checkpoint_dir, write)
 
     def log_train(self, epoch: int, errors: Dict[str, float]):
-        log_errors(self.train_log, epoch, errors)
+        if self.write:
+            log_errors(self.train_log, epoch, errors)
         self.metrics.add(epoch, {f"train_{k}": v for k, v in errors.items()})
 
     def log_val(self, epoch: int, errors: Dict[str, float]):
-        log_errors(self.val_log, epoch, errors)
+        if self.write:
+            log_errors(self.val_log, epoch, errors)
         self.metrics.add(epoch, {f"val_{k}": v for k, v in errors.items()})

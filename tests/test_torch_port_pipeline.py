@@ -313,6 +313,17 @@ with tempfile.TemporaryDirectory() as d:
     statepack.save_trained_states(path, state, fcfg, a2j_state, acfg, synth={"crop": 32})
     f_vars, fcfg2, a_vars, acfg2, synth = statepack.load_trained_states(path)
     assert (fcfg2, acfg2, synth) == (fcfg, acfg, {"crop": 32}) and a_vars["params"]
+from handnet_tpu_torch import parallel
+(block,) = parallel.shard_batch(parallel.DataMesh((torch.device("cpu"),), 1, 2), image)
+assert torch.equal(block, image[1:])
+with tempfile.TemporaryDirectory() as d:
+    mesh = parallel.init_data_parallel(rank=0, world_size=1, init_method=f"file://{d}/init",
+                                       device="cpu")
+    ddp = FCOSTrainer(C.FCOSConfig(image_h=64, image_w=96, fpn_channels=64, num_convs=2),
+                      C.TrainConfig(optimizer="sgd", lr=1e-3), mesh=mesh, device="cpu")
+    ddp_state, metrics = ddp.train_step(ddp.init_state(0), {"image": image, "targets": targets})
+    assert ddp_state.wrapped is not None and bool(torch.isfinite(metrics["total_loss"]))
+    torch.distributed.destroy_process_group()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu",
                                        "cv2", "yaml", "PIL", "msgpack", "matplotlib", "rclpy"))
@@ -338,7 +349,9 @@ def test_port_imports_no_jax():
     and grasp evaluators, reads a config
     through ``load_config(yaml_path=...)``, imports the demo apps and their
     utilities, runs one frame of ``demo.main``, draws a line and writes and
-    reads back a ``statepack`` file, and has loaded neither jax, optax,
+    reads back a ``statepack`` file, shards a batch with
+    ``handnet_tpu_torch.parallel`` and takes one data-parallel
+    ``FCOSTrainer`` step in a one-rank gloo world, and has loaded neither jax, optax,
     orbax, the JAX package, ``cv2``, ``yaml``, PIL, ``msgpack``,
     matplotlib nor ``rclpy`` (a subprocess: tests/conftest.py imports jax
     into this one). One intra-op thread, as the other port tests: alone it

@@ -706,9 +706,9 @@ def test_bf16_loss_matches_jax_bf16_loss(frozen_grads):
 
 def test_trainer_refusals_and_device():
     cfg = pconfig.FCOSConfig(num_classes=3, image_h=H, image_w=W)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         RCNNTrainer(cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="batch_sync"):
+    with pytest.raises(ValueError, match="batch_sync"):
         RCNNTrainer(cfg, backbone_norm="batch_sync", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -9,10 +9,11 @@ per bucket exists on the card only; ``chip_smoke.py`` holds the replays
 against the eager forward there). The server's own results are compared
 exactly: a frame's outputs do not depend on the other frames of its batch.
 
-No CPU counterpart: ``test_sustained_throughput_vs_direct_loop`` (a timing
-on the CPU says nothing of the card: ``chip_smoke.py`` prints the server's
-``sustained_fps``, ``compute_fps_probe()`` and ``latency_stats()`` there)
-and the mesh tests (the port serves on one card; ``mesh`` is refused).
+No CPU counterpart here: ``test_sustained_throughput_vs_direct_loop`` (a
+timing on the CPU says nothing of the card: ``chip_smoke.py`` prints the
+server's ``sustained_fps``, ``compute_fps_probe()`` and ``latency_stats()``
+there); the mesh server is held against the one-device server and JAX's
+mesh server in tests/test_torch_port_parallel.py.
 """
 
 import dataclasses
@@ -306,9 +307,23 @@ def test_bucket_validation():
 
 
 def test_mesh_is_refused():
-    """One card: any mesh raises, as does an artifact server with one."""
-    with pytest.raises(NotImplementedError, match="one card"):
-        _server(mesh=object())
+    """What a server's mesh refuses: an object that is not a
+    ``parallel.DataMesh``, a device beside the mesh's, a bucket that does
+    not divide over it, and an artifact server with any mesh, as the JAX
+    package's export refuses one (tests/test_torch_port_parallel.py serves
+    through a mesh)."""
+    from handnet_tpu_torch.parallel import create_mesh
+
+    def meshed(mesh, **kw):
+        return PipelineServer(CFG, frame_hw=HW, dtype=torch.float32, batch_size=4, mesh=mesh,
+                              **kw)
+
+    with pytest.raises(TypeError, match="DataMesh"):
+        meshed(object())
+    with pytest.raises(ValueError, match="device=None"):
+        meshed(create_mesh(2, device="cpu"), device="cpu")
+    with pytest.raises(ValueError, match="divide over mesh size 2"):
+        meshed(create_mesh(2, device="cpu"), batch_buckets=(1, 4))
     with pytest.raises(ValueError, match="single-device"):
         PipelineServer.from_artifact("unused", mesh=object())
 

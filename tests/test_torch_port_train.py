@@ -578,15 +578,16 @@ def test_params_npz_loads_into_the_jax_package(tmp_path, jax_steps):
 
 
 def test_trainer_refusals_and_forced_options(monkeypatch):
-    """``mesh`` and the ``"batch_sync"`` backbone raise
-    ``NotImplementedError`` (the ``"group"`` backbone is built:
-    tests/test_torch_port_fcos_apps.py trains it against JAX's), the
-    fused-tower head ``ValueError``; ``quant`` and ``gn_fast_variance`` are
-    forced off; with no device and no card it raises instead of training on
-    the CPU."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A ``mesh`` that is not a ``parallel.DataMesh`` raises ``TypeError``
+    and the ``"batch_sync"`` backbone without a mesh ``ValueError``
+    (tests/test_torch_port_parallel.py trains both under a mesh; the
+    ``"group"`` backbone is built: tests/test_torch_port_fcos_apps.py trains
+    it against JAX's), the fused-tower head ``ValueError``; ``quant`` and
+    ``gn_fast_variance`` are forced off; with no device and no card it
+    raises instead of training on the CPU."""
+    with pytest.raises(TypeError, match="DataMesh"):
         FCOSTrainer(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="batch_sync"):
+    with pytest.raises(ValueError, match="batch_sync"):
         FCOSTrainer(backbone_norm="batch_sync", device="cpu")
     assert FCOSTrainer(backbone_norm="group", device="cpu").backbone_norm == "group"
     with pytest.raises(ValueError, match="unknown norm"):
@@ -627,7 +628,8 @@ def test_frozen_backbone_step_keeps_statistics_and_trains_affine():
 def test_fcos_system_keeps_anchor_sizes_and_loss_entry():
     """``FCOSSystem`` keeps the anchor sizes the matcher needs (a
     non-persistent buffer, out of the state dict), and ``loss`` is
-    ``fcos_loss`` of its forward."""
+    ``fcos_loss`` of its forward; a ``"batch_sync"`` backbone has the same
+    state dict keys."""
     cfg = pconfig.FCOSConfig(**SMALL)
     model = pfcos.FCOSSystem(cfg, backbone_norm="batch")
     model.init_weights_(torch.Generator().manual_seed(3))
@@ -641,5 +643,5 @@ def test_fcos_system_keeps_anchor_sizes_and_loss_entry():
         want = pfcos.fcos_loss(model(batch["image"]), batch["targets"], model.anchors,
                                model.anchor_sizes, model.level_slices, cfg)
     assert all(torch.equal(got[k], want[k]) for k in want)
-    with pytest.raises(NotImplementedError, match="batch_sync"):
-        pfcos.FCOSSystem(cfg, backbone_norm="batch_sync")
+    synced = pfcos.FCOSSystem(cfg, backbone_norm="batch_sync")
+    assert list(synced.state_dict()) == list(model.state_dict())

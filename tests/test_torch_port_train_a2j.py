@@ -23,7 +23,7 @@ from handnet_tpu_torch import config as pconfig
 from handnet_tpu_torch.convert.from_flax import (a2j_state_dict_from_flax,
                                                  a2j_variables_from_state_dict)
 from handnet_tpu_torch.models import a2j as pa2j
-from handnet_tpu_torch.nn.resnet import BatchNorm2d, FrozenBatchNorm2d
+from handnet_tpu_torch.nn.resnet import BatchNorm2d, FrozenBatchNorm2d, SyncBatchNorm2d
 from handnet_tpu_torch.train import checkpoints as pckpt
 from handnet_tpu_torch.train.trainer import A2JTrainer
 from torch_port_fixtures import assert_close, leaves_equal
@@ -281,11 +281,12 @@ def test_a2j_loss_and_gradient_match_jax(quirk):
 
 
 def test_trainer_refusals_and_forced_options(monkeypatch):
-    """``mesh`` raises ``NotImplementedError``; the 2D A2J's eval step on
+    """A ``mesh`` that is not a ``parallel.DataMesh`` raises ``TypeError``
+    (tests/test_torch_port_parallel.py trains under a mesh); the 2D A2J's eval step on
     ``[B, P, 3]`` targets raises ``ValueError``, as JAX's fails to broadcast
     its ``[B, P, 2]`` prediction against them; ``quant`` is forced off; with
     no device and no card it raises instead of training on the CPU."""
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         A2JTrainer(mesh=object(), device="cpu")
     trainer_2d = A2JTrainer(pconfig.A2JConfig(**SMALL, is_3d=False), device="cpu")
     with pytest.raises(ValueError, match="broadcast"):
@@ -301,7 +302,8 @@ def test_norm_option_keeps_the_serving_state_dict():
     """``A2J(norm="frozen")`` (serving's default) and ``norm="batch"`` have
     the same state-dict keys, the JAX converter's names; the norms are
     ``FrozenBatchNorm2d`` and ``BatchNorm2d`` in the backbone and the three
-    towers alike; ``"batch_sync"`` and ``"group"`` raise."""
+    towers alike (``"batch_sync"`` builds the synchronized subclass, with
+    the same keys); ``"group"`` raises."""
     cfg = pconfig.A2JConfig(**SMALL)
     frozen, batch = pa2j.A2JSystem(cfg), pa2j.A2JSystem(cfg, norm="batch")
     assert list(frozen.state_dict()) == list(batch.state_dict())
@@ -311,9 +313,11 @@ def test_norm_option_keeps_the_serving_state_dict():
                      "DepthRegressionModel.bn2"):
             assert type(model.get_submodule(name)) is kind, name
     assert "classificationModel.bn1.running_var" in frozen.state_dict()
-    for norm in ("batch_sync", "group"):
-        with pytest.raises(NotImplementedError, match=norm):
-            pa2j.A2J(cfg, norm=norm)
+    synced = pa2j.A2J(cfg, norm="batch_sync")
+    assert list(synced.state_dict()) == list(batch.state_dict())
+    assert type(synced.get_submodule("classificationModel.bn1")) is SyncBatchNorm2d
+    with pytest.raises(NotImplementedError, match="group"):
+        pa2j.A2J(cfg, norm="group")
 
 
 def test_a2j_variables_round_trip():
