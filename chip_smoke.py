@@ -267,6 +267,26 @@ e2e_eval (after demo_apps, on fcos_apps' tree): ``E2EDataSource`` items
    ``GraspEvaluator`` over 2 scenes of 100 candidate grasps at the 8
    distance thresholds, each timed on the host.
 
+learn (after e2e_eval): the learning gates through their ``main(argv)``
+   with ``--device cuda``, each on a synthetic tree of its own (24
+   sequences x 6 frames, 24 held out): ``synthetic_e2e_validation --batch
+   8 --fcos-steps 300 --a2j-steps 1200`` (the tools' 256x352 detector
+   input, 96^2 crops, static int8) in this process, and
+   ``rcnn_convergence --with-fcos --steps 300 --image-h 192 --image-w 256``
+   in a spawned one beside it. Each must PASS; each path's calls and
+   launches per call must be the expected ones (K2s/K2a/K2r/K2d 24 per FCOS
+   step, none per A2J or R-CNN step, K1 1 per eval step and pipeline call,
+   K3q/K3g 129 per int8 call and 194 for the calibration batch, K2s/K2a 24
+   per FCOS detect), and every launch of a run must fall in a counted
+   call. It prints each stage's loss, seconds, steps/s and loader-wait
+   share, the held-out found rate, IoU, MPJPE (float and int8), the R-CNN's
+   and the FCOS control's AP/AP50/AP75, and whether the margins held
+   (found >= 90%, IoU >= 0.6, MPJPE <= 45 mm, AP50 >= 0.6); then, on the
+   trained stages, K3 bit for bit against its plain version in the
+   calibrated pipeline, K1 against its plain decode on the trained heads
+   (N = 576) and the float32 pipeline assembled from the trained states
+   against the trainers' eval forwards (TF32 off, 1e-2 px).
+
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it; and the host's
 decoders (cv2 and the JPEG library it bundles, PIL, yaml, g++, libnvjpeg),
@@ -289,7 +309,12 @@ call, ``train_a2j_rgbd_eval`` per eval batch, ``demo`` per frame,
 ``a2j_mesh`` per sample, ``ros_node`` per eager call of its server's
 capture, ``a2j_2d_predict`` per 2D predict call, ``train_a2j_2d`` per 2D
 train step, ``eval_a2j_2d`` for one 2D eval step, ``e2e_pipeline`` per call
-on the E2E items), K2s's and K2a's ``shapes``
+on the E2E items; the gates': ``learn_train_fcos``, ``learn_train_a2j``,
+``learn_train_rcnn`` and ``learn_train_fcos_control`` per train step,
+``learn_eval_a2j`` per eval step, ``learn_pipeline`` and
+``learn_pipeline_int8`` per held-out pipeline call, ``learn_calibrate``
+per calibration batch, ``learn_detect_rcnn`` and ``learn_detect_fcos`` per
+held-out detect call), K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
 the GroupNorm backbone's. K2r's and K2d's numbers are at the P3 train
 shape with the train route's pair beside them (``pair_train_*``,
@@ -5877,6 +5902,354 @@ def phase_e2e_eval(dev, cfg_fast, trees: str) -> dict:
     return {"e2e_pipeline": per_call(launches, calls)}
 
 
+# --- the learning gates: both tools trained to a PASS on the card ---
+
+# synthetic_e2e_validation at the tools' default geometry (256x352
+# detector input, 96^2 crops) with shorter runs of batch 8: every stage is
+# bound by the host (the launching thread shares the GIL with the loader's
+# threads), not by the card, so the geometry costs nothing and the samples
+# drawn set the time; A2J's first learning-rate step is at step 1000.
+# rcnn_convergence --with-fcos as the JAX package's shortened run (300 steps
+# at 192x256), in a second process beside it (a GIL of its own)
+LEARN_E2E_ARGS = ["--batch", "8", "--fcos-steps", "300", "--a2j-steps", "1200"]
+LEARN_RCNN_ARGS = ["--with-fcos", "--steps", "300", "--image-h", "192", "--image-w", "256"]
+LEARN_RCNN_TIMEOUT_S = 900        # the R-CNN process's join, after the e2e run
+# the margins the budget is chosen to clear (the PASS bars: 0.8, 0.5, 60 mm, 0.5)
+LEARN_MARGINS = {"found_share": 0.9, "iou": 0.6, "mpjpe_mm": 45.0, "ap50": 0.6}
+LEARN_K1_TOL = 1e-4               # px: K1 against its plain decode on the same heads
+LEARN_HANDOFF_TOL = 1e-2          # px: the f32 pipeline against the trainers' eval forwards
+LEARN_K3_BATCH = 8                # held-out frames in the K3-vs-plain batch
+DETECTOR_INT8_LAUNCHES = 65       # the detector's share of the 129 K3 launches per call
+
+
+class LaunchTally:
+    """Per path, the launches of every outermost call of the methods given
+    (``{(class, method): path name, or a function of the instance giving
+    it}``) and the number of those calls: each call's counts are read just
+    before and just after it. A call made inside another counted one adds
+    to the outer one's path only. ``close`` puts the methods back."""
+
+    def __init__(self, methods: dict):
+        self.calls, self.launches, self.depth, self.saved = {}, {}, 0, []
+        for (cls, attr), path in methods.items():
+            original = cls.__dict__[attr]
+            self.saved.append((cls, attr, original))
+            setattr(cls, attr, self._counted(original, path))
+
+    def _counted(self, original, path):
+        import functools
+
+        @functools.wraps(original)
+        def counted(obj, *args, **kwargs):
+            if self.depth:
+                return original(obj, *args, **kwargs)
+            name = path(obj) if callable(path) else path
+            before = launch_counts()
+            self.depth += 1
+            try:
+                return original(obj, *args, **kwargs)
+            finally:
+                self.depth -= 1
+                after = launch_counts()
+                self.calls[name] = self.calls.get(name, 0) + 1
+                total = self.launches.setdefault(name, {k: 0 for k in after})
+                for k, v in after.items():
+                    total[k] += v - before[k]
+        return counted
+
+    def close(self) -> None:
+        for cls, attr, original in self.saved:
+            setattr(cls, attr, original)
+
+    def per_call(self) -> dict:
+        """Each path's launches per call, which must be a whole number."""
+        out = {}
+        for name, launches in self.launches.items():
+            calls = self.calls[name]
+            if any(v % calls for v in launches.values()):
+                raise AssertionError(f"learn: {name}: {launches} over {calls} calls is not "
+                                     "the same per call")
+            out[name] = per_call(launches, calls)
+        return out
+
+
+def learn_tally(prefix: str) -> LaunchTally:
+    """Counts the gates' paths: train steps by trainer, A2J's eval step,
+    pipeline calls (float or int8) and calibration, the detectors'
+    held-out calls."""
+    from handnet_tpu_torch.models.faster_rcnn import FasterRCNNFPN
+    from handnet_tpu_torch.models.fcos import FCOSSystem
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+    from handnet_tpu_torch.train.trainer import A2JTrainer, FCOSTrainer, RCNNTrainer
+
+    fcos_step = "learn_train_fcos" if prefix == "e2e" else "learn_train_fcos_control"
+    return LaunchTally({
+        (FCOSTrainer, "train_step"): fcos_step,
+        (RCNNTrainer, "train_step"): "learn_train_rcnn",
+        (A2JTrainer, "train_step"): "learn_train_a2j",
+        (A2JTrainer, "eval_step"): "learn_eval_a2j",
+        (HandNetPipeline, "forward"): lambda pipe: ("learn_pipeline_int8" if pipe.cfg.fcos.quant
+                                                    else "learn_pipeline"),
+        (HandNetPipeline, "calibrate"): "learn_calibrate",
+        (FCOSSystem, "detect"): "learn_detect_fcos",
+        (FasterRCNNFPN, "forward"): "learn_detect_rcnn",
+    })
+
+
+def learn_run(tag: str, main, argv: list, device_arg: str = "cuda") -> tuple:
+    """``main(argv + ["--device", device_arg], report)`` under a launch
+    tally. Raises unless it exits 0 (PASS) and every launch of the run
+    belongs to a counted call. Returns ``(report, launches per call by path,
+    calls by path, seconds)``."""
+    import torch
+
+    report = {}
+    reset_launch_counts()
+    tally = learn_tally(tag)
+    start = time.perf_counter()
+    try:
+        code = main(argv + ["--device", device_arg], report)
+    finally:
+        tally.close()
+    if torch.device(device_arg).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    counted = {k: sum(t[k] for t in tally.launches.values()) for k in launches}
+    if code != 0:
+        raise AssertionError(f"learn: {tag} exited {code} (FAIL)")
+    if counted != launches:
+        raise AssertionError(f"learn: {tag}: {launches} launched, {counted} inside the "
+                             "counted calls")
+    return report, tally.per_call(), dict(tally.calls), seconds
+
+
+def learn_rcnn_process(_rank: int, out_file: str, argv: list, device_arg: str) -> None:
+    """``rcnn_convergence`` through :func:`learn_run` in a process of its
+    own (spawned by :func:`phase_learn`), its output in ``out_file``.log;
+    saves each net's record and stats and the launches and calls by path."""
+    import contextlib
+
+    import torch
+
+    from handnet_tpu_torch.tools import rcnn_convergence
+
+    with open(out_file + ".log", "w") as out, contextlib.redirect_stdout(out):
+        report, per_call_rc, calls, seconds = learn_run("rcnn", rcnn_convergence.main, argv,
+                                                        device_arg)
+    torch.save({"nets": {net: {"record": e["record"], "stats": e["stats"]}
+                         for net, e in report["nets"].items()},
+                "per_call": per_call_rc, "calls": calls, "seconds": seconds}, out_file)
+
+
+def nonzero(paths: dict) -> dict:
+    """Each path's launches per call without the kernels it does not launch."""
+    return {name: {k: v for k, v in counts.items() if v} for name, counts in paths.items()}
+
+
+def learn_expected(name: str) -> dict:
+    """The launches per call of each path of the gates."""
+    zero = {k: 0 for k in counted_wrappers()}
+    gn, gn_train = {"gn_group_stats": 24, "gn_apply": 24}, dict.fromkeys(GN_TRAIN_KERNELS, 24)
+    k3 = dict.fromkeys(("int8_quantize", "int8_conv_gemm"), INT8_LAUNCHES_PER_CALL)
+    return {**zero, **{
+        "learn_train_fcos": gn_train, "learn_train_fcos_control": gn_train,
+        "learn_train_a2j": {}, "learn_train_rcnn": {}, "learn_detect_rcnn": {},
+        "learn_eval_a2j": {"a2j_decode": 1}, "learn_detect_fcos": gn,
+        "learn_pipeline": {**gn, "a2j_decode": 1},
+        "learn_pipeline_int8": {**gn, **k3, "a2j_decode": 1},
+        # one calibration batch: the detector alone, then detector and A2J
+        "learn_calibrate": {"gn_group_stats": 48, "gn_apply": 48, **dict.fromkeys(
+            ("int8_quantize", "int8_conv_gemm"), DETECTOR_INT8_LAUNCHES + INT8_LAUNCHES_PER_CALL)},
+    }[name]}
+
+
+def check_learn_paths(tool: str, per_call_run: dict, calls: dict, want_calls: dict) -> None:
+    """A tool's calls by path and launches per call against the expected."""
+    if calls != want_calls:
+        raise AssertionError(f"learn: {tool}'s calls {calls}, expected {want_calls}")
+    for name, got in per_call_run.items():
+        if got != learn_expected(name):
+            raise AssertionError(f"learn: {tool}: {name}: {got} per call, expected "
+                                 f"{learn_expected(name)}")
+
+
+def log_stage(tag: str, stats: dict, batch: int) -> None:
+    log("learn", f"{tag}: loss {stats['first_loss']:.4f} -> {stats['last_loss']:.4f} over "
+        f"{stats['steps']} steps of batch {batch}, {stats['seconds']:.1f} s, "
+        f"{stats['steps_per_s']:.2f} steps/s, {100 * stats['loader_wait_share']:.1f}% of it "
+        "waiting on the loader")
+
+
+def learn_kernel_checks(dev, report: dict) -> None:
+    """On the trained e2e stages: K1 against its plain decode on the same
+    heads (the trained A2J's on the int8 pipeline's crops of held-out
+    frames); K3 (K3q + K3g) against its plain version bit for bit in the
+    calibrated int8 pipeline on a batch of held-out frames; the float32
+    pipeline assembled from the trained models (TF32 off) against the
+    trainers' eval forwards (``gates.handoff_errors``)."""
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.config import TrainConfig
+    from handnet_tpu_torch.ops.cuda_a2j import a2j_decode, a2j_decode_reference
+    from handnet_tpu_torch.tools import gates
+    from handnet_tpu_torch.train.trainer import A2JTrainer
+
+    (fcfg, _, fstate), (acfg, _, astate) = report["fcos"], report["a2j"]
+    frames = report["frames"][:LEARN_K3_BATCH]
+    images = gates.frames_01(np.stack([f[0] for f in frames]), dev)
+    depth = torch.from_numpy(np.stack([f[1] for f in frames])).to(dev)
+    label = f"{len(frames)} held-out frames at {fcfg.image_h}x{fcfg.image_w}, crop {acfg.crop_h}"
+
+    pipe_q = report["pipeline_int8"]
+    got = pipe_q(images, depth)
+    set_int8_kernel(pipe_q, False)
+    want = pipe_q(images, depth)
+    set_int8_kernel(pipe_q, True)
+    for key, value in got.items():
+        if not torch.equal(value, want[key]):
+            raise AssertionError(f"learn: the calibrated int8 pipeline: {key} differs between "
+                                 "K3 and its plain version")
+    log("learn", f"the calibrated static-int8 pipeline on {label}: every output bit-equal with "
+        f"K3's plain version in place of K3 ({int(got['found'].sum())} found)")
+
+    model = astate.model.eval()
+    with torch.no_grad(), torch.autocast(dev.type, dtype=torch.bfloat16):
+        heads = model(got["crops"])
+    args = (heads["cls"], heads["reg"], heads["depth"], model.anchors)
+    k1 = check("K1 on the trained A2J's heads", a2j_decode(*args),
+               a2j_decode_reference(*args), LEARN_K1_TOL)
+    log("learn", f"K1 vs its plain decode on the trained A2J's bf16 heads of the int8 "
+        f"pipeline's crops of {label} (N = {heads['cls'].shape[1]}): max|err| {k1:.2e} px "
+        f"(tol {LEARN_K1_TOL:g})")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pipe32 = gates.assemble_pipeline(gates.pipeline_config(fcfg, acfg, acfg.crop_h),
+                                         fstate.model, astate.model, dtype=torch.float32,
+                                         device=dev)
+        plain_trainer = A2JTrainer(acfg, TrainConfig(bf16=False), device=dev)
+        err = gates.handoff_errors(pipe32, fstate.model, plain_trainer, astate, images, depth)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    if not (err["found"] and max(err["box"], err["joints"]) <= LEARN_HANDOFF_TOL):
+        raise AssertionError(f"learn: the assembled pipeline against the trainers' eval "
+                             f"forwards: {err}")
+    log("learn", f"handoff (f32, TF32 off): the pipeline assembled from the trained states "
+        f"against FCOSSystem.detect of the trained detector ({err['detections']} detections: "
+        f"boxes max|err| {err['box']:.2e} px, scores {err['score']:.2e}) and "
+        f"A2JTrainer.eval_step on its own crops ({err['found']} found: joints max|err| "
+        f"{err['joints']:.2e}); tol {LEARN_HANDOFF_TOL:g} px")
+
+
+def learn_e2e(dev, smi: str, device_arg: str) -> dict:
+    """``synthetic_e2e_validation`` at ``LEARN_E2E_ARGS``: PASS, its calls
+    and launches, its stages, the margins, then the kernel checks on its
+    trained stages. Returns its launches per call and held-out count."""
+    from handnet_tpu_torch.tools import synthetic_e2e_validation
+
+    e2e, per_call_e2e, calls, seconds = learn_run(
+        "e2e", synthetic_e2e_validation.main, LEARN_E2E_ARGS, device_arg)
+    args = synthetic_e2e_validation.parse_args(LEARN_E2E_ARGS)
+    n = e2e["held_out"]
+    check_learn_paths("synthetic_e2e_validation", per_call_e2e, calls, {
+        "learn_train_fcos": args.fcos_steps, "learn_train_a2j": args.a2j_steps,
+        "learn_eval_a2j": n, "learn_calibrate": 1, "learn_pipeline": n,
+        "learn_pipeline_int8": n})
+    log_stage("synthetic_e2e_validation stage 1 (FCOS, K2s/K2a/K2r/K2d 24 per step)",
+              e2e["stats"]["fcos"], args.batch)
+    log_stage("synthetic_e2e_validation stage 2 (A2J, no launch of ours per step)",
+              e2e["stats"]["a2j"], args.batch)
+    margins = {"found": e2e["found"] >= LEARN_MARGINS["found_share"] * n,
+               "iou": e2e["iou"] >= LEARN_MARGINS["iou"],
+               "mpjpe": e2e["mpjpe_mm"] <= LEARN_MARGINS["mpjpe_mm"],
+               "found_int8": e2e["found_int8"] >= LEARN_MARGINS["found_share"] * n,
+               "mpjpe_int8": e2e["mpjpe_int8_mm"] <= LEARN_MARGINS["mpjpe_mm"]}
+    log("learn", f"synthetic_e2e_validation ({' '.join(LEARN_E2E_ARGS)}): VALIDATION: PASS in "
+        f"{seconds:.1f} s; held out {n}: found {e2e['found']}/{n}, IoU {e2e['iou']:.4f}, "
+        f"MPJPE {e2e['mpjpe_mm']:.2f} mm; static int8 found {e2e['found_int8']}/{n}, MPJPE "
+        f"{e2e['mpjpe_int8_mm']:.2f} mm; A2J alone on its seg crops "
+        f"{e2e['a2j_only']['mpjpe_mm']:.2f} mm (depth |err| "
+        f"{e2e['a2j_only']['depth_err_mm']:.2f} mm); margins (found >= 90%, IoU >= 0.6, "
+        f"MPJPE <= 45 mm) " + ("held" if all(margins.values()) else
+                                f"NOT held: {[k for k, v in margins.items() if not v]}")
+        + f"; launches per call {nonzero(per_call_e2e)}; {smi}")
+    learn_kernel_checks(dev, e2e)
+    return {"paths": per_call_e2e, "held_out": n}
+
+
+def phase_learn(dev, smi: str, device_arg: str = "cuda") -> dict:
+    """Both learning gates through ``main(argv)`` with ``--device cuda``,
+    each on a synthetic tree of its own: ``rcnn_convergence`` at
+    ``LEARN_RCNN_ARGS`` (with the FCOS control) in a spawned process,
+    beside ``synthetic_e2e_validation`` at ``LEARN_E2E_ARGS`` (static int8)
+    in this one. Each must PASS; each path's calls and launches per call
+    must be the expected ones, and every launch of a run must fall in a
+    counted call. Prints each stage's loss, seconds, steps/s and loader-wait
+    share, the held-out numbers, whether the margins held, the kernel
+    checks on the trained e2e stages and the R-CNN process's output.
+    Returns the launches per call by path."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from handnet_tpu_torch.tools import gates, rcnn_convergence
+
+    with tempfile.TemporaryDirectory() as work:
+        out_file = os.path.join(work, "rcnn.pt")
+        start = time.perf_counter()
+        ctx = mp.start_processes(learn_rcnn_process,
+                                 args=(out_file, LEARN_RCNN_ARGS, device_arg), nprocs=1,
+                                 join=False, start_method="spawn")
+        try:
+            e2e = learn_e2e(dev, smi, device_arg)
+            deadline = time.monotonic() + LEARN_RCNN_TIMEOUT_S
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise AssertionError("learn: the rcnn_convergence process did not finish "
+                                         "in time")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        both = time.perf_counter() - start
+        with open(out_file + ".log") as out:
+            print(out.read(), end="", flush=True)
+        rc = torch.load(out_file, weights_only=False)
+    free_device_memory(dev)
+
+    n = e2e["held_out"]
+    rargs = rcnn_convergence.parse_args(LEARN_RCNN_ARGS)
+    check_learn_paths("rcnn_convergence", rc["per_call"], rc["calls"], {
+        "learn_train_rcnn": rargs.steps, "learn_train_fcos_control": rargs.steps,
+        "learn_detect_rcnn": n, "learn_detect_fcos": n})
+    for net in ("rcnn", "fcos"):
+        entry = rc["nets"][net]
+        log_stage(f"rcnn_convergence {net}", entry["stats"], rargs.batch)
+        rec = entry["record"]
+        if not all(np.isfinite(v) for k, v in rec.items() if k != "net"):
+            raise AssertionError(f"learn: {net}: {rec}")
+        log("learn", f"rcnn_convergence {net} on {n} held-out frames: found rate "
+            f"{rec['found_rate']:.4f}, mean IoU {rec['mean_iou']:.4f}, AP {rec['AP']:.4f}, "
+            f"AP50 {rec['AP50']:.4f}, AP75 {rec['AP75']:.4f}, final loss {rec['final_loss']:.4f}")
+    rcnn = rc["nets"]["rcnn"]["record"]
+    held = (rcnn["found_rate"] >= LEARN_MARGINS["found_share"]
+            and rcnn["AP50"] >= LEARN_MARGINS["ap50"])
+    log("learn", f"rcnn_convergence ({' '.join(LEARN_RCNN_ARGS)}): RCNN CONVERGENCE: PASS in "
+        f"{rc['seconds']:.1f} s in its own process, beside synthetic_e2e_validation (both "
+        f"{both:.1f} s with the spawn); margins (found >= 0.9, AP50 >= 0.6) "
+        f"{'held' if held else 'NOT held'}; launches per call {nonzero(rc['per_call'])}; "
+        f"score threshold {gates.SCORE_THRESH}; {smi}")
+    return {**e2e["paths"], **rc["per_call"]}
+
+
 def host_decoders() -> str:
     """What the host could decode images with: the versions of ``cv2``, PIL
     and ``yaml`` (or ``absent``), whether ``g++`` is on the PATH, and the
@@ -6040,6 +6413,12 @@ def main() -> int:
         # E2E samples, the pipeline and COCO, deprojection, offset field, BOP, grasps
         by_path.update(phase_e2e_eval(dev, cfg, trees))
         lap("e2e_eval")
+    # the learning gates, each on a synthetic tree of its own: both stages
+    # trained to a PASS, the pipeline assembled from them, float and int8;
+    # the Faster R-CNN beside its FCOS control
+    by_path.update(phase_learn(dev, smi))
+    free_device_memory(dev)
+    lap("learn")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

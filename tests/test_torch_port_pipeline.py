@@ -324,6 +324,9 @@ with tempfile.TemporaryDirectory() as d:
     ddp_state, metrics = ddp.train_step(ddp.init_state(0), {"image": image, "targets": targets})
     assert ddp_state.wrapped is not None and bool(torch.isfinite(metrics["total_loss"]))
     torch.distributed.destroy_process_group()
+from handnet_tpu_torch.tools import gates, rcnn_convergence, synthetic_e2e_validation
+assert callable(synthetic_e2e_validation.main) and callable(rcnn_convergence.main)
+assert gates.split_indices(10) == ([0, 1, 2, 3, 5, 6, 7, 8], [4, 9])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu",
                                        "cv2", "yaml", "PIL", "msgpack", "matplotlib", "rclpy"))
@@ -351,7 +354,9 @@ def test_port_imports_no_jax():
     utilities, runs one frame of ``demo.main``, draws a line and writes and
     reads back a ``statepack`` file, shards a batch with
     ``handnet_tpu_torch.parallel`` and takes one data-parallel
-    ``FCOSTrainer`` step in a one-rank gloo world, and has loaded neither jax, optax,
+    ``FCOSTrainer`` step in a one-rank gloo world, imports both learning
+    gates (``tools/synthetic_e2e_validation`` and ``tools/rcnn_convergence``)
+    with their ``gates``, and has loaded neither jax, optax,
     orbax, the JAX package, ``cv2``, ``yaml``, PIL, ``msgpack``,
     matplotlib nor ``rclpy`` (a subprocess: tests/conftest.py imports jax
     into this one). One intra-op thread, as the other port tests: alone it
