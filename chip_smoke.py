@@ -285,7 +285,31 @@ learn (after e2e_eval): the learning gates through their ``main(argv)``
    trained stages, K3 bit for bit against its plain version in the
    calibrated pipeline, K1 against its plain decode on the trained heads
    (N = 576) and the float32 pipeline assembled from the trained states
-   against the trainers' eval forwards (TF32 off, 1e-2 px).
+   against the trainers' eval forwards (TF32 off, 1e-2 px). The e2e run
+   writes its trained stages to ``build/studies/learn_states.msgpack``
+   (``--save-state``) for studies.
+
+studies (after learn): the two study tools through their ``main(argv)``
+   with ``--device cuda``. ``resolution_study --resolutions 512x640
+   800x1088 480x640@qs --steps 300 --batch 8`` trains the full-width
+   detector (ResNet-34 + FPN-256, GroupNorm(32) towers) at fast's, parity's
+   and quant_static's detector inputs and evaluates each on the 24 held-out
+   frames (the last through static int8, calibrated on 16 training frames
+   with no margin); it is host-bound as learn's stages are, so it starts in
+   a spawned process when learn starts and runs beside it, and this phase
+   joins it. ``int8_saturation_study --state <learn's pack>`` runs the
+   float and static-int8 pipelines (256x352, 96^2 crops) on the held-out
+   frames at gains 1.0, 1.3, 1.6 and 2.0 (not clipped) and margins 0, 0.1
+   and 0.25. Each path's calls and launches per call must be the expected
+   ones (``study_*``: K2s/K2a/K2r/K2d 24 per FCOS train step, K2s/K2a 24
+   per float detect, and K3q/K3g 65 more per int8 detect and per detector
+   calibration, the pipeline's 24 + K1 1 (+ K3q/K3g 129 in int8) per call
+   and 48 + 194 per calibration), and every launch must fall in a counted
+   call. On 8 held-out frames at gain 2.0, the margin-0 static-int8
+   pipeline and the trained ``@qs`` detector must give every output bit
+   for bit with K3's plain version in place of K3. It prints each spec's
+   record, steps/s and loader-wait share, the saturation rows, the paired
+   margins and the table, which gate nothing.
 
 The ``[card]`` line also gives scipy's version: the mesh head's graph
 pyramid is built with it, and the script fails without it; and the host's
@@ -314,7 +338,11 @@ on the E2E items; the gates': ``learn_train_fcos``, ``learn_train_a2j``,
 ``learn_eval_a2j`` per eval step, ``learn_pipeline`` and
 ``learn_pipeline_int8`` per held-out pipeline call, ``learn_calibrate``
 per calibration batch, ``learn_detect_rcnn`` and ``learn_detect_fcos`` per
-held-out detect call), K2s's and K2a's ``shapes``
+held-out detect call; the studies': ``study_train_fcos`` per train step,
+``study_detect`` and ``study_detect_int8`` per held-out detect call,
+``study_calibrate_detector`` per detector calibration,
+``study_pipeline`` and ``study_pipeline_int8`` per pipeline call and
+``study_calibrate`` per pipeline calibration), K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
 the GroupNorm backbone's. K2r's and K2d's numbers are at the P3 train
 shape with the train route's pair beside them (``pair_train_*``,
@@ -1251,6 +1279,23 @@ def set_int8_kernel(pipe, on: bool) -> None:
     for m in pipe.modules():
         if isinstance(m, QuantConv):
             m.use_kernel = on
+
+
+def k3_bit_equal(name: str, model, run) -> dict:
+    """``run()`` with K3 and with K3's plain version in every ``QuantConv``
+    of ``model``: every output must be equal bit for bit. Returns K3's."""
+    import torch
+
+    got = run()
+    set_int8_kernel(model, False)
+    try:
+        want = run()
+    finally:
+        set_int8_kernel(model, True)
+    for key, value in got.items():
+        if not torch.equal(value, want[key]):
+            raise AssertionError(f"{name}: {key} differs between K3 and its plain version")
+    return got
 
 
 def calibrated_pipeline(dev, cfg, dtype):
@@ -5967,8 +6012,8 @@ class LaunchTally:
         for name, launches in self.launches.items():
             calls = self.calls[name]
             if any(v % calls for v in launches.values()):
-                raise AssertionError(f"learn: {name}: {launches} over {calls} calls is not "
-                                     "the same per call")
+                raise AssertionError(f"{name}: {launches} over {calls} calls is not the "
+                                     "same per call")
             out[name] = per_call(launches, calls)
         return out
 
@@ -5996,16 +6041,18 @@ def learn_tally(prefix: str) -> LaunchTally:
     })
 
 
-def learn_run(tag: str, main, argv: list, device_arg: str = "cuda") -> tuple:
+def learn_run(tag: str, main, argv: list, device_arg: str = "cuda",
+              tally_for=None) -> tuple:
     """``main(argv + ["--device", device_arg], report)`` under a launch
-    tally. Raises unless it exits 0 (PASS) and every launch of the run
-    belongs to a counted call. Returns ``(report, launches per call by path,
-    calls by path, seconds)``."""
+    tally (``tally_for(tag)``, :func:`learn_tally` by default). Raises
+    unless it exits 0 (PASS) and every launch of the run belongs to a
+    counted call. Returns ``(report, launches per call by path, calls by
+    path, seconds)``."""
     import torch
 
     report = {}
     reset_launch_counts()
-    tally = learn_tally(tag)
+    tally = (tally_for or learn_tally)(tag)
     start = time.perf_counter()
     try:
         code = main(argv + ["--device", device_arg], report)
@@ -6017,9 +6064,9 @@ def learn_run(tag: str, main, argv: list, device_arg: str = "cuda") -> tuple:
     launches = launch_counts()
     counted = {k: sum(t[k] for t in tally.launches.values()) for k in launches}
     if code != 0:
-        raise AssertionError(f"learn: {tag} exited {code} (FAIL)")
+        raise AssertionError(f"{tag} exited {code} (FAIL)")
     if counted != launches:
-        raise AssertionError(f"learn: {tag}: {launches} launched, {counted} inside the "
+        raise AssertionError(f"{tag}: {launches} launched, {counted} inside the "
                              "counted calls")
     return report, tally.per_call(), dict(tally.calls), seconds
 
@@ -6048,34 +6095,44 @@ def nonzero(paths: dict) -> dict:
 
 
 def learn_expected(name: str) -> dict:
-    """The launches per call of each path of the gates."""
+    """The launches per call of each path of the gates and the studies."""
     zero = {k: 0 for k in counted_wrappers()}
     gn, gn_train = {"gn_group_stats": 24, "gn_apply": 24}, dict.fromkeys(GN_TRAIN_KERNELS, 24)
-    k3 = dict.fromkeys(("int8_quantize", "int8_conv_gemm"), INT8_LAUNCHES_PER_CALL)
+
+    def k3(n: int) -> dict:
+        return dict.fromkeys(("int8_quantize", "int8_conv_gemm"), n)
+
+    pipeline = {**gn, "a2j_decode": 1}
+    pipeline_int8 = {**pipeline, **k3(INT8_LAUNCHES_PER_CALL)}
+    # one calibration batch: the detector alone, then detector and A2J
+    calibrate = {"gn_group_stats": 48, "gn_apply": 48,
+                 **k3(DETECTOR_INT8_LAUNCHES + INT8_LAUNCHES_PER_CALL)}
+    # an int8 detect, or the detector alone calibrating (its dynamic path)
+    detect_int8 = {**gn, **k3(DETECTOR_INT8_LAUNCHES)}
     return {**zero, **{
         "learn_train_fcos": gn_train, "learn_train_fcos_control": gn_train,
         "learn_train_a2j": {}, "learn_train_rcnn": {}, "learn_detect_rcnn": {},
         "learn_eval_a2j": {"a2j_decode": 1}, "learn_detect_fcos": gn,
-        "learn_pipeline": {**gn, "a2j_decode": 1},
-        "learn_pipeline_int8": {**gn, **k3, "a2j_decode": 1},
-        # one calibration batch: the detector alone, then detector and A2J
-        "learn_calibrate": {"gn_group_stats": 48, "gn_apply": 48, **dict.fromkeys(
-            ("int8_quantize", "int8_conv_gemm"), DETECTOR_INT8_LAUNCHES + INT8_LAUNCHES_PER_CALL)},
+        "learn_pipeline": pipeline, "learn_pipeline_int8": pipeline_int8,
+        "learn_calibrate": calibrate,
+        "study_train_fcos": gn_train, "study_detect": gn, "study_detect_int8": detect_int8,
+        "study_calibrate_detector": detect_int8, "study_pipeline": pipeline,
+        "study_pipeline_int8": pipeline_int8, "study_calibrate": calibrate,
     }[name]}
 
 
 def check_learn_paths(tool: str, per_call_run: dict, calls: dict, want_calls: dict) -> None:
     """A tool's calls by path and launches per call against the expected."""
     if calls != want_calls:
-        raise AssertionError(f"learn: {tool}'s calls {calls}, expected {want_calls}")
+        raise AssertionError(f"{tool}'s calls {calls}, expected {want_calls}")
     for name, got in per_call_run.items():
         if got != learn_expected(name):
-            raise AssertionError(f"learn: {tool}: {name}: {got} per call, expected "
+            raise AssertionError(f"{tool}: {name}: {got} per call, expected "
                                  f"{learn_expected(name)}")
 
 
-def log_stage(tag: str, stats: dict, batch: int) -> None:
-    log("learn", f"{tag}: loss {stats['first_loss']:.4f} -> {stats['last_loss']:.4f} over "
+def log_stage(tag: str, stats: dict, batch: int, phase: str = "learn") -> None:
+    log(phase, f"{tag}: loss {stats['first_loss']:.4f} -> {stats['last_loss']:.4f} over "
         f"{stats['steps']} steps of batch {batch}, {stats['seconds']:.1f} s, "
         f"{stats['steps_per_s']:.2f} steps/s, {100 * stats['loader_wait_share']:.1f}% of it "
         "waiting on the loader")
@@ -6103,14 +6160,8 @@ def learn_kernel_checks(dev, report: dict) -> None:
     label = f"{len(frames)} held-out frames at {fcfg.image_h}x{fcfg.image_w}, crop {acfg.crop_h}"
 
     pipe_q = report["pipeline_int8"]
-    got = pipe_q(images, depth)
-    set_int8_kernel(pipe_q, False)
-    want = pipe_q(images, depth)
-    set_int8_kernel(pipe_q, True)
-    for key, value in got.items():
-        if not torch.equal(value, want[key]):
-            raise AssertionError(f"learn: the calibrated int8 pipeline: {key} differs between "
-                                 "K3 and its plain version")
+    got = k3_bit_equal("learn: the calibrated int8 pipeline", pipe_q,
+                       lambda: pipe_q(images, depth))
     log("learn", f"the calibrated static-int8 pipeline on {label}: every output bit-equal with "
         f"K3's plain version in place of K3 ({int(got['found'].sum())} found)")
 
@@ -6148,11 +6199,16 @@ def learn_kernel_checks(dev, report: dict) -> None:
 def learn_e2e(dev, smi: str, device_arg: str) -> dict:
     """``synthetic_e2e_validation`` at ``LEARN_E2E_ARGS``: PASS, its calls
     and launches, its stages, the margins, then the kernel checks on its
-    trained stages. Returns its launches per call and held-out count."""
+    trained stages. Returns its launches per call and held-out count. Its
+    trained stages stay in ``STUDY_PACK`` for the saturation study."""
+    import os
+
     from handnet_tpu_torch.tools import synthetic_e2e_validation
 
+    os.makedirs(os.path.dirname(STUDY_PACK), exist_ok=True)
     e2e, per_call_e2e, calls, seconds = learn_run(
-        "e2e", synthetic_e2e_validation.main, LEARN_E2E_ARGS, device_arg)
+        "e2e", synthetic_e2e_validation.main, LEARN_E2E_ARGS + ["--save-state", STUDY_PACK],
+        device_arg)
     args = synthetic_e2e_validation.parse_args(LEARN_E2E_ARGS)
     n = e2e["held_out"]
     check_learn_paths("synthetic_e2e_validation", per_call_e2e, calls, {
@@ -6248,6 +6304,195 @@ def phase_learn(dev, smi: str, device_arg: str = "cuda") -> dict:
         f"{'held' if held else 'NOT held'}; launches per call {nonzero(rc['per_call'])}; "
         f"score threshold {gates.SCORE_THRESH}; {smi}")
     return {**e2e["paths"], **rc["per_call"]}
+
+
+# --- the studies: the detector at the serving geometries, static int8 overexposed ---
+
+# resolution_study at full width, 300 steps of batch 8 per spec: fast's and
+# parity's detector inputs and quant_static's point. Its steps are bound by
+# the host, as learn's are, so it trains in a process of its own (a GIL of
+# its own) started beside learn; run after learn, the script would overrun
+# its time limit
+STUDY_RES_ARGS = ["--resolutions", "512x640", "800x1088", "480x640@qs", "--steps", "300",
+                  "--batch", "8"]
+STUDY_RES_TIMEOUT_S = 600         # the resolution process's join, after the saturation study
+STUDY_PACK = "build/studies/learn_states.msgpack"   # learn's trained stages
+STUDY_HOT_GAIN = 2.0              # the saturating frames of the K3 checks
+STUDY_K3_BATCH = 8
+
+
+def study_tally(_tag: str) -> LaunchTally:
+    """Counts the studies' paths: FCOS train steps, held-out detects (float
+    or int8), the detector's calibration, pipeline calls (float or int8)
+    and pipeline calibration."""
+    from handnet_tpu_torch.models.fcos import FCOSSystem
+    from handnet_tpu_torch.models.pipeline import HandNetPipeline
+    from handnet_tpu_torch.tools import resolution_study
+    from handnet_tpu_torch.train.trainer import FCOSTrainer
+
+    return LaunchTally({
+        (FCOSTrainer, "train_step"): "study_train_fcos",
+        (FCOSSystem, "detect"): lambda m: "study_detect_int8" if m.cfg.quant else "study_detect",
+        (resolution_study, "calibrate_detector"): "study_calibrate_detector",
+        (HandNetPipeline, "forward"): lambda pipe: ("study_pipeline_int8" if pipe.cfg.fcos.quant
+                                                    else "study_pipeline"),
+        (HandNetPipeline, "calibrate"): "study_calibrate",
+    })
+
+
+def study_resolution_process(_rank: int, out_file: str, argv: list, device_arg: str) -> None:
+    """``resolution_study`` through :func:`learn_run` in a process of its
+    own, its output in ``out_file``.log; saves the records, each spec's
+    training stats, the held-out count, the launches and calls by path and
+    the calibrated static-int8 (``@qs``) detector's config and state."""
+    import contextlib
+
+    import torch
+
+    from handnet_tpu_torch.tools import resolution_study
+
+    with open(out_file + ".log", "w") as out, contextlib.redirect_stdout(out):
+        report, per_call_rs, calls, seconds = learn_run(
+            "resolution_study", resolution_study.main, argv, device_arg, study_tally)
+    specs = resolution_study.parse_args(argv).resolutions
+    qs = next(report[spec]["system"] for spec in specs
+              if resolution_study.parse_spec(spec)[3] == "static")
+    torch.save({"study": report["study"], "held_out": report["held_out"],
+                "stats": {spec: report[spec]["stats"] for spec in specs},
+                "qs_cfg": qs.cfg, "qs_state": {k: v.cpu() for k, v in qs.state_dict().items()},
+                "per_call": per_call_rs, "calls": calls, "seconds": seconds}, out_file)
+
+
+def start_resolution_study(work: str, device_arg: str = "cuda") -> tuple:
+    """Spawns :func:`study_resolution_process` at ``STUDY_RES_ARGS``;
+    returns ``(context, result file, start time)``."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    out_file = os.path.join(work, "resolution.pt")
+    ctx = mp.start_processes(study_resolution_process,
+                             args=(out_file, STUDY_RES_ARGS, device_arg), nprocs=1,
+                             join=False, start_method="spawn")
+    return ctx, out_file, time.perf_counter()
+
+
+def stop_processes(ctx) -> None:
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+
+
+def studies_saturation(dev, smi: str, device_arg: str) -> tuple:
+    """``int8_saturation_study`` on learn's pack: its calls and launches,
+    the rows, then K3 against its plain version in the margin-0 int8
+    pipeline on 8 held-out frames at ``STUDY_HOT_GAIN``. Returns its
+    launches per call by path and those frames (colours, depth, intrinsics)."""
+    import numpy as np
+    import torch
+
+    from handnet_tpu_torch.tools import int8_saturation_study as sat
+
+    argv = ["--state", STUDY_PACK]
+    report, per_call_sat, calls, seconds = learn_run(
+        "int8_saturation_study", sat.main, argv, device_arg, study_tally)
+    args = sat.parse_args(argv)
+    gains, margins = (len(v.split(",")) for v in (args.gains, args.margins))
+    check_learn_paths("int8_saturation_study", per_call_sat, calls, {
+        "study_pipeline": gains, "study_pipeline_int8": gains * margins,
+        "study_calibrate": 1 + gains})
+    for r in report["rows"]:
+        log("studies", f"saturation gain {r['gain']}, margin {r['margin']}: overflow factor "
+            f"{r['overflow_factor']}, found fp {r['fp_found']} / int8 {r['int8_found']}, "
+            f"MPJPE fp {r['fp_mpjpe_mm']} / int8 {r['int8_mpjpe_mm']} mm, delta "
+            f"{r['delta_mpjpe_mm']:+} mm")
+    for r in report["paired"]:
+        log("studies", f"saturation paired at gain {r['gain']}: {r['paired']}: "
+            f"{r['n_frames']} frames, delta {r['delta_mpjpe_mean_mm']} mm, sem "
+            f"{r['delta_mpjpe_sem_mm']} mm")
+    for g, layer in report["overflow_layer"].items():
+        log("studies", f"saturation gain {g}: the overflow factor's layer {layer}")
+    colors, depths, paras, _ = report["frames"]
+    log("studies", f"int8_saturation_study ({' '.join(argv)}) in {seconds:.1f} s: "
+        f"{len(colors)} held-out frames, {gains} gains x {margins} margins; launches per call "
+        f"{nonzero(per_call_sat)}; {smi}")
+
+    pipe_q = report["pipeline_int8"]
+    sat.restore_amaxes(pipe_q, report["raw"])
+    hot = tuple(torch.from_numpy(np.ascontiguousarray(a[:STUDY_K3_BATCH])).to(dev)
+                for a in (colors * STUDY_HOT_GAIN, depths, paras))
+    found = int(k3_bit_equal("studies: the margin-0 static-int8 pipeline", pipe_q,
+                             lambda: pipe_q(*hot))["found"].sum())
+    log("studies", f"the margin-0 static-int8 pipeline (bf16) on {STUDY_K3_BATCH} held-out "
+        f"frames at gain {STUDY_HOT_GAIN}: every output bit-equal with K3's plain version in "
+        f"place of K3 ({found} found)")
+    return per_call_sat, hot
+
+
+def studies_resolution(dev, smi: str, resolution: tuple, hot: tuple) -> dict:
+    """Joins the resolution process: its output, its calls and launches,
+    each spec's record and stats; then K3 against its plain version in the
+    calibrated ``@qs`` detector on the saturating frames ``hot``. Returns
+    its launches per call by path."""
+    import torch
+
+    from handnet_tpu_torch.nn.quant import assert_calibrated
+    from handnet_tpu_torch.tools import resolution_study
+
+    ctx, out_file, start = resolution
+    deadline = time.monotonic() + STUDY_RES_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            raise AssertionError("studies: the resolution_study process did not finish in time")
+    with open(out_file + ".log") as out:
+        print(out.read(), end="", flush=True)
+    res = torch.load(out_file, weights_only=False)
+    args = resolution_study.parse_args(STUDY_RES_ARGS)
+    n = res["held_out"]
+    quant = [resolution_study.parse_spec(spec)[3] for spec in args.resolutions]
+    check_learn_paths("resolution_study", res["per_call"], res["calls"], {
+        "study_train_fcos": args.steps * len(quant),
+        "study_detect": n * sum(not q for q in quant), "study_detect_int8": n * sum(map(bool, quant)),
+        "study_calibrate_detector": quant.count("static")})
+    for spec, rec in zip(args.resolutions, res["study"]):
+        stats = res["stats"][spec]
+        log_stage(f"resolution_study {rec['resolution']}", stats, args.batch, "studies")
+        log("studies", f"resolution_study {rec['resolution']} on {n} held-out frames: found rate "
+            f"{rec['found_rate']:.4f}, mean IoU {rec['mean_iou']:.4f}, AP {rec['AP']:.4f}, AP50 "
+            f"{rec['AP50']:.4f}, AP75 {rec['AP75']:.4f}, final loss {rec['final_loss']:.4f}; "
+            f"{smi}")
+    log("studies", f"resolution_study ({' '.join(STUDY_RES_ARGS)}) in {res['seconds']:.1f} s in "
+        f"its own process ({time.perf_counter() - start:.1f} s since its spawn, beside learn); "
+        f"launches per call {nonzero(res['per_call'])}")
+
+    system = resolution_study.eval_system(res["qs_cfg"], res["qs_state"], "static",
+                                          res["qs_cfg"].score_thresh, dev)
+    assert_calibrated(system)
+    with torch.inference_mode():
+        k3_bit_equal("studies: the trained static-int8 detector", system,
+                     lambda: system.detect(hot[0]))
+    cfg = res["qs_cfg"]
+    log("studies", f"the trained, calibrated {cfg.image_h}x{cfg.image_w}@qs detector (f32) on "
+        f"the same {len(hot[0])} frames at gain {STUDY_HOT_GAIN}: every detection bit-equal "
+        "with K3's plain version in place of K3")
+    return res["per_call"]
+
+
+def phase_studies(dev, smi: str, resolution: tuple, device_arg: str = "cuda") -> dict:
+    """The saturation study on learn's pack, then the resolution study's
+    process joined (``resolution`` from :func:`start_resolution_study`);
+    both K3 checks on the saturating frames. Returns the launches per call
+    by path; removes the pack."""
+    import os
+
+    try:
+        per_call_sat, hot = studies_saturation(dev, smi, device_arg)
+        per_call_res = studies_resolution(dev, smi, resolution, hot)
+    finally:
+        if os.path.exists(STUDY_PACK):
+            os.remove(STUDY_PACK)
+    return {**per_call_res, **per_call_sat}
 
 
 def host_decoders() -> str:
@@ -6415,10 +6660,20 @@ def main() -> int:
         lap("e2e_eval")
     # the learning gates, each on a synthetic tree of its own: both stages
     # trained to a PASS, the pipeline assembled from them, float and int8;
-    # the Faster R-CNN beside its FCOS control
-    by_path.update(phase_learn(dev, smi))
+    # the Faster R-CNN beside its FCOS control; and the resolution study's
+    # process beside them. Then the studies: the saturation study on the
+    # gate's trained stages, the resolution study joined
+    with tempfile.TemporaryDirectory() as work:
+        resolution = start_resolution_study(work)
+        try:
+            by_path.update(phase_learn(dev, smi))
+            free_device_memory(dev)
+            lap("learn")
+            by_path.update(phase_studies(dev, smi, resolution))
+        finally:
+            stop_processes(resolution[0])
     free_device_memory(dev)
-    lap("learn")
+    lap("studies")
     phase_idle_shares(dev, cfg)
     lap("throughput")
 

@@ -234,13 +234,15 @@ def pipeline_config(fcfg, acfg, crop: int, quant=False) -> HandNetConfig:
 def assemble_pipeline(cfg: HandNetConfig, fmodel, amodel, dtype=torch.bfloat16,
                       device=None) -> HandNetPipeline:
     """A ``HandNetPipeline`` holding the trained detector (``fmodel``, an
-    ``FCOSSystem``) and A2J (``amodel``). Their batch norms' weights and
-    running statistics load into the pipeline's frozen norms under the same
-    names; a static int8 pipeline's activation scales stay to be calibrated.
-    Any other key that does not match raises ``KeyError``."""
+    ``FCOSSystem`` or its state dict) and A2J (``amodel``, likewise). Their
+    batch norms' weights and running statistics load into the pipeline's
+    frozen norms under the same names; a static int8 pipeline's activation
+    scales stay to be calibrated. Any other key that does not match raises
+    ``KeyError``."""
     pipe = HandNetPipeline(cfg, dtype=dtype, device=device)
     for name, part, model in (("detector", pipe.detector, fmodel), ("a2j", pipe.a2j, amodel)):
-        missing, unexpected = part.load_state_dict(model.state_dict(), strict=False)
+        state = model if isinstance(model, dict) else model.state_dict()
+        missing, unexpected = part.load_state_dict(state, strict=False)
         missing = [k for k in missing if not k.endswith("act_amax")]
         if missing or unexpected:
             raise KeyError(f"assemble_pipeline: {name}: missing {missing[:3]}, "

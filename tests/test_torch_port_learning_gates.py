@@ -17,9 +17,7 @@ flags and defaults against the JAX tools' parsers, read from their source.
 One torch thread (module fixture); no subprocess, no JAX train step.
 """
 
-import ast
 import dataclasses
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -45,9 +43,8 @@ from handnet_tpu_torch.nn.resnet import BatchNorm2d, FrozenBatchNorm2d
 from handnet_tpu_torch.tools import gates, rcnn_convergence, synthetic_e2e_validation
 from handnet_tpu_torch.train.trainer import A2JTrainer, FCOSTrainer
 from handnet_tpu_torch.utils import statepack
-from torch_port_fixtures import leaves_equal
+from torch_port_fixtures import jax_tool_defaults, leaves_equal
 
-REPO = Path(__file__).resolve().parent.parent
 METRIC_TOL = 1e-6     # IoU and COCO numbers, port against JAX
 HANDOFF_TOL = 1e-4    # pipeline against the trainers' eval forwards, float32
 # the smoke sizes: 4 sequences x 2 frames, 2 steps each, batch 2, 128x160, 32^2
@@ -347,28 +344,12 @@ def test_tools_default_to_the_card(tool, monkeypatch):
     assert not made
 
 
-def _jax_defaults(tool: str) -> dict:
-    """The flags and defaults of a JAX tool's parser, read from its source
-    (importing it would run ``runtime.setup()``)."""
-    tree = ast.parse((REPO / "tools" / f"{tool}.py").read_text())
-    flags = {}
-    for node in ast.walk(tree):
-        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument"):
-            name = node.args[0].value.lstrip("-").replace("-", "_")
-            kw = {k.arg: k.value for k in node.keywords}
-            if "default" in kw:
-                flags[name] = ast.literal_eval(kw["default"])
-            elif kw.get("action") is not None:
-                flags[name] = False
-    return flags
-
-
 @pytest.mark.parametrize("tool", [synthetic_e2e_validation, rcnn_convergence])
 def test_tool_flags_match_jax(tool):
     """Every flag of the JAX tool, with its default; the port adds
     ``--device`` (None: the card)."""
     name = tool.__name__.rsplit(".", 1)[1]
     got = vars(tool.parse_args([]))
-    want = _jax_defaults(name)
+    want = jax_tool_defaults(name)
     assert got == {**want, "device": None}
     assert len(want) >= 8

@@ -325,7 +325,10 @@ with tempfile.TemporaryDirectory() as d:
     assert ddp_state.wrapped is not None and bool(torch.isfinite(metrics["total_loss"]))
     torch.distributed.destroy_process_group()
 from handnet_tpu_torch.tools import gates, rcnn_convergence, synthetic_e2e_validation
+from handnet_tpu_torch.tools import int8_saturation_study, resolution_study
 assert callable(synthetic_e2e_validation.main) and callable(rcnn_convergence.main)
+assert resolution_study.parse_spec("480x640@nc2@qs") == (480, 640, 2, "static")
+assert callable(int8_saturation_study.main)
 assert gates.split_indices(10) == ([0, 1, 2, 3, 5, 6, 7, 8], [4, 9])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "handnet_tpu",
@@ -356,7 +359,8 @@ def test_port_imports_no_jax():
     ``handnet_tpu_torch.parallel`` and takes one data-parallel
     ``FCOSTrainer`` step in a one-rank gloo world, imports both learning
     gates (``tools/synthetic_e2e_validation`` and ``tools/rcnn_convergence``)
-    with their ``gates``, and has loaded neither jax, optax,
+    with their ``gates`` and both studies (``tools/resolution_study``,
+    ``tools/int8_saturation_study``), and has loaded neither jax, optax,
     orbax, the JAX package, ``cv2``, ``yaml``, PIL, ``msgpack``,
     matplotlib nor ``rclpy`` (a subprocess: tests/conftest.py imports jax
     into this one). One intra-op thread, as the other port tests: alone it

@@ -9,6 +9,9 @@ tests mean the same thing on a card).
 
 from __future__ import annotations
 
+import ast
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -73,3 +76,20 @@ def fast_compile(fn, *args, jitted=None):
 
     return (jitted or jax.jit(fn)).lower(*args).compile(
         compiler_options={"xla_backend_optimization_level": "0"})
+
+
+def jax_tool_defaults(tool: str) -> dict:
+    """The flags and defaults of the JAX package's ``tools/<tool>.py``
+    parser, read from its source: importing a JAX tool runs
+    ``runtime.setup()``."""
+    source = Path(__file__).resolve().parent.parent / "tools" / f"{tool}.py"
+    flags = {}
+    for node in ast.walk(ast.parse(source.read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "add_argument":
+            name = node.args[0].value.lstrip("-").replace("-", "_")
+            kw = {k.arg: k.value for k in node.keywords}
+            if "default" in kw:
+                flags[name] = ast.literal_eval(kw["default"])
+            elif kw.get("action") is not None:
+                flags[name] = False
+    return flags
