@@ -253,6 +253,20 @@ a2j_2d (after train_a2j): the 2D A2J (``is_3d=False``) at full width
    step (``[B, P, 2]`` targets through K1xy once; ``[B, P, 3]`` targets
    refused with ``ValueError``, as JAX's eval step fails to broadcast them).
 
+a2j_group (after a2j_2d): A2J with GroupNorm(32) in all 65 norms
+   (``A2JSystem(norm="group")``) at full width. K2s and K2a at its wide
+   shapes, 11x11 with C = 1024 and 2048 (C/G 32 and 64; a float32 row of
+   2048 channels is one 512-thread block), B = 1, 8, 64 and 128, float32
+   and bf16: K2s to 1e-4 of scale, K2a bit-equal to its plain version, two
+   runs of each bit-equal, the mean >> std case; at B=128 both timed beside
+   their byte bounds, their plain versions, ``torch.var_mean`` and
+   ``F.group_norm``. Then ``predict`` at B = 64 and 128 in float32 and bf16
+   (autocast), seeded random convs and norm affines: 65 K2s + 65 K2a + 1 K1
+   per call and nothing else, two calls bit-equal, the kernel path against
+   the plain path (``use_kernels=False``) within 1e-2 px in float32 (TF32
+   off) and 1 px in bf16, and crops/s against the frozen-BN A2J at the same
+   batch and dtype. The phase prints its own lap.
+
 e2e_eval (after demo_apps, on fcos_apps' tree): ``E2EDataSource`` items
    (16 of 480x640, colour and depth decoded by the port, the mesh from a
    synthetic ``ManoLayer`` on the card: the MANO pickle is not in the
@@ -332,7 +346,8 @@ sweeps, ``a2j_infer`` per batch of the app, ``train_fcos_app`` and
 call, ``train_a2j_rgbd_eval`` per eval batch, ``demo`` per frame,
 ``a2j_mesh`` per sample, ``ros_node`` per eager call of its server's
 capture, ``a2j_2d_predict`` per 2D predict call, ``train_a2j_2d`` per 2D
-train step, ``eval_a2j_2d`` for one 2D eval step, ``e2e_pipeline`` per call
+train step, ``eval_a2j_2d`` for one 2D eval step, ``a2j_group`` per
+GroupNorm A2J predict call, ``e2e_pipeline`` per call
 on the E2E items; the gates': ``learn_train_fcos``, ``learn_train_a2j``,
 ``learn_train_rcnn`` and ``learn_train_fcos_control`` per train step,
 ``learn_eval_a2j`` per eval step, ``learn_pipeline`` and
@@ -343,8 +358,9 @@ held-out detect call; the studies': ``study_train_fcos`` per train step,
 ``study_calibrate_detector`` per detector calibration,
 ``study_pipeline`` and ``study_pipeline_int8`` per pipeline call and
 ``study_calibrate`` per pipeline calibration), K2s's and K2a's ``shapes``
-hold their numbers at the shapes of phase 5, and ``backbone_shapes`` at
-the GroupNorm backbone's. K2r's and K2d's numbers are at the P3 train
+hold their numbers at the shapes of phase 5, ``backbone_shapes`` at
+the GroupNorm backbone's, and ``a2j_group_shapes`` at A2J-GN's wide ones
+(B=128, float32 and bf16). K2r's and K2d's numbers are at the P3 train
 shape with the train route's pair beside them (``pair_train_*``,
 ``backward_*``) and the profiled step's (``step_profile``); their
 ``library_ms`` is ``aten.native_group_norm_backward`` for the same outputs
@@ -5664,6 +5680,242 @@ def phase_a2j_2d(dev) -> dict:
                       "eval_a2j_2d": eval_launches}}
 
 
+# A2J with GroupNorm(32) (A2JSystem(norm="group")): layer3's 1024-channel
+# outputs (bn3 x6 and the downsample) and layer4's 2048-channel ones (bn3 x3
+# and the downsample) at 11x11 for 176^2 crops, C/G 32 and 64
+A2J_GROUP_SHAPES = {(11, 11, 1024, 32): 7, (11, 11, 2048, 32): 4}
+A2J_GROUP_BATCHES = (1, 8, 64, 128)  # K2s/K2a at the wide shapes against plain
+A2J_GROUP_PREDICT = (64, 128)        # train_a2j's batch and the serving batch
+A2J_GROUP_NORMS = 65                 # 53 in the backbone, 12 in the towers
+A2J_GROUP_CALLS = 2                  # counted predict calls per batch and dtype
+# crops/s against the frozen-BN A2J: turns of A2J_GROUP_TURN calls, the two
+# models in alternating order over A2J_GROUP_PAIRS pairs of turns (32 calls a
+# model per batch and dtype); a model is ahead only where its slowest turn
+# beats the other's fastest
+A2J_GROUP_PAIRS = 8
+A2J_GROUP_TURN = 4
+A2J_GROUP_TOL_F32 = 1e-2             # px: kernel path == plain path, TF32 off
+# px, bf16 under autocast: K2s's statistics differ from the plain version's
+# in their last bits, so a bf16 rounding of a norm's output flips now and then
+# and the flips run through 65 norms (0.6% of the 176 px crop)
+A2J_GROUP_TOL_BF16 = 1.0
+
+
+def a2j_group_kernels(dev) -> dict:
+    """K2s and K2a at A2J-GN's wide shapes (``A2J_GROUP_SHAPES``: C/G 32 and
+    64, a float32 2048-channel row of 512 chunks) against their plain
+    versions at B = 1, 8, 64 and 128, float32 and bfloat16: K2s to 1e-4 of
+    scale with two runs bit-equal, K2a bit for bit with parameters in x's
+    type and in float32, ReLU on and off; the mean >> std case at both
+    widths; at B=128 both timed in both types beside their byte bounds,
+    their plain versions, ``torch.var_mean`` and ``F.group_norm``. Returns
+    the largest K2s error and the JSON rows by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from handnet_tpu_torch.ops.cuda_gn import (gn_apply, gn_apply_reference, gn_group_stats,
+                                               gn_group_stats_reference)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    eps = 1e-6
+    errs, applied = [], 0
+    rows = {"gn_group_stats": [], "gn_apply": []}
+    for (h, w, c, g), layers in A2J_GROUP_SHAPES.items():
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.randn(c, device=dev, generator=gen)
+        for b in A2J_GROUP_BATCHES:
+            x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                name = f"B={b} {h}x{w}x{c} G={g} {dtype}"
+                want = gn_group_stats_reference(xd, g)
+                tol = 1e-4 * max(1.0, want.abs().max().item())
+                stats = same_bits_twice(f"K2s {name}", lambda: gn_group_stats(xd, g))
+                errs.append(check(f"K2s {name}", stats, want, tol))
+                for params in {dtype, torch.float32}:
+                    sc, bi = scale.to(params), bias.to(params)
+                    for relu in (False, True):
+                        got = same_bits_twice(f"K2a {name}",
+                                              lambda: gn_apply(xd, stats, sc, bi, eps, relu))
+                        if not torch.equal(got, gn_apply_reference(xd, stats, sc, bi, eps, relu)):
+                            raise AssertionError(f"K2a {name} params {params} relu={relu}: not "
+                                                 "bit-equal to its plain version")
+                        applied += 1
+                if b != 128:
+                    continue
+                sc, bi = scale.to(dtype), bias.to(dtype)
+                grouped, xc = xd.view(b, h * w, g, c // g), xd.permute(0, 3, 1, 2)
+                t = {"K2s": timed(lambda: gn_group_stats(xd, g)),
+                     "K2a": timed(lambda: gn_apply(xd, stats, sc, bi, eps, True)),
+                     "K2s plain": timed(lambda: gn_group_stats_reference(xd, g)),
+                     "K2a plain": timed(lambda: gn_apply_reference(xd, stats, sc, bi, eps, True)),
+                     "torch.var_mean": timed(lambda: torch.var_mean(grouped, dim=(1, 3),
+                                                                    correction=0)),
+                     "F.group_norm": timed(lambda: F.group_norm(xc, g, sc, bi, eps))}
+                # as phase 3: K2s reads x and writes [B, 2, G] float32, 6 float32
+                # operations an element; K2a reads x and writes y, 4 an element
+                s_bound = bound(nbytes(xd) + b * 2 * g * 4, 6 * xd.numel(), F32_FLOPS_PER_S)
+                a_bound = bound(2 * nbytes(xd) + nbytes(stats, sc, bi), 4 * xd.numel(),
+                                F32_FLOPS_PER_S)
+                kind = "f32" if dtype == torch.float32 else "bf16"
+                common = {"shape": f"B={b} {h}x{w}x{c} G={g} {kind}", "layers": layers,
+                          "pair_library_ms": t["F.group_norm"]["ms"]}
+                rows["gn_group_stats"].append({
+                    **common, **t["K2s"], **s_bound, "plain_ms": t["K2s plain"]["ms"],
+                    "library_ms": t["torch.var_mean"]["ms"]})
+                rows["gn_apply"].append({
+                    **common, **t["K2a"], **a_bound, "plain_ms": t["K2a plain"]["ms"],
+                    "library_ms": None})
+                log("a2j_group", f"{name}: K2s {t['K2s']['ms']:.4f} ms on the device (bound "
+                    f"{s_bound['bound_ms']:.4f}, {s_bound['bound_ms'] / t['K2s']['ms']:.0%}), "
+                    f"K2a+ReLU {t['K2a']['ms']:.4f} (bound {a_bound['bound_ms']:.4f}, "
+                    f"{a_bound['bound_ms'] / t['K2a']['ms']:.0%}); "
+                    + ", ".join(f"{k} {v['ms']:.4f}" for k, v in t.items()
+                                if k not in ("K2s", "K2a")))
+                del grouped, xc
+            del x, xd
+    # mean >> std at both widths: E[x^2]-E[x]^2 would lose the variance
+    for c in (1024, 2048):
+        x = 1000.0 + 0.1 * torch.randn(8, 11, 11, c, device=dev, generator=gen)
+        got, want = gn_group_stats(x, 32), gn_group_stats_reference(x, 32)
+        errs.append(check(f"K2s mean>>std C={c}", got[:, 0], want[:, 0], 2e-3))
+        rel = ((got[:, 1] - want[:, 1]).abs() / want[:, 1]).max().item()
+        if not rel <= 1e-2 or not bool((got[:, 1] > 0).all()):
+            raise AssertionError(f"K2s mean>>std C={c}: variance rel err {rel:.3e} > 1e-2")
+    log("a2j_group", f"K2s at C/G 32 and 64 (B={A2J_GROUP_BATCHES}, f32 and bf16): max|err| "
+        f"{max(errs):.3e} within 1e-4 of scale, two runs bit-equal, mean>>std held; K2a: "
+        f"{applied} comparisons bit-equal to gn_apply_reference and two runs bit-equal")
+    return {"err": max(errs), "rows": rows}
+
+
+def phase_a2j_group(dev) -> dict:
+    """A2J with GroupNorm at full width: ``a2j_group_kernels``, then
+    ``A2JSystem(norm="group").predict`` (dilated ResNet-50, three 256-wide
+    towers, 176^2 depth crops, 21 joints; seeded random convs and norm
+    affines) at B = 64 and 128 in float32 and bf16 (autocast): 65 K2s + 65
+    K2a + 1 K1 launches per call and nothing else, counted from 0 for each
+    batch and dtype, two calls bit-equal; the kernel path against the plain
+    path (``use_kernels=False``: the plain K2s, K2a and K1) within
+    ``A2J_GROUP_TOL_F32`` px in float32 (TF32 off) and ``A2J_GROUP_TOL_BF16``
+    in bf16; crops/s against the frozen-BN A2J at the same batch and dtype
+    (``a2j_group_turns``). Returns the kernels' rows and the path's launches
+    per call."""
+    import torch
+
+    from handnet_tpu_torch.config import A2JConfig
+    from handnet_tpu_torch.models.a2j import A2JSystem
+    from handnet_tpu_torch.nn.resnet import GroupNorm
+
+    kernels = a2j_group_kernels(dev)
+    cfg = A2JConfig()
+    model = A2JSystem(cfg, norm="group")
+    model.init_weights_(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, GroupNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    norms = sum(isinstance(m, GroupNorm) for m in model.modules())
+    if norms != A2J_GROUP_NORMS:
+        raise AssertionError(f"A2JSystem(norm='group'): {norms} GroupNorms")
+    frozen = A2JSystem(cfg)
+    frozen.init_weights_(torch.Generator().manual_seed(SEED))
+    model, frozen = (m.to(dev, memory_format=torch.channels_last).eval() for m in (model, frozen))
+    crops = a2j_train_batch(max(A2J_GROUP_PREDICT), SEED, cfg.crop_h, cfg.num_joints)["image"]
+    crops = crops.to(dev)
+    want_per_call = {**{name: 0 for name in counted_wrappers()},
+                     "gn_group_stats": A2J_GROUP_NORMS, "gn_apply": A2J_GROUP_NORMS,
+                     "a2j_decode": 1}
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in A2J_GROUP_PREDICT:
+            x = crops[:b]
+
+            def predict(net=model, x=x, dtype=dtype):
+                with torch.inference_mode(), torch.autocast(
+                        "cuda", dtype=torch.bfloat16, enabled=dtype == torch.bfloat16):
+                    return net.predict(x)
+
+            reset_launch_counts()
+            outs = [predict() for _ in range(A2J_GROUP_CALLS)]
+            launches = launch_counts()
+            if per_call(launches, A2J_GROUP_CALLS) != want_per_call or any(
+                    v % A2J_GROUP_CALLS for v in launches.values()):
+                raise AssertionError(f"a2j_group predict B={b} {dtype}: launches {launches} "
+                                     f"over {A2J_GROUP_CALLS} calls, expected {want_per_call} "
+                                     "per call")
+            for out in outs:
+                if tuple(out.shape) != (b, cfg.num_joints, 3) or not bool(
+                        torch.isfinite(out).all()):
+                    raise AssertionError(f"a2j_group predict B={b} {dtype}: UVD "
+                                         f"{tuple(out.shape)}, finite "
+                                         f"{bool(torch.isfinite(out).all())}")
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"a2j_group predict B={b} {dtype}: calls differ")
+            # the plain path, TF32 off in float32 as the other float32 checks
+            f32 = dtype == torch.float32
+            if f32:
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            model.use_kernels = False
+            try:
+                plain = predict()
+                model.use_kernels = True
+                got = predict()
+            finally:
+                model.use_kernels = True
+                torch.backends.cudnn.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tol = A2J_GROUP_TOL_F32 if f32 else A2J_GROUP_TOL_BF16
+            errs[(b, dtype)] = check(f"a2j_group B={b} {dtype}: kernel vs plain path", got,
+                                     plain, tol)
+            log("a2j_group", f"A2JSystem(norm='group').predict B={b} {dtype}: UVD "
+                f"{tuple(outs[0].shape)} finite, {A2J_GROUP_CALLS} calls bit-equal, launches "
+                f"per call {per_call(launches, A2J_GROUP_CALLS)} (65 K2s + 65 K2a + 1 K1, "
+                f"nothing else); kernel path == plain path within {errs[(b, dtype)]:.3e} px "
+                f"(tol {tol:g}{', TF32 off' if f32 else ''})")
+            a2j_group_turns(f"B={b} {dtype}", b, lambda net: predict(net), model, frozen)
+            del outs, plain, got
+    del model, frozen, crops
+    free_device_memory(dev)
+    return {"rows": kernels["rows"], "err": kernels["err"],
+            "paths": {"a2j_group": want_per_call}}
+
+
+def a2j_group_turns(name: str, batch: int, predict, group, frozen) -> None:
+    """Crops/s of the GroupNorm A2J against the frozen-BN A2J (CUDA events,
+    TF32 on): ``A2J_GROUP_PAIRS`` pairs of turns of ``A2J_GROUP_TURN`` calls,
+    the order alternating (group first in even pairs), after one warm-up
+    call each. Prints each model's median turn and its spread, and names a
+    model ahead only where the two spreads do not overlap."""
+    import statistics
+
+    ms = {"group": [], "frozen": []}
+    nets = {"group": group, "frozen": frozen}
+    for net in nets.values():
+        predict(net)
+    for i in range(A2J_GROUP_PAIRS):
+        for key in ("group", "frozen") if i % 2 == 0 else ("frozen", "group"):
+            ms[key].append(cuda_ms(lambda net=nets[key]: predict(net), iters=A2J_GROUP_TURN,
+                                   warmup=0))
+    rate = {key: {"median": batch / statistics.median(v) * 1e3,
+                  "low": batch / max(v) * 1e3, "high": batch / min(v) * 1e3}
+            for key, v in ms.items()}
+    if min(ms["group"]) > max(ms["frozen"]):
+        verdict = "frozen-BN ahead (the spreads do not overlap)"
+    elif max(ms["group"]) < min(ms["frozen"]):
+        verdict = "GroupNorm ahead (the spreads do not overlap)"
+    else:
+        verdict = "unresolved: the spreads overlap"
+    log("a2j_group", f"crops/s {name} over {A2J_GROUP_PAIRS} pairs of turns of "
+        f"{A2J_GROUP_TURN} calls (CUDA events, TF32 on): "
+        + "; ".join(f"{'GroupNorm' if key == 'group' else 'frozen-BN'} median "
+                    f"{r['median']:.1f}, turns {r['low']:.1f} to {r['high']:.1f} (median "
+                    f"{statistics.median(ms[key]):.3f} ms a call)"
+                    for key, r in rate.items())
+        + f"; {verdict}")
+
+
 E2E_ITEMS = 16                    # E2EDataSource items of [fcos_apps]' tree
 E2E_BATCH = 8                     # the fast pipeline's calls on them, bf16
 SEQ_CAMERAS = 8                   # DexYCB's 8 serials, one frame each
@@ -6635,6 +6887,14 @@ def main() -> int:
     results["a2j_decode_xy"] = a2j_2d["result"]
     by_path.update(a2j_2d["paths"])
     lap("a2j_2d")
+    # A2J with GroupNorm: K2s/K2a at C/G 32 and 64, predict at full width
+    a2j_group = phase_a2j_group(dev)
+    for name, rows in a2j_group["rows"].items():
+        results[name]["a2j_group_shapes"] = rows
+    results["gn_group_stats"]["max_abs_err"] = max(results["gn_group_stats"]["max_abs_err"],
+                                                   a2j_group["err"])
+    by_path.update(a2j_group["paths"])
+    lap("a2j_group")
     by_path["train_mesh"] = phase_train_mesh(dev)
     lap("train_mesh")
     # the A2J apps through their entry points

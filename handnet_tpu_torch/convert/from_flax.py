@@ -261,9 +261,10 @@ def a2j_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
 
 
 def a2j_variables_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> dict:
-    """Port ``A2J`` state dict (frozen or batch norms) -> the JAX package's
-    A2J variables: what ``convert_a2j`` gives; the inverse of
-    :func:`a2j_state_dict_from_flax`."""
+    """Port ``A2J`` state dict (frozen or batch norms; or GroupNorms, whose
+    ``weight``/``bias`` become ``params`` ``scale``/``bias`` and which add
+    no ``batch_stats``) -> the JAX package's A2J variables: what
+    ``convert_a2j`` gives; the inverse of :func:`a2j_state_dict_from_flax`."""
     return _variables(state_dict, _a2j_path)
 
 

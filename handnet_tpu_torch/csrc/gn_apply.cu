@@ -21,8 +21,13 @@
 //
 // Design: the walk of K2s. A thread owns one 16-byte chunk column of the
 // pixels and prepares its channels' mean, multiplier and bias once, in
-// registers; then it walks pixel rows with kUnroll 16-byte loads in flight
-// and one 16-byte store for each. grid = splits x B.
+// registers, from its group's mean and variance (a chunk lies in one group
+// where K >= the chunk's E values, as K = 32 and 64 do); then it walks pixel
+// rows with kUnroll 16-byte loads in flight and one 16-byte store for each.
+// grid = splits x B. Any K that divides C; a block is at most kMaxThreads =
+// 256 threads of whole pixel rows, or one row of up to kWideThreads chunks
+// (float32 C = 2048), as in K2s, under one 512-thread bound (its registers
+// are those of a 256-thread bound).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -32,7 +37,8 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;   // a block of whole pixel rows
+constexpr int kWideThreads = 512;  // a block of one pixel row of 257 to 512 chunks
 constexpr int kUnroll = 4;  // 16-byte loads a thread has in flight
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -41,7 +47,7 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 // grid (splits, B), block rows * cp threads. Block (s, b) writes pixels
 // [s * per_split, (s + 1) * per_split) of image b.
 template <typename T, typename TP, bool kRelu>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kWideThreads)
 gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                 const TP* __restrict__ scale, const TP* __restrict__ bias, T* __restrict__ out,
                 int hw, int channels, int groups, int cp, int rows, int per_split, float eps) {
@@ -99,8 +105,9 @@ cudaError_t launch(const void* x, const void* stats, const void* scale, const vo
   constexpr int E = 16 / sizeof(T);
   const int64_t threads = rows * cp;
   if (batch < 1 || batch > 65535 || hw < 1 || groups < 1 || channels % groups != 0 ||
-      cp * E != channels || rows < 1 || threads > kMaxThreads || splits < 1 ||
-      splits * per_split < hw || (splits - 1) * per_split >= hw) {
+      cp * E != channels || rows < 1 || threads > kWideThreads ||
+      (threads > kMaxThreads && rows != 1) || splits < 1 || splits * per_split < hw ||
+      (splits - 1) * per_split >= hw) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((unsigned)splits, (unsigned)batch);
@@ -122,9 +129,10 @@ cudaError_t launch(const void* x, const void* stats, const void* scale, const vo
 
 // x and out [batch, hw, channels] contiguous, 16-byte aligned, of one dtype
 // (0 = float32, 1 = bfloat16); stats [batch, 2, groups] float32; scale and
-// bias [channels] of param_dtype (same codes). The block shape and the cut of
-// hw into splits come from the wrapper (ops/cuda_gn.py: apply_plan). Returns
-// the launch's cudaError_t.
+// bias [channels] of param_dtype (same codes). The block shape (at most 256
+// threads, or one row of up to 512 chunks) and the cut of hw into splits
+// come from the wrapper (ops/cuda_gn.py: row_plan). Returns the launch's
+// cudaError_t.
 extern "C" int hn_gn_apply(const void* x, const void* stats, const void* scale,
                            const void* bias, void* out, int64_t batch, int64_t hw,
                            int64_t channels, int64_t groups, int64_t cp, int64_t rows,

@@ -38,7 +38,20 @@
 //   and pixel rows, chunk columns of one group, and splits combine the same
 //   way, each in a fixed tree or order. The TPU kernel's channel->group fold
 //   (iota matmuls) becomes: a chunk holds S whole groups (K <= chunk), or J
-//   neighbouring chunk columns make one group (K > chunk).
+//   neighbouring chunk columns make one group (K > chunk). A thread of row 0
+//   folds a run of up to kRun of a group's columns in order; where a group
+//   spans more (K = 32 and 64: J = 8 or 16 in float32, 8 in bf16), its runs
+//   meet by the fixed tree of the pixel rows.
+// * Widths: K = 2 to 64, every divisor of C that the TPU kernel takes for
+//   GroupNorm(32) over 64 to 2048 channels. A block is at most kMaxThreads =
+//   256 threads of whole pixel rows; a row of more than 256 chunks (float32
+//   C = 2048: 512 chunks) takes a block of its own kWideThreads threads, one
+//   pixel row, each thread still one chunk column. The two sizes are two
+//   instantiations: under a 512-thread bound ptxas gives the bf16 kernels of
+//   K = 8 to 64 95 to 128 registers, where a 256-thread bound gives 79 or
+//   80, and one 512-bound instantiation ran K2s at bf16 11x11x1024 in
+//   0.0161 ms against 0.0129 (H100 80GB HBM3, 700 W; the same bits by
+//   k12_device_times.py --gn-hash). K2a's registers do not move: it has one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +62,10 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;   // a block of whole pixel rows
+constexpr int kWideThreads = 512;  // a block of one pixel row of 257 to 512 chunks
 constexpr int kUnroll = 8;  // 16-byte loads a thread has in flight
+constexpr int kRun = 4;     // a group's chunk columns that one thread folds in order
 
 struct Stat {
   float n, mean, m2;
@@ -131,11 +146,11 @@ __device__ __forceinline__ void fold_rows(Stat (&st)[S], float* smem, int plane,
   __syncthreads();
 }
 
-// grid (splits, B), block rows * cp threads, 3 * blockDim.x * S floats of
-// dynamic shared memory. Block (s, b) reduces pixels [s * per_split,
-// (s + 1) * per_split) of image b.
-template <typename T, int K>
-__global__ void __launch_bounds__(kMaxThreads)
+// grid (splits, B), block rows * cp threads (at most kBlock), 3 * blockDim.x
+// * S floats of dynamic shared memory. Block (s, b) reduces pixels
+// [s * per_split, (s + 1) * per_split) of image b.
+template <typename T, int K, int kBlock>
+__global__ void __launch_bounds__(kBlock)
 gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
                 unsigned* __restrict__ counters, float* __restrict__ out, int hw,
                 int channels, int cp, int rows, int per_split) {
@@ -181,22 +196,35 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
 
   fold_rows<S>(st, smem, plane, tid, row, rows, cp, true);
 
-  // chunk columns to groups; row 0 holds the block's sums
-  if (row == 0 && col % J == 0) {
+  // chunk columns to groups; row 0 holds the block's sums. The thread at
+  // the head of each run of R columns folds the run in column order; the
+  // NR runs of a group meet by fold_rows' tree, R columns apart.
+  constexpr int R = J < kRun ? J : kRun;
+  constexpr int NR = J / R;
+  const bool head = row == 0 && col % R == 0;
+  Stat a[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) a[j] = st[j];
+  if (head) {
 #pragma unroll
     for (int j = 0; j < S; ++j) {
-      Stat a = st[j];
 #pragma unroll
-      for (int i = 1; i < J; ++i) chan_combine(a, get(smem, plane, (col + i) * S + j));
+      for (int i = 1; i < R; ++i) chan_combine(a[j], get(smem, plane, (col + i) * S + j));
+    }
+  }
+  if constexpr (NR > 1) fold_rows<S>(a, smem, plane, tid, (col / R) % NR, NR, R, head);
+  if (head && col % J == 0) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
       const int g = J > 1 ? col / J : col * S + j;
       if (splits == 1) {
-        out[((int64_t)b * 2 + 0) * groups + g] = a.mean;
-        out[((int64_t)b * 2 + 1) * groups + g] = a.m2 / a.n;  // biased, like GN
+        out[((int64_t)b * 2 + 0) * groups + g] = a[j].mean;
+        out[((int64_t)b * 2 + 1) * groups + g] = a[j].m2 / a[j].n;  // biased, like GN
       } else {
         float* dst = partials + ((int64_t)b * splits + split) * 3 * groups + g;
-        dst[0] = a.n;
-        dst[groups] = a.mean;
-        dst[2 * groups] = a.m2;
+        dst[0] = a[j].n;
+        dst[groups] = a[j].mean;
+        dst[2 * groups] = a[j].m2;
       }
     }
   }
@@ -241,26 +269,36 @@ cudaError_t launch(const void* x, void* partials, void* counters, void* out, int
   const int64_t k = channels / groups;
   const int64_t threads = rows * cp;
   if (batch < 1 || hw < 1 || groups < 1 || channels != groups * k || cp * E != channels ||
-      rows < 1 || threads > kMaxThreads || groups > threads || splits < 1 ||
-      splits * per_split < hw || (splits - 1) * per_split >= hw || batch > 65535 ||
+      rows < 1 || threads > kWideThreads || (threads > kMaxThreads && rows != 1) ||
+      groups > threads || splits < 1 || splits * per_split < hw ||
+      (splits - 1) * per_split >= hw || batch > 65535 ||
       (splits > 1 && (partials == nullptr || counters == nullptr))) {
     return cudaErrorInvalidValue;
   }
   const int s_per_chunk = k < E ? (int)(E / k) : 1;
   const dim3 grid((unsigned)splits, (unsigned)batch);
   const size_t shmem = 3 * (size_t)threads * s_per_chunk * sizeof(float);
-#define HN_GN_STATS(K)                                                                     \
-  gn_stats_kernel<T, K><<<grid, (unsigned)threads, shmem, stream>>>(                       \
+#define HN_GN_STATS_BLOCK(K, BLOCK)                                                        \
+  gn_stats_kernel<T, K, BLOCK><<<grid, (unsigned)threads, shmem, stream>>>(                \
       static_cast<const T*>(x), static_cast<float*>(partials),                             \
       static_cast<unsigned*>(counters), static_cast<float*>(out), (int)hw, (int)channels,  \
       (int)cp, (int)rows, (int)per_split)
+#define HN_GN_STATS(K)                   \
+  if (threads <= kMaxThreads) {          \
+    HN_GN_STATS_BLOCK(K, kMaxThreads);   \
+  } else {                               \
+    HN_GN_STATS_BLOCK(K, kWideThreads);  \
+  }
   switch (k) {
     case 2: HN_GN_STATS(2); break;
     case 4: HN_GN_STATS(4); break;
     case 8: HN_GN_STATS(8); break;
     case 16: HN_GN_STATS(16); break;
+    case 32: HN_GN_STATS(32); break;
+    case 64: HN_GN_STATS(64); break;
     default: return cudaErrorInvalidValue;
   }
+#undef HN_GN_STATS_BLOCK
 #undef HN_GN_STATS
   return cudaGetLastError();
 }
@@ -268,9 +306,11 @@ cudaError_t launch(const void* x, void* partials, void* counters, void* out, int
 }  // namespace
 
 // x [batch, hw, channels] contiguous, 16-byte aligned (dtype 0 = float32,
-// 1 = bfloat16); out [batch, 2, groups] float32. The block shape (cp chunk
-// columns x rows pixel rows) and the cut of hw into `splits` runs of
-// `per_split` pixels come from the wrapper (ops/cuda_gn.py: stats_plan).
+// 1 = bfloat16); out [batch, 2, groups] float32, channels / groups one of
+// 2, 4, 8, 16, 32, 64. The block shape (cp chunk columns x rows pixel rows:
+// at most 256 threads, or one row of up to 512 chunks) and the cut of hw
+// into `splits` runs of `per_split` pixels come from the wrapper
+// (ops/cuda_gn.py: row_plan).
 // With splits > 1, partials is [batch, splits, 3, groups] float32 scratch and
 // counters holds batch zeros, which the launch leaves zero. Returns the
 // launch's cudaError_t.

@@ -16,8 +16,14 @@ the backbone's residual blocks and the heads' ``conv1..4`` int8
 
 ``norm`` names the norm layers of the backbone and the three towers, as
 ``make_norm`` does (``nn/resnet.py``): ``"frozen"`` (serving: fixed
-statistics) or ``"batch"`` (training: batch statistics in ``train()`` mode,
-the running ones in ``eval()`` mode). Both hold the same state-dict keys.
+statistics), ``"batch"`` (training: batch statistics in ``train()`` mode,
+the running ones in ``eval()`` mode), both with the same state-dict keys, or
+``"group"``: flax's ``GroupNorm(32)`` in all 65 norms (53 in the backbone,
+12 in the towers; C/G 2 to 64), each through kernels K2s and K2a with the
+ReLU that follows fused into K2a, and ``weight``/``bias`` alone in the state
+dict. Training takes ``"frozen"`` or ``"batch"``: K2r and K2d, the
+GroupNorm backward, do not take the 32- and 64-channel groups of layer3's
+and layer4's outputs, and no JAX app trains A2J with GroupNorm.
 """
 
 from __future__ import annotations
@@ -27,11 +33,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from handnet_tpu_torch.config import A2JConfig
 from handnet_tpu_torch.nn.quant import conv_layer
-from handnet_tpu_torch.nn.resnet import init_conv_weights_, make_norm, resnet50_dilated
+from handnet_tpu_torch.nn.resnet import (GroupNorm, init_conv_weights_, make_norm, norm_relu,
+                                         resnet50_dilated)
 from handnet_tpu_torch.ops.anchors import a2j_anchor_grid
 from handnet_tpu_torch.ops.cuda_a2j import (a2j_decode, a2j_decode_reference, a2j_decode_xy,
                                             a2j_decode_xy_reference)
@@ -40,7 +46,7 @@ from handnet_tpu_torch.ops.focal import smooth_l1
 
 class A2JHead(nn.Module):
     """4 x (conv3x3 + BN + ReLU) + output conv3x3 (a2j/a2j.py:44-181), the
-    norm layers named by ``norm``."""
+    norm layers named by ``norm``; a GroupNorm takes its ReLU into K2a."""
 
     def __init__(self, in_channels: int, out_channels: int, features: int = 256,
                  quant: Any = False, norm: str = "frozen"):
@@ -54,7 +60,7 @@ class A2JHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(1, 5):
-            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+            x = norm_relu(getattr(self, f"bn{i}"), getattr(self, f"conv{i}")(x))
         return self.output(x)
 
 
@@ -68,10 +74,6 @@ class A2J(nn.Module):
         if cfg.backbone != "resnet50":
             raise NotImplementedError(f"A2J: backbone {cfg.backbone!r} (only the dilated "
                                       "ResNet-50 is ported)")
-        if norm == "group":
-            # the GroupNorm option is the detector backbone's (train_fcos
-            # --backbone-norm); no JAX app trains A2J with it
-            raise NotImplementedError("A2J: norm 'group' is not ported (frozen or batch)")
         self.cfg = cfg
         stem_in = 3 if cfg.in_channels == 1 else cfg.in_channels
         body = resnet50_dilated(in_channels=stem_in, quant=cfg.quant, norm=norm)
@@ -180,8 +182,9 @@ def a2j_loss(heads: Dict[str, torch.Tensor], gt_uvd: torch.Tensor, anchors: torc
 class A2JSystem(A2J):
     """The A2J module plus its anchor table (a non-persistent buffer) and the
     ``predict``, ``losses`` and ``loss_and_predict`` entries. ``use_kernels``
-    decodes through K1, or K1xy for the 2D A2J (else their plain versions);
-    ``norm`` as :class:`A2J`."""
+    decodes through K1, or K1xy for the 2D A2J, and runs a ``"group"``
+    model's norms through K2s and K2a (else the plain versions of all
+    three); setting it later switches them all. ``norm`` as :class:`A2J`."""
 
     def __init__(self, cfg: Optional[A2JConfig] = None, use_kernels: bool = True,
                  norm: str = "frozen"):
@@ -189,6 +192,17 @@ class A2JSystem(A2J):
         self.use_kernels = use_kernels
         self.register_buffer("anchors", torch.from_numpy(anchors_for(self.cfg)),
                              persistent=False)
+
+    @property
+    def use_kernels(self) -> bool:
+        return self._use_kernels
+
+    @use_kernels.setter
+    def use_kernels(self, on: bool) -> None:
+        self._use_kernels = on
+        for m in self.modules():
+            if isinstance(m, GroupNorm):
+                m.use_kernel = on
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         return a2j_postprocess(self(x), self.anchors, use_kernel=self.use_kernels)

@@ -21,6 +21,10 @@ differentiates), so these two replace no Pallas kernel.
 The kernels walk an image the same way: a block is ``rows`` pixel rows by
 ``cp`` 16-byte chunk columns, and each image's pixels are cut into
 ``splits`` runs of ``per_split`` pixels, one block each (:func:`row_plan`).
+K2s and K2a take every group width of GroupNorm(32) over 64 to 2048
+channels (C/G 2 to 64) and rows of up to 512 chunks (float32 C = 2048,
+one pixel row a block); K2r and K2d take C/G 2 to 16 and rows of up to 256
+chunks, and raise ``ValueError`` beyond.
 K2s's and K2r's blocks meet in a workspace and the last one folds the
 splits in order; :func:`gn_stats_split_emulation` and
 :func:`gn_backward_split_emulation` transcribe those walks and folds, so
@@ -47,8 +51,11 @@ from torch.autograd.function import once_differentiable
 from handnet_tpu_torch.kernels import build, scratch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SUPPORTED_GROUP_WIDTHS = (2, 4, 8, 16)  # GroupNorm(32) over 64..512 channels
+_SUPPORTED_GROUP_WIDTHS = (2, 4, 8, 16, 32, 64)  # K2s, K2a: GroupNorm(32) over 64..2048 channels
+_BACKWARD_GROUP_WIDTHS = (2, 4, 8, 16)           # K2r, K2d: not widened past 512 channels
 _MAX_THREADS = 256       # kMaxThreads of gn_stats.cu, gn_apply.cu and gn_backward_*.cu
+_MAX_ROW_CHUNKS = 512    # kWideThreads of gn_stats.cu and gn_apply.cu: one row a block
+STATS_RUN = 4            # kRun of gn_stats.cu: a group's chunk columns folded in order
 STATS_UNROLL = 8         # kUnroll of gn_stats.cu: loads a thread has in flight
 APPLY_UNROLL = 4         # kUnroll of gn_apply.cu
 SUMS_UNROLL = 4          # kUnroll of gn_backward_sums.cu (loads of x; as many of dy)
@@ -70,18 +77,20 @@ class RowPlan(NamedTuple):
 
 
 def row_plan(batch: int, hw: int, channels: int, itemsize: int, sm_count: int,
-             unroll: int, blocks_per_sm: int) -> RowPlan:
-    """Blocks of at most 256 threads that read whole pixel rows, and enough
-    splits of HW that ``batch * splits`` reaches ``blocks_per_sm`` blocks per
-    SM, as long as a split keeps one unrolled trip of the block
+             unroll: int, blocks_per_sm: int, max_chunks: int = _MAX_THREADS) -> RowPlan:
+    """Blocks of at most 256 threads that read whole pixel rows (a row of
+    more than 256 chunks, up to ``max_chunks``, is a block of one row), and
+    enough splits of HW that ``batch * splits`` reaches ``blocks_per_sm``
+    blocks per SM, as long as a split keeps one unrolled trip of the block
     (``rows * unroll`` pixels). Splits are whole trips, so only an image's
-    last split is ragged."""
+    last split is ragged. K2s and K2a take rows of up to
+    ``_MAX_ROW_CHUNKS``; K2r and K2d of up to 256 chunks (the default)."""
     row_bytes = channels * itemsize
-    if row_bytes % 16 or row_bytes // 16 > _MAX_THREADS:
+    if row_bytes % 16 or row_bytes // 16 > max_chunks:
         raise ValueError(f"GroupNorm kernels: C={channels} x {itemsize} bytes must be a "
-                         f"multiple of 16 bytes and at most {16 * _MAX_THREADS}")
+                         f"multiple of 16 bytes and at most {16 * max_chunks}")
     cp = row_bytes // 16
-    rows = _MAX_THREADS // cp
+    rows = max(1, _MAX_THREADS // cp)
     trip = rows * unroll
     want = -(-blocks_per_sm * sm_count // batch)
     splits = max(1, min(want, -(-hw // trip)))
@@ -117,17 +126,19 @@ def _check_device(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _check_nhwc(name: str, x: torch.Tensor, num_groups: int) -> None:
-    """What K2s and K2a take on the card: float32 or bfloat16, contiguous
-    NHWC, 16-byte aligned, C/G one of the supported widths."""
+def _check_nhwc(name: str, x: torch.Tensor, num_groups: int,
+                widths=_SUPPORTED_GROUP_WIDTHS) -> None:
+    """What the kernels take on the card: float32 or bfloat16, contiguous
+    NHWC, 16-byte aligned, C/G one of ``widths`` (K2s's and K2a's, or
+    K2r's and K2d's)."""
     if x.dim() != 4:
         raise ValueError(f"{name}: expected [B, H, W, C], got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} (float32 or bfloat16 only)")
     b, h, w, c = x.shape
-    if c % num_groups or c // num_groups not in _SUPPORTED_GROUP_WIDTHS:
-        raise ValueError(f"{name}: C={c}, G={num_groups}: C/G must be one "
-                         f"of {_SUPPORTED_GROUP_WIDTHS}")
+    if c % num_groups or c // num_groups not in widths:
+        raise ValueError(f"{name}: C={c}, G={num_groups}: C/G="
+                         f"{c / num_groups:g} is not a group width it takes, one of {widths}")
     if b * h * w == 0:
         raise ValueError(f"{name}: empty input {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -141,7 +152,7 @@ def _gn_group_stats_cuda(x: torch.Tensor, num_groups: int) -> torch.Tensor:
     _check_nhwc("gn_group_stats", x, num_groups)
     b, h, w, c = x.shape
     plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
-                    STATS_UNROLL, STATS_BLOCKS_PER_SM)
+                    STATS_UNROLL, STATS_BLOCKS_PER_SM, _MAX_ROW_CHUNKS)
     if num_groups > plan.rows * plan.cp:
         raise ValueError(f"gn_group_stats: G={num_groups} groups exceed the block's "
                          f"{plan.rows * plan.cp} threads")
@@ -196,7 +207,8 @@ def gn_apply_reference(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor
 
 
 def _check_params(name: str, x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, sums: Optional[torch.Tensor] = None) -> int:
+                  bias: torch.Tensor, sums: Optional[torch.Tensor] = None,
+                  widths=_SUPPORTED_GROUP_WIDTHS) -> int:
     """What K2a, K2r and K2d take beside x on the card: ``stats`` (and K2d's
     ``sums``) contiguous float32 ``[B, 2, G]``; ``scale`` and ``bias``
     contiguous ``[C]``, both float32 or both bfloat16; all on x's device.
@@ -204,7 +216,7 @@ def _check_params(name: str, x: torch.Tensor, stats: torch.Tensor, scale: torch.
     if stats.dim() != 3:
         raise ValueError(f"{name}: stats must be [B, 2, G], got {tuple(stats.shape)}")
     num_groups = stats.shape[-1]
-    _check_nhwc(name, x, num_groups)
+    _check_nhwc(name, x, num_groups, widths)
     b, h, w, c = x.shape
     per_group = [("stats", stats)] + ([("sums", sums)] if sums is not None else [])
     for key, t in per_group:
@@ -229,7 +241,7 @@ def _gn_apply_cuda(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
     num_groups = _check_params("gn_apply", x, stats, scale, bias)
     b, h, w, c = x.shape
     plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
-                    APPLY_UNROLL, APPLY_BLOCKS_PER_SM)
+                    APPLY_UNROLL, APPLY_BLOCKS_PER_SM, _MAX_ROW_CHUNKS)
     out = torch.empty_like(x)
     lib = build.load_library()
     with torch.cuda.device(x.device):
@@ -339,9 +351,10 @@ def gn_backward_dx_reference(x: torch.Tensor, dy: torch.Tensor, stats: torch.Ten
 def _check_backward(name: str, x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor,
                     sums: Optional[torch.Tensor] = None) -> int:
-    """What K2r and K2d take on the card: x as K2s takes it, dy of x's
-    shape, dtype and layout, the parameters as K2a takes them. Returns G."""
-    num_groups = _check_params(name, x, stats, scale, bias, sums)
+    """What K2r and K2d take on the card: x as K2s takes it but C/G at most
+    16 (K2r and K2d are not widened to K2s's 32 and 64), dy of x's shape,
+    dtype and layout, the parameters as K2a takes them. Returns G."""
+    num_groups = _check_params(name, x, stats, scale, bias, sums, _BACKWARD_GROUP_WIDTHS)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"{name}: dy {dy.dtype} {tuple(dy.shape)} on {dy.device} must match "
                          f"x {x.dtype} {tuple(x.shape)} on {x.device}")
@@ -638,7 +651,8 @@ def gn_stats_split_emulation(x: torch.Tensor, num_groups: int, plan: RowPlan,
                              unroll: int = STATS_UNROLL) -> torch.Tensor:
     """K2s's walk and fold (``csrc/gn_stats.cu``) in float32 tensor code, for
     any ``plan``: every thread's unrolled trips and ragged end, the tree over
-    a block's rows, the chunk columns of a group, and the splits in order.
+    a block's rows, the chunk columns of a group (runs of ``STATS_RUN`` in
+    order, the runs by the rows' tree), and the splits in order.
 
     It shares the kernel's structure, not its bits (a sum inside one trip may
     run in another order); a CPU test holds it against
@@ -672,10 +686,14 @@ def gn_stats_split_emulation(x: torch.Tensor, num_groups: int, plan: RowPlan,
         cols = [_Stat(block.n, block.mean[:, i::span, 0], block.m2[:, i::span, 0])
                 for i in range(span)] if span > 1 else [
             _Stat(block.n, block.mean.flatten(1), block.m2.flatten(1))]
-        group = cols[0]
-        for col in cols[1:]:                               # serially, in column order
-            group = _chan_combine(group, col)
-        partials.append(group)                             # mean, m2: [B, G]
+        run = min(span, STATS_RUN)
+        runs = []
+        for first in range(0, span, run):                  # a run of columns, in order
+            group = cols[first]
+            for col in cols[first + 1:first + run]:
+                group = _chan_combine(group, col)
+            runs.append(group)
+        partials.append(_fold_rows(runs))                  # the runs' tree; mean, m2: [B, G]
     lanes = min(plan.splits, plan.rows * plan.cp // num_groups)
     folded = []
     for lane in range(lanes):                              # splits lane, lane + lanes, ...

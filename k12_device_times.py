@@ -24,6 +24,14 @@ K2d alone. A port without K2r (``gn_backward_sums``) is timed with the
 gradients registered on its forward ops, so one call with and without
 ``--root`` gives the times before and after.
 
+``--gn-hash`` prints only the SHA-256 of K2s's statistics and of K2a's
+output (ReLU, float32 parameters) on seeded inputs at the fast profile's P3
+(B=128, 60x80x256) and at the GroupNorm backbone's five shapes (B=8,
+``chip_smoke.BACKBONE_GN_SHAPES``), float32 and bf16, G=32, with both
+kernels' device times there: run it with and without ``--root`` in one
+call to check that two checkouts' K2s and K2a give the same bits at the
+widths both take.
+
 ``--root`` names a directory that holds another ``handnet_tpu_torch`` (for
 example the parent commit, unpacked with ``git archive``); its kernels build
 into that directory's ``build/``. A port that has no K2a (``gn_apply``) is
@@ -48,6 +56,9 @@ def main() -> int:
                         help="also time other blocks-per-SM targets at B=128")
     parser.add_argument("--k1-hash", action="store_true",
                         help="print only the hash of K1's output on seeded inputs")
+    parser.add_argument("--gn-hash", action="store_true",
+                        help="print only the hashes and device times of K2s and K2a at the "
+                             "old shapes on seeded inputs")
     parser.add_argument("--gn-backward", action="store_true",
                         help="time only GroupNorm + ReLU forward + backward at the P3 train shape")
     args = parser.parse_args()
@@ -93,6 +104,9 @@ def main() -> int:
 
     if args.gn_backward:
         gn_backward(GN_TRAIN_SHAPE, dev, gen, cuda_gn, report)
+        return 0
+    if args.gn_hash:
+        gn_hashes(card, dev, cuda_gn, device_ms)
         return 0
 
     n, p = 1936, 21
@@ -173,6 +187,40 @@ def gn_backward(shape, dev, gen, cuda_gn, report) -> None:
                lambda: cuda_gn.gn_backward_sums(x, dy, stats, sc, bi, 1e-5, True))
         report(f"K2d gn_backward_dx {name}", 3 * tensor,
                lambda: cuda_gn.gn_backward_dx(x, dy, stats, sc, bi, sums, 1e-5, True))
+
+
+def gn_hashes(card, dev, cuda_gn, device_ms) -> None:
+    """SHA-256 of K2s's statistics and K2a's output (ReLU, float32
+    parameters, eps 1e-5) at fast P3 and the GroupNorm backbone's shapes,
+    float32 and bf16, G=32, on inputs from a generator seeded per shape, and
+    both kernels' device times; then one hash over all of them."""
+    import hashlib
+
+    import torch
+    from chip_smoke import BACKBONE_GN_SHAPES, SEED, output_hash
+
+    shapes = [(128, 60, 80, 256)] + [(8, h, w, c) for h, w, c, _ in BACKBONE_GN_SHAPES]
+    every = hashlib.sha256()
+    for b, h, w, c in shapes:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.randn(c, device=dev, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            stats = cuda_gn.gn_group_stats(xd, 32)
+            y = cuda_gn.gn_apply(xd, stats, scale, bias, 1e-5, True)
+            digests = output_hash(stats), output_hash(y)
+            every.update("".join(digests).encode())
+            s_ms = device_ms(lambda: cuda_gn.gn_group_stats(xd, 32))
+            a_ms = device_ms(lambda: cuda_gn.gn_apply(xd, stats, scale, bias, 1e-5, True))
+            print(f"[{card}] K2s/K2a B={b} {h}x{w}x{c} G=32 {dtype}: K2s {digests[0][:16]}, "
+                  f"K2a {digests[1][:16]}; device K2s {s_ms:.4f} ms, K2a+ReLU {a_ms:.4f} ms",
+                  flush=True)
+            del xd, stats, y
+        del x
+    print(f"[{card}] K2s/K2a output hash over the {len(shapes)} shapes x 2 types: "
+          f"{every.hexdigest()}", flush=True)
 
 
 def sweep(card, dev, gen, cuda_a2j, cuda_gn, anchors, device_ms) -> None:

@@ -23,7 +23,8 @@ from handnet_tpu_torch import config as pconfig
 from handnet_tpu_torch.convert.from_flax import (a2j_state_dict_from_flax,
                                                  a2j_variables_from_state_dict)
 from handnet_tpu_torch.models import a2j as pa2j
-from handnet_tpu_torch.nn.resnet import BatchNorm2d, FrozenBatchNorm2d, SyncBatchNorm2d
+from handnet_tpu_torch.nn.resnet import (BatchNorm2d, FrozenBatchNorm2d, GroupNorm,
+                                         SyncBatchNorm2d)
 from handnet_tpu_torch.train import checkpoints as pckpt
 from handnet_tpu_torch.train.trainer import A2JTrainer
 from torch_port_fixtures import assert_close, leaves_equal
@@ -303,7 +304,8 @@ def test_norm_option_keeps_the_serving_state_dict():
     the same state-dict keys, the JAX converter's names; the norms are
     ``FrozenBatchNorm2d`` and ``BatchNorm2d`` in the backbone and the three
     towers alike (``"batch_sync"`` builds the synchronized subclass, with
-    the same keys); ``"group"`` raises."""
+    the same keys); ``"group"`` builds GroupNorms there, whose parameters
+    are those of JAX's ``A2JSystem(norm="group")`` tree."""
     cfg = pconfig.A2JConfig(**SMALL)
     frozen, batch = pa2j.A2JSystem(cfg), pa2j.A2JSystem(cfg, norm="batch")
     assert list(frozen.state_dict()) == list(batch.state_dict())
@@ -316,8 +318,17 @@ def test_norm_option_keeps_the_serving_state_dict():
     synced = pa2j.A2J(cfg, norm="batch_sync")
     assert list(synced.state_dict()) == list(batch.state_dict())
     assert type(synced.get_submodule("classificationModel.bn1")) is SyncBatchNorm2d
-    with pytest.raises(NotImplementedError, match="group"):
-        pa2j.A2J(cfg, norm="group")
+    group = pa2j.A2J(cfg, norm="group")
+    for name in ("Backbone.model.bn1", "Backbone.model.layer4.2.bn3",
+                 "classificationModel.bn1", "DepthRegressionModel.bn2"):
+        assert type(group.get_submodule(name)) is GroupNorm, name
+    shapes = jax.eval_shape(lambda: ja2j.A2JSystem(jconfig.A2JConfig(**SMALL), norm="group")
+                            .init(jax.random.PRNGKey(0)))
+    want = {"/".join(str(k.key) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_leaves_with_path(shapes)}
+    got = {path: v.shape for path, v in
+           _flat({"params": a2j_variables_from_state_dict(group.state_dict())["params"]})}
+    assert set(shapes) == {"params"} and got == want
 
 
 def test_a2j_variables_round_trip():
