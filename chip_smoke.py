@@ -260,7 +260,20 @@ a2j_group (after a2j_2d): A2J with GroupNorm(32) in all 65 norms
    and bf16: K2s to 1e-4 of scale, K2a bit-equal to its plain version, two
    runs of each bit-equal, the mean >> std case; at B=128 both timed beside
    their byte bounds, their plain versions, ``torch.var_mean`` and
-   ``F.group_norm``. Then ``predict`` at B = 64 and 128 in float32 and bf16
+   ``F.group_norm``. K2r and K2d at the same wide shapes, B = 1, 8 and 64,
+   float32 and bf16, parameters in float32 and in x's type, ReLU on and
+   off, and the mean >> std case: K2r to 1e-5 of scale, K2d bit-equal to
+   its plain version on K2r's sums, two runs of each bit-equal; at B=64 both
+   timed at 11x11 with C = 256, 1024 and 2048 beside their byte bounds,
+   their plain versions and ``native_group_norm_backward``. Then the train
+   step (``A2JTrainer.train_step`` on a ``TrainState`` of the GroupNorm
+   A2J, batch 64, AdamW) in float32 (TF32 off) and bf16: 65 launches each
+   of K2s, K2a, K2r and K2d per step and none through the plain versions
+   (``use_kernels=False``), whose gradients the kernels' must match (loss
+   and per-tensor tolerances in ``A2J_GROUP_STEP_TOL``); three AdamW
+   updates with finite losses; ms per step by CUDA events and, in bf16,
+   the step's kernels on the device beside the batch-norm A2J's. Then
+   ``predict`` at B = 64 and 128 in float32 and bf16
    (autocast), seeded random convs and norm affines: 65 K2s + 65 K2a + 1 K1
    per call and nothing else, two calls bit-equal, the kernel path against
    the plain path (``use_kernels=False``) within 1e-2 px in float32 (TF32
@@ -305,7 +318,7 @@ learn (after e2e_eval): the learning gates through their ``main(argv)``
 
 studies (after learn): the two study tools through their ``main(argv)``
    with ``--device cuda``. ``resolution_study --resolutions 512x640
-   800x1088 480x640@qs --steps 300 --batch 8`` trains the full-width
+   800x1088 480x640@qs --steps 150 --batch 8`` trains the full-width
    detector (ResNet-34 + FPN-256, GroupNorm(32) towers) at fast's, parity's
    and quant_static's detector inputs and evaluates each on the 24 held-out
    frames (the last through static int8, calibrated on 16 training frames
@@ -347,7 +360,8 @@ call, ``train_a2j_rgbd_eval`` per eval batch, ``demo`` per frame,
 ``a2j_mesh`` per sample, ``ros_node`` per eager call of its server's
 capture, ``a2j_2d_predict`` per 2D predict call, ``train_a2j_2d`` per 2D
 train step, ``eval_a2j_2d`` for one 2D eval step, ``a2j_group`` per
-GroupNorm A2J predict call, ``e2e_pipeline`` per call
+GroupNorm A2J predict call, ``train_a2j_group`` per GroupNorm A2J train
+step, ``e2e_pipeline`` per call
 on the E2E items; the gates': ``learn_train_fcos``, ``learn_train_a2j``,
 ``learn_train_rcnn`` and ``learn_train_fcos_control`` per train step,
 ``learn_eval_a2j`` per eval step, ``learn_pipeline`` and
@@ -360,7 +374,8 @@ held-out detect call; the studies': ``study_train_fcos`` per train step,
 ``study_calibrate`` per pipeline calibration), K2s's and K2a's ``shapes``
 hold their numbers at the shapes of phase 5, ``backbone_shapes`` at
 the GroupNorm backbone's, and ``a2j_group_shapes`` at A2J-GN's wide ones
-(B=128, float32 and bf16). K2r's and K2d's numbers are at the P3 train
+(B=128, float32 and bf16; K2r's and K2d's at B=64, 11x11 with C = 256, 1024
+and 2048). K2r's and K2d's numbers are at the P3 train
 shape with the train route's pair beside them (``pair_train_*``,
 ``backward_*``) and the profiled step's (``step_profile``); their
 ``library_ms`` is ``aten.native_group_norm_backward`` for the same outputs
@@ -3716,26 +3731,26 @@ def batch_norm_share(trainer, state, batch, kernel_ms: float) -> None:
     del cases
 
 
-def a2j_step_profile(trainer, state, batch) -> float:
-    """One train step under torch.profiler: the top 10 kernels by device
-    time; returns the step's kernel ms."""
+def step_profile(tag: str, name: str, fn, top: int = 10) -> float:
+    """One call of ``fn`` (a train step) under torch.profiler: the top
+    ``top`` kernels by device time; returns the call's kernel ms (nan where
+    the profiler recorded none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(state, batch)
+        fn()
         torch.cuda.synchronize()
     kernels = sorted(device_rows(prof), key=lambda r: -r[1])
     total = sum(ms for _, ms, _ in kernels)
     if total <= 0:
-        log("train_a2j", "profile of one step: the profiler recorded no device time "
-            "(not measured)")
+        log(tag, f"{name}: the profiler recorded no device time (not measured)")
         return float("nan")
-    log("train_a2j", f"profile of one step: kernels {total:.3f} ms on the device, "
+    log(tag, f"{name}: kernels {total:.3f} ms on the device, "
         f"{sum(n for _, _, n in kernels)} launches")
-    for key, ms, count in kernels[:10]:
-        log("train_a2j", f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
+    for key, ms, count in kernels[:top]:
+        log(tag, f"  {ms:9.3f} ms {100 * ms / total:6.2f}%  x{count:<4d} {key[:110]}")
     return total
 
 
@@ -3793,7 +3808,8 @@ def phase_train_a2j(dev) -> dict:
         + f" ({total[-1] / total[0]:.4f} of the first; tol < {TRAIN_LEARN_SHARE})")
     log("train_a2j", "last step's terms: "
         + ", ".join(f"{k} {v[-1]:.4f}" for k, v in losses.items()))
-    kernel_ms = a2j_step_profile(trainer, state, batch)
+    kernel_ms = step_profile("train_a2j", "profile of one step",
+                             lambda: trainer.train_step(state, batch))
     if kernel_ms == kernel_ms:
         batch_norm_share(trainer, state, batch, kernel_ms)
 
@@ -5699,6 +5715,37 @@ A2J_GROUP_TOL_F32 = 1e-2             # px: kernel path == plain path, TF32 off
 # in their last bits, so a bf16 rounding of a norm's output flips now and then
 # and the flips run through 65 norms (0.6% of the 176 px crop)
 A2J_GROUP_TOL_BF16 = 1.0
+# A2J-GN's train step (train_a2j's batch) and its GroupNorms' shapes at
+# 176^2 crops, G=32: (H, W, C, G) -> layers; the 11x11 ones at C = 256,
+# 1024 and 2048 are where K2r and K2d are timed in [a2j_group]
+A2J_GROUP_TRAIN_BATCH = 64
+A2J_GROUP_TRAIN_SHAPES = {(88, 88, 64, 32): 1, (44, 44, 64, 32): 6, (44, 44, 128, 32): 1,
+                          (44, 44, 256, 32): 4, (22, 22, 128, 32): 7, (22, 22, 256, 32): 1,
+                          (22, 22, 512, 32): 5, (11, 11, 256, 32): 23, (11, 11, 512, 32): 6,
+                          (11, 11, 1024, 32): 7, (11, 11, 2048, 32): 4}
+A2J_GROUP_TIMED = ((11, 11, 256, 32), (11, 11, 1024, 32), (11, 11, 2048, 32))
+A2J_GROUP_BACKWARD_BATCHES = (1, 8, 64)   # K2r/K2d at the wide shapes against plain
+A2J_GROUP_STEPS = 3                  # AdamW updates with the kernels, per dtype
+A2J_GROUP_TIMED_STEPS = 5            # steps between two CUDA events, per model
+# A2J-GN's train step with the kernels against the same step through the
+# plain versions (use_kernels=False: autograd through group_norm_reference),
+# one seed and batch: each loss term (relative) and each parameter's
+# gradient (norm of the difference over the norm; median and worst over the
+# 213 tensors). They differ by the statistics' last bits and by the
+# backward's formula and order (K2r + K2d against autograd's), which a
+# random ResNet-50 65 norms deep amplifies; cuDNN's weight gradients sum in
+# no fixed order. The control is the plain step again with every norm's
+# scale times (1 + A2J_GROUP_CONTROL): a move of the size of those last
+# bits. float32 (TF32 off) is held to fixed bounds (measured on an H100:
+# losses equal, gradients median 9.8e-4, max 7.3e-3; the control 1.4e-3,
+# 1.0e-2). In bf16 a last-bit move flips roundings that 65 norms carry to
+# every gradient (the control moves them by a median of 0.10 and up to
+# 0.43), so there the kernels' gradients are held to ``control`` times the
+# control's median and max, measured in the same run (kernels: 9.6e-2,
+# 0.400), and the losses to a fixed bound (measured 4.9e-5).
+A2J_GROUP_CONTROL = 1e-6
+A2J_GROUP_STEP_TOL = {"float32": {"loss": 1e-4, "grad_median": 1e-2, "grad_max": 5e-2},
+                      "bfloat16": {"loss": 1e-3, "control": 2.5}}
 
 
 def a2j_group_kernels(dev) -> dict:
@@ -5788,26 +5835,102 @@ def a2j_group_kernels(dev) -> dict:
     return {"err": max(errs), "rows": rows}
 
 
-def phase_a2j_group(dev) -> dict:
-    """A2J with GroupNorm at full width: ``a2j_group_kernels``, then
-    ``A2JSystem(norm="group").predict`` (dilated ResNet-50, three 256-wide
-    towers, 176^2 depth crops, 21 joints; seeded random convs and norm
-    affines) at B = 64 and 128 in float32 and bf16 (autocast): 65 K2s + 65
-    K2a + 1 K1 launches per call and nothing else, counted from 0 for each
-    batch and dtype, two calls bit-equal; the kernel path against the plain
-    path (``use_kernels=False``: the plain K2s, K2a and K1) within
-    ``A2J_GROUP_TOL_F32`` px in float32 (TF32 off) and ``A2J_GROUP_TOL_BF16``
-    in bf16; crops/s against the frozen-BN A2J at the same batch and dtype
-    (``a2j_group_turns``). Returns the kernels' rows and the path's launches
-    per call."""
+def a2j_group_backward_kernels(dev) -> dict:
+    """K2r and K2d at A2J-GN's wide shapes (C/G 32 and 64; a float32
+    2048-channel row of 512 chunks) against their plain versions at B = 1,
+    8 and 64, float32 and bfloat16, parameters in float32 (as the trainer
+    holds them) and in x's type, ReLU on and off: K2r's sums and dparams
+    to 1e-5 of their scale and two launches bit-equal; K2d bit for bit
+    against its plain version on K2r's sums and two launches bit-equal. The
+    mean >> std case at both widths. At B=64 (train_a2j's batch) both timed
+    at ``A2J_GROUP_TIMED`` in both types (:func:`gn_backward_times`: device
+    and loop ms, byte bound, plain versions, ``native_group_norm_backward``
+    for the same outputs). Returns K2r's largest absolute error and the
+    JSON rows by kernel."""
     import torch
 
-    from handnet_tpu_torch.config import A2JConfig
+    from handnet_tpu_torch.ops.cuda_gn import (gn_backward_dx, gn_backward_dx_reference,
+                                               gn_backward_sums, gn_backward_sums_reference,
+                                               gn_group_stats)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    eps = 1e-6
+    worst, worst_abs, cases = {"sums": 0.0, "dparams": 0.0}, 0.0, 0
+    rows = {"gn_backward_sums": [], "gn_backward_dx": []}
+
+    def hold(name, xd, dyd, stats, sc, bi, relu):
+        nonlocal worst_abs, cases
+        runs = [gn_backward_sums(xd, dyd, stats, sc, bi, eps, relu) for _ in range(2)]
+        if output_hash(*runs[0]) != output_hash(*runs[1]):
+            raise AssertionError(f"K2r {name}: two runs differ")
+        want = gn_backward_sums_reference(xd, dyd, stats, sc, bi, eps, relu)
+        for key, got, ref in zip(("sums", "dparams"), runs[0], want):
+            scale_of = ref.abs().max().item()
+            worst_abs = max(worst_abs, check(f"K2r {key} {name}", got, ref, 1e-5 * scale_of))
+            worst[key] = max(worst[key], ((got - ref).abs().max() / scale_of).item())
+        sums = runs[0][0]
+        dx = same_bits_twice(f"K2d {name}",
+                             lambda: gn_backward_dx(xd, dyd, stats, sc, bi, sums, eps, relu))
+        if dx.dtype != xd.dtype or not torch.equal(
+                dx, gn_backward_dx_reference(xd, dyd, stats, sc, bi, sums, eps, relu)):
+            raise AssertionError(f"K2d {name}: not bit-equal to its plain version on K2r's sums")
+        cases += 1
+
+    shapes = [s for s in A2J_GROUP_TIMED if s[2] // s[3] >= 32]
+    for h, w, c, g in A2J_GROUP_TIMED:
+        scale = torch.rand(c, device=dev, generator=gen) + 0.5
+        bias = torch.randn(c, device=dev, generator=gen)
+        for b in A2J_GROUP_BACKWARD_BATCHES:
+            if (h, w, c, g) not in shapes and b != A2J_GROUP_TRAIN_BATCH:
+                continue                                   # C/G 8: timed only
+            x = torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2
+            dy = torch.randn(b, h, w, c, device=dev, generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                xd, dyd = x.to(dtype), dy.to(dtype)
+                stats = gn_group_stats(xd, g)
+                if (h, w, c, g) in shapes:
+                    for params in {dtype, torch.float32}:
+                        for relu in (False, True):
+                            hold(f"B={b} {h}x{w}x{c} G={g} {dtype} params {params} relu={relu}",
+                                 xd, dyd, stats, scale.to(params), bias.to(params), relu)
+                if b == A2J_GROUP_TRAIN_BATCH:
+                    t = gn_backward_times(xd, dyd, stats, scale, bias, g, eps)
+                    kind = "f32" if dtype == torch.float32 else "bf16"
+                    for key, row in t.items():
+                        rows[key].append({"shape": f"B={b} {h}x{w}x{c} G={g} {kind}, f32 params, "
+                                                   "ReLU",
+                                          "layers": A2J_GROUP_TRAIN_SHAPES[(h, w, c, g)], **row})
+                    log("a2j_group", f"B={b} {h}x{w}x{c} G={g} {kind}, f32 params, ReLU: " + "; ".join(
+                        f"{'K2r' if key == 'gn_backward_sums' else 'K2d'} {r['ms']:.4f} ms on the "
+                        f"device (loop {r['loop_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                        f"({r['bound_ms'] / r['ms']:.0%}), plain {r['plain_ms']:.4f}, "
+                        f"native_group_norm_backward {r['library_ms']:.4f}"
+                        for key, r in t.items()))
+                del xd, dyd, stats
+            del x, dy
+    # mean >> std at both widths: c = x - mean keeps S2's and dscale's precision
+    for c in (1024, 2048):
+        x = 1000.0 + 0.1 * torch.randn(8, 11, 11, c, device=dev, generator=gen)
+        dy = torch.randn(8, 11, 11, c, device=dev, generator=gen)
+        ones, zeros = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+        hold(f"mean>>std B=8 11x11x{c} G=32 float32", x, dy, gn_group_stats(x, 32), ones, zeros,
+             True)
+    log("a2j_group", f"K2r/K2d at C/G 32 and 64 (B={A2J_GROUP_BACKWARD_BATCHES}, f32 and bf16, "
+        f"params f32 and x's type, ReLU on and off, mean>>std), {cases} cases: K2r sums max|err| "
+        f"{worst['sums']:.3e}, dparams {worst['dparams']:.3e} of scale (tol 1e-5), two launches "
+        "bit-equal; K2d bit-equal to its plain version on K2r's sums, two launches bit-equal")
+    return {"err": worst_abs, "rows": rows}
+
+
+def a2j_group_model(cfg):
+    """The seeded GroupNorm A2J on the host: the convs from ``init_weights_``
+    (seed ``SEED``), every norm's affine drawn from a generator of the same
+    seed (scale 0.5-1.5, bias N(0, 0.1)); 65 GroupNorms."""
+    import torch
+
     from handnet_tpu_torch.models.a2j import A2JSystem
     from handnet_tpu_torch.nn.resnet import GroupNorm
 
-    kernels = a2j_group_kernels(dev)
-    cfg = A2JConfig()
     model = A2JSystem(cfg, norm="group")
     model.init_weights_(torch.Generator().manual_seed(SEED))
     gen = torch.Generator().manual_seed(SEED)
@@ -5819,6 +5942,174 @@ def phase_a2j_group(dev) -> dict:
     norms = sum(isinstance(m, GroupNorm) for m in model.modules())
     if norms != A2J_GROUP_NORMS:
         raise AssertionError(f"A2JSystem(norm='group'): {norms} GroupNorms")
+    return model
+
+
+def grad_spread(got: dict, want: dict) -> tuple:
+    """|g - g_want| / |g_want| per tensor: (median, worst tensor, its value)."""
+    err = {n: ((got[n] - want[n]).norm() / want[n].norm().clamp(min=1e-30)).item()
+           for n in want}
+    worst = max(err, key=err.get)
+    return sorted(err.values())[len(err) // 2], worst, err[worst]
+
+
+def a2j_group_train(dev) -> dict:
+    """A2J-GN's train step at full width: ``A2JTrainer.train_step`` (AdamW,
+    autocast bf16 over float32 parameters with the loss outside it, or
+    float32) on a ``TrainState`` of the GroupNorm A2J (the trainer itself
+    builds the batch-norm one), batch ``A2J_GROUP_TRAIN_BATCH`` of seeded
+    176^2 crops, in float32 (TF32 off) and bf16:
+
+    * one step with the kernels and one through the plain versions
+      (``use_kernels=False``) from the same seed: 65 launches each of K2s,
+      K2a, K2r and K2d in the first and none of ours in the second (counted
+      from 0 for each); the losses and every parameter's gradient within
+      ``A2J_GROUP_STEP_TOL``;
+    * ``A2J_GROUP_STEPS`` AdamW updates in all with the kernels, finite
+      losses;
+    * ms per step by CUDA events over ``A2J_GROUP_TIMED_STEPS`` steps (TF32
+      on) and, in bf16, one step's kernels on the device (torch.profiler),
+      beside the batch-norm A2J's (``A2JTrainer.init_state``) from the same
+      seed and batch.
+
+    Returns the launches per step of the kernel path."""
+    import copy
+
+    import torch
+
+    from handnet_tpu_torch.config import A2JConfig, TrainConfig
+    from handnet_tpu_torch.nn.resnet import GroupNorm
+    from handnet_tpu_torch.ops.cuda_gn import group_norm
+    from handnet_tpu_torch.train.trainer import A2JTrainer, TrainState, make_optimizer
+
+    cfg = A2JConfig()
+    batch = {k: v.to(dev) for k, v in a2j_train_batch(A2J_GROUP_TRAIN_BATCH, SEED, cfg.crop_h,
+                                                      cfg.num_joints).items()}
+    want = {**{name: 0 for name in counted_wrappers()},
+            **{name: A2J_GROUP_NORMS for name in GN_TRAIN_KERNELS}}
+    seeded = a2j_group_model(cfg).to(dev, memory_format=torch.channels_last)
+    for bf16 in (False, True):
+        kind = "bfloat16" if bf16 else "float32"
+        tcfg = TrainConfig(batch_size=A2J_GROUP_TRAIN_BATCH, bf16=bf16)
+        trainer = A2JTrainer(cfg, tcfg, device=dev)
+
+        def fresh(on: bool, nudge: float = 0.0):
+            model = copy.deepcopy(seeded)
+            model.use_kernels = on
+            with torch.no_grad():
+                for m in model.modules():
+                    if isinstance(m, GroupNorm):
+                        m.weight.mul_(1 + nudge)
+            return TrainState(0, model, make_optimizer(tcfg, model.parameters()),
+                              trainer.schedule)
+
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = bf16
+        # the kernels, the plain path, and the plain path with every norm's
+        # scale moved by A2J_GROUP_CONTROL (relative), about as far as the
+        # kernels' statistics are from the plain ones: how far such last-bit
+        # differences alone move a step
+        runs, states = {}, {}
+        for key, on, nudge in (("kernels", True, 0.0), ("plain", False, 0.0),
+                               ("control", False, A2J_GROUP_CONTROL)):
+            state = fresh(on, nudge)
+            reset_launch_counts()
+            before = group_norm.dy_copies
+            state, metrics = trainer.train_step(state, batch)
+            counts = launch_counts()
+            if counts != (want if on else {k: 0 for k in want}):
+                raise AssertionError(f"a2j_group train step {kind} kernels={on}: launches "
+                                     f"{counts}, expected {want if on else 0}")
+            runs[key] = ({k: v.item() for k, v in metrics.items()},
+                         {n: p.grad.detach().float().clone()
+                          for n, p in state.model.named_parameters()})
+            if on:
+                states["group"], copies = state, group_norm.dy_copies - before
+            del state
+        mk, mp = runs["kernels"][0], runs["plain"][0]
+        tol = dict(A2J_GROUP_STEP_TOL[kind])
+        loss_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp)
+        spread = {key: grad_spread(runs[key][1], runs["plain"][1])
+                  for key in ("kernels", "control")}
+        (median, worst, worst_err), control = spread["kernels"], spread["control"]
+        if "control" in tol:
+            tol.update(grad_median=tol["control"] * control[0],
+                       grad_max=tol["control"] * control[2])
+        log("a2j_group", f"train step {kind} at batch {A2J_GROUP_TRAIN_BATCH} (TF32 "
+            f"{'on' if bf16 else 'off'}), kernels vs plain: losses max rel err {loss_err:.3e} "
+            f"(tol {tol['loss']:g}); gradients |g_k - g_p| / |g_p| per tensor over "
+            f"{len(runs['plain'][1])}: median {median:.3e} (tol {tol['grad_median']:.3e}), max "
+            f"{worst_err:.3e} ({worst}; tol {tol['grad_max']:.3e}); the control (every "
+            f"norm's scale x (1 + {A2J_GROUP_CONTROL:g}), plain) against the plain step: "
+            f"median {control[0]:.3e}, max {control[2]:.3e} ({control[1]}); launches per "
+            f"step {want}, {copies} dy copies to NHWC")
+        if (loss_err > tol["loss"] or median > tol["grad_median"]
+                or worst_err > tol["grad_max"]):
+            raise AssertionError(f"a2j_group train step {kind}: kernels vs plain outside "
+                                 f"tolerance (loss {loss_err:.3e}, median {median:.3e}, "
+                                 f"{worst} {worst_err:.3e})")
+        del runs
+        free_device_memory(dev)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        state = states.pop("group")
+        totals = [mk["total_loss"]]
+        for _ in range(A2J_GROUP_STEPS - 1):
+            state, metrics = trainer.train_step(state, batch)
+            totals.append(metrics["total_loss"].item())
+        if not all(math.isfinite(v) for v in totals):
+            raise AssertionError(f"a2j_group train {kind}: losses {totals}")
+        ms = {"group": cuda_ms(lambda: trainer.train_step(state, batch),
+                               iters=A2J_GROUP_TIMED_STEPS, warmup=1)}
+        line = (f"A2J-GN {kind} at batch {A2J_GROUP_TRAIN_BATCH}: total loss by AdamW update "
+                + ", ".join(f"{v:.4f}" for v in totals) + f" (finite); {ms['group']:.3f} ms "
+                f"per step (CUDA events over {A2J_GROUP_TIMED_STEPS} steps, TF32 on)")
+        if bf16:
+            device = {"group": step_profile("a2j_group", "A2J-GN bf16 step",
+                                            lambda: trainer.train_step(state, batch), top=5)}
+            del state
+            free_device_memory(dev)
+            bn = trainer.init_state(SEED)
+            ms["batch"] = cuda_ms(lambda: trainer.train_step(bn, batch),
+                                  iters=A2J_GROUP_TIMED_STEPS, warmup=1)
+            device["batch"] = step_profile("a2j_group", "batch-norm A2J bf16 step",
+                                           lambda: trainer.train_step(bn, batch), top=5)
+            line += (f", kernels {device['group']:.3f} ms on the device; the batch-norm A2J "
+                     f"(A2JTrainer's model, same seed and batch) {ms['batch']:.3f} ms per step, "
+                     f"kernels {device['batch']:.3f} ms on the device")
+            del bn
+        else:
+            del state
+        log("a2j_group", line)
+        del trainer
+        free_device_memory(dev)
+    del seeded
+    return want
+
+
+def phase_a2j_group(dev) -> dict:
+    """A2J with GroupNorm at full width: ``a2j_group_kernels`` (K2s, K2a),
+    ``a2j_group_backward_kernels`` (K2r, K2d), the train step
+    (``a2j_group_train``: 65 launches of each of the four per step), then
+    ``A2JSystem(norm="group").predict`` (dilated ResNet-50, three 256-wide
+    towers, 176^2 depth crops, 21 joints; seeded random convs and norm
+    affines) at B = 64 and 128 in float32 and bf16 (autocast): 65 K2s + 65
+    K2a + 1 K1 launches per call and nothing else, counted from 0 for each
+    batch and dtype, two calls bit-equal; the kernel path against the plain
+    path (``use_kernels=False``: the plain K2s, K2a and K1) within
+    ``A2J_GROUP_TOL_F32`` px in float32 (TF32 off) and ``A2J_GROUP_TOL_BF16``
+    in bf16; crops/s against the frozen-BN A2J at the same batch and dtype
+    (``a2j_group_turns``). Returns the four kernels' rows, K2s's and K2r's
+    largest errors, and the launches per predict call and per train step."""
+    import torch
+
+    from handnet_tpu_torch.config import A2JConfig
+    from handnet_tpu_torch.models.a2j import A2JSystem
+
+    kernels = a2j_group_kernels(dev)
+    backward = a2j_group_backward_kernels(dev)
+    per_step = a2j_group_train(dev)
+    cfg = A2JConfig()
+    model = a2j_group_model(cfg)
     frozen = A2JSystem(cfg)
     frozen.init_weights_(torch.Generator().manual_seed(SEED))
     model, frozen = (m.to(dev, memory_format=torch.channels_last).eval() for m in (model, frozen))
@@ -5878,8 +6169,9 @@ def phase_a2j_group(dev) -> dict:
             del outs, plain, got
     del model, frozen, crops
     free_device_memory(dev)
-    return {"rows": kernels["rows"], "err": kernels["err"],
-            "paths": {"a2j_group": want_per_call}}
+    return {"rows": {**kernels["rows"], **backward["rows"]},
+            "err": {"gn_group_stats": kernels["err"], "gn_backward_sums": backward["err"]},
+            "paths": {"a2j_group": want_per_call, "train_a2j_group": per_step}}
 
 
 def a2j_group_turns(name: str, batch: int, predict, group, frozen) -> None:
@@ -6560,12 +6852,14 @@ def phase_learn(dev, smi: str, device_arg: str = "cuda") -> dict:
 
 # --- the studies: the detector at the serving geometries, static int8 overexposed ---
 
-# resolution_study at full width, 300 steps of batch 8 per spec: fast's and
+# resolution_study at full width, 150 steps of batch 8 per spec: fast's and
 # parity's detector inputs and quant_static's point. Its steps are bound by
 # the host, as learn's are, so it trains in a process of its own (a GIL of
 # its own) started beside learn; run after learn, the script would overrun
-# its time limit
-STUDY_RES_ARGS = ["--resolutions", "512x640", "800x1088", "480x640@qs", "--steps", "300",
+# its time limit. Beside learn it takes host time from learn's own stages,
+# which set the phase's length: 300 steps a spec made the phase 280-362 s
+# on an H100 host, so the depth is cut to half
+STUDY_RES_ARGS = ["--resolutions", "512x640", "800x1088", "480x640@qs", "--steps", "150",
                   "--batch", "8"]
 STUDY_RES_TIMEOUT_S = 600         # the resolution process's join, after the saturation study
 STUDY_PACK = "build/studies/learn_states.msgpack"   # learn's trained stages
@@ -6891,8 +7185,8 @@ def main() -> int:
     a2j_group = phase_a2j_group(dev)
     for name, rows in a2j_group["rows"].items():
         results[name]["a2j_group_shapes"] = rows
-    results["gn_group_stats"]["max_abs_err"] = max(results["gn_group_stats"]["max_abs_err"],
-                                                   a2j_group["err"])
+    for name, err in a2j_group["err"].items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     by_path.update(a2j_group["paths"])
     lap("a2j_group")
     by_path["train_mesh"] = phase_train_mesh(dev)

@@ -24,7 +24,14 @@
 // column and prepares its channels' coefficients once, in registers: mean,
 // inv * scale (K2a's multiplier, which the mask needs too), bias, and the
 // two group terms; then each element costs a subtraction, the mask, and
-// three multiplies and two subtractions. grid = splits x B.
+// three multiplies and two subtractions. grid = splits x B. Nothing depends
+// on the group width (K = 2 to 64). A block is at most kMaxThreads = 256
+// threads of whole pixel rows, or one pixel row of 257 to 512 chunks
+// (float32 C = 2048) in a block of up to kWideThreads threads. One
+// instantiation serves both, as in gn_apply.cu: under a 512-thread bound
+// ptxas gives each kernel within 5 registers of what a 256-thread bound
+// gives it (H100, sm_90a: bf16 72-78 against 72-76, float32 53-54 against
+// 48-55).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,13 +42,14 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;   // a block of whole pixel rows
+constexpr int kWideThreads = 512;  // a block of one pixel row of 257 to 512 chunks
 constexpr int kUnroll = 4;  // 16-byte loads of x, and as many of dy, in flight
 
 // grid (splits, B), block rows * cp threads. Block (s, b) writes pixels
 // [s * per_split, (s + 1) * per_split) of image b.
 template <typename T, typename TP, bool kRelu>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kWideThreads)
 gn_backward_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ stats, const TP* __restrict__ scale,
                       const TP* __restrict__ bias, const float* __restrict__ sums,
@@ -109,8 +117,9 @@ cudaError_t launch(const void* x, const void* dy, const void* stats, const void*
   constexpr int E = 16 / sizeof(T);
   const int64_t threads = rows * cp;
   if (batch < 1 || batch > 65535 || hw < 1 || groups < 1 || channels % groups != 0 ||
-      cp * E != channels || rows < 1 || threads > kMaxThreads || splits < 1 ||
-      splits * per_split < hw || (splits - 1) * per_split >= hw) {
+      cp * E != channels || rows < 1 || threads > kWideThreads ||
+      (threads > kMaxThreads && rows != 1) || splits < 1 || splits * per_split < hw ||
+      (splits - 1) * per_split >= hw) {
     return cudaErrorInvalidValue;
   }
   const dim3 grid((unsigned)splits, (unsigned)batch);
@@ -135,8 +144,9 @@ cudaError_t launch(const void* x, const void* dy, const void* stats, const void*
 // dtype (0 = float32, 1 = bfloat16); stats [batch, 2, groups] float32 (K2s's)
 // and sums [batch, 2, groups] float32 (K2r's); scale and bias [channels] of
 // param_dtype (same codes); inv_n = 1 / (hw * channels / groups) rounded to
-// float32. The block shape and the cut of hw into splits come from the
-// wrapper (ops/cuda_gn.py: row_plan). Returns the launch's cudaError_t.
+// float32. The block shape (at most 256 threads, or one row of up to 512
+// chunks) and the cut of hw into splits come from the wrapper
+// (ops/cuda_gn.py: row_plan). Returns the launch's cudaError_t.
 extern "C" int hn_gn_backward_dx(const void* x, const void* dy, const void* stats,
                                  const void* scale, const void* bias, const void* sums, void* dx,
                                  int64_t batch, int64_t hw, int64_t channels, int64_t groups,

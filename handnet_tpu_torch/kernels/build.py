@@ -50,9 +50,9 @@ ENTRY_POINTS = {
     # splits, per_split, eps, relu, dtype code, scale/bias dtype code, stream
     "hn_gn_apply": (_P, _P, _P, _P, _P, *(_I64,) * 8, ctypes.c_float, _INT, _INT, _INT, _P),
     # x, dy, stats, scale, bias, sums, dparams, work, counters, batch, hw,
-    # channels, groups, cp, rows, splits, per_split, eps, relu, dtype code,
-    # scale/bias dtype code, stream
-    "hn_gn_backward_sums": (*(_P,) * 9, *(_I64,) * 8, ctypes.c_float, _INT, _INT, _INT, _P),
+    # channels, groups, cp, rows, splits, per_split, image_fold, eps, relu,
+    # dtype code, scale/bias dtype code, stream
+    "hn_gn_backward_sums": (*(_P,) * 9, *(_I64,) * 9, ctypes.c_float, _INT, _INT, _INT, _P),
     # x, dy, stats, scale, bias, sums, dx, batch, hw, channels, groups, cp,
     # rows, splits, per_split, eps, 1/n, relu, dtype code, scale/bias dtype
     # code, stream

@@ -21,9 +21,10 @@ the running ones in ``eval()`` mode), both with the same state-dict keys, or
 ``"group"``: flax's ``GroupNorm(32)`` in all 65 norms (53 in the backbone,
 12 in the towers; C/G 2 to 64), each through kernels K2s and K2a with the
 ReLU that follows fused into K2a, and ``weight``/``bias`` alone in the state
-dict. Training takes ``"frozen"`` or ``"batch"``: K2r and K2d, the
-GroupNorm backward, do not take the 32- and 64-channel groups of layer3's
-and layer4's outputs, and no JAX app trains A2J with GroupNorm.
+dict. With grad (a train step of :meth:`A2JSystem.losses`), each norm's
+backward is kernels K2r and K2d, 65 launches of each per step; on the CPU
+the same calls take the kernels' plain versions. ``A2JTrainer`` builds
+``"batch"`` only, as the JAX package's does.
 """
 
 from __future__ import annotations

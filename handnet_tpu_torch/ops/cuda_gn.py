@@ -21,14 +21,15 @@ differentiates), so these two replace no Pallas kernel.
 The kernels walk an image the same way: a block is ``rows`` pixel rows by
 ``cp`` 16-byte chunk columns, and each image's pixels are cut into
 ``splits`` runs of ``per_split`` pixels, one block each (:func:`row_plan`).
-K2s and K2a take every group width of GroupNorm(32) over 64 to 2048
+All four take every group width of GroupNorm(32) over 64 to 2048
 channels (C/G 2 to 64) and rows of up to 512 chunks (float32 C = 2048,
-one pixel row a block); K2r and K2d take C/G 2 to 16 and rows of up to 256
-chunks, and raise ``ValueError`` beyond.
+one pixel row a block), and raise ``ValueError`` beyond.
 K2s's and K2r's blocks meet in a workspace and the last one folds the
-splits in order; :func:`gn_stats_split_emulation` and
-:func:`gn_backward_split_emulation` transcribe those walks and folds, so
-that a CPU test can hold them against the plain versions.
+splits in order; K2r then folds the images in runs of ``SUMS_IMAGE_FOLD``
+and the runs in order, each fold by the block that arrives last.
+:func:`gn_stats_split_emulation` and :func:`gn_backward_split_emulation`
+transcribe those walks and folds, so that a CPU test can hold them against
+the plain versions.
 
 Each kernel is a ``torch.library`` op (``handnet_torch::gn_group_stats``,
 ``gn_apply``, ``gn_backward_sums``, ``gn_backward_dx``): the CPU
@@ -51,10 +52,9 @@ from torch.autograd.function import once_differentiable
 from handnet_tpu_torch.kernels import build, scratch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SUPPORTED_GROUP_WIDTHS = (2, 4, 8, 16, 32, 64)  # K2s, K2a: GroupNorm(32) over 64..2048 channels
-_BACKWARD_GROUP_WIDTHS = (2, 4, 8, 16)           # K2r, K2d: not widened past 512 channels
+_SUPPORTED_GROUP_WIDTHS = (2, 4, 8, 16, 32, 64)  # GroupNorm(32) over 64..2048 channels
 _MAX_THREADS = 256       # kMaxThreads of gn_stats.cu, gn_apply.cu and gn_backward_*.cu
-_MAX_ROW_CHUNKS = 512    # kWideThreads of gn_stats.cu and gn_apply.cu: one row a block
+_MAX_ROW_CHUNKS = 512    # kWideThreads of the same four sources: one row a block
 STATS_RUN = 4            # kRun of gn_stats.cu: a group's chunk columns folded in order
 STATS_UNROLL = 8         # kUnroll of gn_stats.cu: loads a thread has in flight
 APPLY_UNROLL = 4         # kUnroll of gn_apply.cu
@@ -62,9 +62,11 @@ SUMS_UNROLL = 4          # kUnroll of gn_backward_sums.cu (loads of x; as many o
 DX_UNROLL = 4            # kUnroll of gn_backward_dx.cu
 STATS_BLOCKS_PER_SM = 8  # blocks the plans aim at, per SM, over the whole batch
 APPLY_BLOCKS_PER_SM = 16
-# K2r: few splits, so that an image's last block folds few partials and the
-# blocks of a train step's maps fit on the card at once
+# K2r: 256-thread blocks per SM in its one wave (row_plan's one_wave), so
+# that an image's last block folds few partials and no block waits for a
+# second wave
 SUMS_BLOCKS_PER_SM = 2
+SUMS_IMAGE_FOLD = 8      # image_fold of gn_backward_sums.cu: images per run of the second fold
 DX_BLOCKS_PER_SM = 16
 
 
@@ -77,14 +79,20 @@ class RowPlan(NamedTuple):
 
 
 def row_plan(batch: int, hw: int, channels: int, itemsize: int, sm_count: int,
-             unroll: int, blocks_per_sm: int, max_chunks: int = _MAX_THREADS) -> RowPlan:
+             unroll: int, blocks_per_sm: int, max_chunks: int = _MAX_THREADS,
+             one_wave: bool = False) -> RowPlan:
     """Blocks of at most 256 threads that read whole pixel rows (a row of
     more than 256 chunks, up to ``max_chunks``, is a block of one row), and
     enough splits of HW that ``batch * splits`` reaches ``blocks_per_sm``
     blocks per SM, as long as a split keeps one unrolled trip of the block
     (``rows * unroll`` pixels). Splits are whole trips, so only an image's
-    last split is ragged. K2s and K2a take rows of up to
-    ``_MAX_ROW_CHUNKS``; K2r and K2d of up to 256 chunks (the default)."""
+    last split is ragged. All four kernels take rows of up to
+    ``_MAX_ROW_CHUNKS``.
+
+    With ``one_wave`` (K2r) the splits stop short of the target instead:
+    ``batch * splits`` stays within ``blocks_per_sm`` 256-thread blocks per
+    SM, a wider block counting for its threads, so that the grid is one
+    wave (at B=64, 11x11: 4 splits of 256-thread blocks, not 5)."""
     row_bytes = channels * itemsize
     if row_bytes % 16 or row_bytes // 16 > max_chunks:
         raise ValueError(f"GroupNorm kernels: C={channels} x {itemsize} bytes must be a "
@@ -92,10 +100,20 @@ def row_plan(batch: int, hw: int, channels: int, itemsize: int, sm_count: int,
     cp = row_bytes // 16
     rows = max(1, _MAX_THREADS // cp)
     trip = rows * unroll
-    want = -(-blocks_per_sm * sm_count // batch)
+    if one_wave:
+        want = max(1, blocks_per_sm * sm_count * _MAX_THREADS // (rows * cp) // batch)
+    else:
+        want = -(-blocks_per_sm * sm_count // batch)
     splits = max(1, min(want, -(-hw // trip)))
     per_split = -(-(-(-hw // splits)) // trip) * trip
     return RowPlan(cp, rows, -(-hw // per_split), per_split)
+
+
+def sums_plan(batch: int, hw: int, channels: int, itemsize: int, sm_count: int) -> RowPlan:
+    """K2r's plan: :func:`row_plan` with ``one_wave``, ``SUMS_UNROLL`` and
+    ``SUMS_BLOCKS_PER_SM``, rows of up to ``_MAX_ROW_CHUNKS``."""
+    return row_plan(batch, hw, channels, itemsize, sm_count, SUMS_UNROLL, SUMS_BLOCKS_PER_SM,
+                    _MAX_ROW_CHUNKS, one_wave=True)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -126,19 +144,17 @@ def _check_device(name: str, x: torch.Tensor) -> None:
         raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _check_nhwc(name: str, x: torch.Tensor, num_groups: int,
-                widths=_SUPPORTED_GROUP_WIDTHS) -> None:
+def _check_nhwc(name: str, x: torch.Tensor, num_groups: int) -> None:
     """What the kernels take on the card: float32 or bfloat16, contiguous
-    NHWC, 16-byte aligned, C/G one of ``widths`` (K2s's and K2a's, or
-    K2r's and K2d's)."""
+    NHWC, 16-byte aligned, C/G one of ``_SUPPORTED_GROUP_WIDTHS``."""
     if x.dim() != 4:
         raise ValueError(f"{name}: expected [B, H, W, C], got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {x.dtype} (float32 or bfloat16 only)")
     b, h, w, c = x.shape
-    if c % num_groups or c // num_groups not in widths:
-        raise ValueError(f"{name}: C={c}, G={num_groups}: C/G="
-                         f"{c / num_groups:g} is not a group width it takes, one of {widths}")
+    if c % num_groups or c // num_groups not in _SUPPORTED_GROUP_WIDTHS:
+        raise ValueError(f"{name}: C={c}, G={num_groups}: C/G={c / num_groups:g} is not a "
+                         f"group width it takes, one of {_SUPPORTED_GROUP_WIDTHS}")
     if b * h * w == 0:
         raise ValueError(f"{name}: empty input {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -207,8 +223,7 @@ def gn_apply_reference(x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor
 
 
 def _check_params(name: str, x: torch.Tensor, stats: torch.Tensor, scale: torch.Tensor,
-                  bias: torch.Tensor, sums: Optional[torch.Tensor] = None,
-                  widths=_SUPPORTED_GROUP_WIDTHS) -> int:
+                  bias: torch.Tensor, sums: Optional[torch.Tensor] = None) -> int:
     """What K2a, K2r and K2d take beside x on the card: ``stats`` (and K2d's
     ``sums``) contiguous float32 ``[B, 2, G]``; ``scale`` and ``bias``
     contiguous ``[C]``, both float32 or both bfloat16; all on x's device.
@@ -216,7 +231,7 @@ def _check_params(name: str, x: torch.Tensor, stats: torch.Tensor, scale: torch.
     if stats.dim() != 3:
         raise ValueError(f"{name}: stats must be [B, 2, G], got {tuple(stats.shape)}")
     num_groups = stats.shape[-1]
-    _check_nhwc(name, x, num_groups, widths)
+    _check_nhwc(name, x, num_groups)
     b, h, w, c = x.shape
     per_group = [("stats", stats)] + ([("sums", sums)] if sums is not None else [])
     for key, t in per_group:
@@ -351,10 +366,10 @@ def gn_backward_dx_reference(x: torch.Tensor, dy: torch.Tensor, stats: torch.Ten
 def _check_backward(name: str, x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
                     scale: torch.Tensor, bias: torch.Tensor,
                     sums: Optional[torch.Tensor] = None) -> int:
-    """What K2r and K2d take on the card: x as K2s takes it but C/G at most
-    16 (K2r and K2d are not widened to K2s's 32 and 64), dy of x's shape,
-    dtype and layout, the parameters as K2a takes them. Returns G."""
-    num_groups = _check_params(name, x, stats, scale, bias, sums, _BACKWARD_GROUP_WIDTHS)
+    """What K2r and K2d take on the card: x as K2s takes it (C/G 2 to
+    64), dy of x's shape, dtype and layout, the parameters as K2a takes
+    them. Returns G."""
+    num_groups = _check_params(name, x, stats, scale, bias, sums)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"{name}: dy {dy.dtype} {tuple(dy.shape)} on {dy.device} must match "
                          f"x {x.dtype} {tuple(x.shape)} on {x.device}")
@@ -368,22 +383,25 @@ def _gn_backward_sums_cuda(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tenso
     """CUDA implementation of ``handnet_torch::gn_backward_sums``: launches K2r."""
     num_groups = _check_backward("gn_backward_sums", x, dy, stats, scale, bias)
     b, h, w, c = x.shape
-    plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
-                    SUMS_UNROLL, SUMS_BLOCKS_PER_SM)
+    plan = sums_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index))
+    runs = -(-b // SUMS_IMAGE_FOLD)
     sums = torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
     dparams = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    # each block's per-channel partials, then each image's dparams terms
-    work = torch.empty((b, plan.splits + 1, 2, c), dtype=torch.float32, device=x.device)
+    # per image: each block's per-channel partials, then the image's dparams
+    # terms; then each run of images' sums
+    work = torch.empty((b * (plan.splits + 1) + runs, 2, c), dtype=torch.float32,
+                       device=x.device)
     lib = build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        counters = scratch.split_counters(x.device, stream, b + 1)
+        counters = scratch.split_counters(x.device, stream, b + runs + 1)
         code = lib.hn_gn_backward_sums(x.data_ptr(), dy.data_ptr(), stats.data_ptr(),
                                        scale.data_ptr(), bias.data_ptr(), sums.data_ptr(),
                                        dparams.data_ptr(), work.data_ptr(),
                                        counters.data_ptr(), b, h * w, c, num_groups, plan.cp,
-                                       plan.rows, plan.splits, plan.per_split, eps, int(relu),
-                                       _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype], stream)
+                                       plan.rows, plan.splits, plan.per_split, SUMS_IMAGE_FOLD,
+                                       eps, int(relu), _DTYPE_CODES[x.dtype],
+                                       _DTYPE_CODES[scale.dtype], stream)
     build.check_launch("hn_gn_backward_sums", code)
     gn_backward_sums.launches += 1
     return sums, dparams
@@ -416,7 +434,7 @@ def _gn_backward_dx_cuda(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
     num_groups = _check_backward("gn_backward_dx", x, dy, stats, scale, bias, sums=sums)
     b, h, w, c = x.shape
     plan = row_plan(b, h * w, c, x.element_size(), scratch.sm_count(x.device.index),
-                    DX_UNROLL, DX_BLOCKS_PER_SM)
+                    DX_UNROLL, DX_BLOCKS_PER_SM, _MAX_ROW_CHUNKS)
     dx = torch.empty_like(x)
     lib = build.load_library()
     with torch.cuda.device(x.device):
@@ -710,11 +728,13 @@ def gn_stats_split_emulation(x: torch.Tensor, num_groups: int, plan: RowPlan,
 def gn_backward_split_emulation(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
                                 scale: torch.Tensor, bias: torch.Tensor, eps: float,
                                 relu: bool, plan: RowPlan):
-    """K2r's walk and fold (``csrc/gn_backward_sums.cu``) in float32 tensor
+    """K2r's walk and folds (``csrc/gn_backward_sums.cu``) in float32 tensor
     code, for any ``plan``: each thread's running per-channel sums of ``g``
     and ``g·c`` over its pixels in order, the tree over a block's rows, the
     splits of an image in order, the group sums of ``scale·Σ``, each image's
-    ``dscale`` and ``dbias`` terms, and the images in order.
+    ``dscale`` and ``dbias`` terms, the images in runs of
+    ``SUMS_IMAGE_FOLD`` in order, and the runs in order (one run: its sum
+    is ``dparams``).
 
     It shares the kernel's structure, not its bits (the kernel fuses
     multiply-adds); a CPU test holds it against
@@ -750,16 +770,21 @@ def gn_backward_split_emulation(x: torch.Tensor, dy: torch.Tensor, stats: torch.
         image.append(rows[0])                              # the block's partial [B, 2, C]
     if not bool((seen == 1).all()):
         raise AssertionError(f"{plan} does not cover each of {hw} pixels once")
-    folded = zero.clone()
-    for part in image:                                     # an image's splits, in order
-        folded = folded + part
+    folded = _fold_in_order(image)                         # an image's splits, in order
     scaled = (folded * scale.float()).unflatten(-1, (num_groups, k))        # [B, 2, G, K]
     sums = scaled[..., 0]
     for i in range(1, k):                                  # a group's channels, in order
         sums = sums + scaled[..., i]
     inv = torch.rsqrt(stats[:, 1].float() + eps).repeat_interleave(k, dim=-1)
     terms = torch.stack([inv * folded[:, 1], folded[:, 0]], dim=1)          # [B, 2, C]
-    dparams = terms[0]
-    for i in range(1, b):                                  # the images, in order
-        dparams = dparams + terms[i]
-    return sums, dparams
+    runs = [_fold_in_order(terms[first:first + SUMS_IMAGE_FOLD])           # images, in order
+            for first in range(0, b, SUMS_IMAGE_FOLD)]
+    return sums, runs[0] if len(runs) == 1 else _fold_in_order(runs)       # runs, in order
+
+
+def _fold_in_order(parts) -> torch.Tensor:
+    """``fold_columns`` of gn_backward_sums.cu: zero, plus each part in order."""
+    acc = torch.zeros_like(parts[0])
+    for part in parts:
+        acc = acc + part
+    return acc

@@ -20,9 +20,24 @@ call to check that two checkouts' K1 give the same bits.
 ``--gn-backward`` times only GroupNorm + ReLU's train route at
 ``chip_smoke.GN_TRAIN_SHAPE`` ([8, 100, 136, 256], G=32) in bf16 with
 float32 parameters: forward + backward, the backward alone, and K2r and
-K2d alone. A port without K2r (``gn_backward_sums``) is timed with the
-gradients registered on its forward ops, so one call with and without
-``--root`` gives the times before and after.
+K2d alone; then K2r and K2d alone (ReLU on, float32 parameters) at the
+GroupNorm backbone's five shapes (B=8 bf16, ``chip_smoke.BACKBONE_GN_SHAPES``)
+and at A2J-GN's eleven (B=64 bf16, ``chip_smoke.A2J_GROUP_TRAIN_SHAPES``; the
+three 11x11 ones in float32 too), each beside its byte bound and
+``aten.native_group_norm_backward`` for the same outputs. A port without K2r
+(``gn_backward_sums``) is timed with the gradients registered on its
+forward ops, and one whose K2r refuses a width says so, so one call with
+and without ``--root`` gives the times before and after. With ``--sweep``
+(this checkout only) K2r is timed at A2J-GN's 11x11 shapes, the backbone's
+25x34x512 and P3 over ``cuda_gn.SUMS_BLOCKS_PER_SM`` and
+``cuda_gn.SUMS_IMAGE_FOLD``.
+
+``--gn-backward-hash`` prints only the SHA-256 of K2r's sums and dparams,
+of K2d's dx on K2r's sums and of K2d's dx on the plain sums (ReLU on,
+float32 parameters) at P3 and the backbone's five shapes (B=8, G=32),
+float32 and bf16, and one hash over all of them: run it with and without
+``--root`` in one call to check whether two checkouts' K2r and K2d give
+the same bits.
 
 ``--gn-hash`` prints only the SHA-256 of K2s's statistics and of K2a's
 output (ReLU, float32 parameters) on seeded inputs at the fast profile's P3
@@ -60,7 +75,11 @@ def main() -> int:
                         help="print only the hashes and device times of K2s and K2a at the "
                              "old shapes on seeded inputs")
     parser.add_argument("--gn-backward", action="store_true",
-                        help="time only GroupNorm + ReLU forward + backward at the P3 train shape")
+                        help="time only GroupNorm + ReLU's train route at P3, and K2r and K2d at "
+                             "the backbone's and A2J-GN's shapes")
+    parser.add_argument("--gn-backward-hash", action="store_true",
+                        help="print only the hashes of K2r's and K2d's outputs at P3 and the "
+                             "backbone's shapes on seeded inputs")
     args = parser.parse_args()
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
@@ -104,6 +123,13 @@ def main() -> int:
 
     if args.gn_backward:
         gn_backward(GN_TRAIN_SHAPE, dev, gen, cuda_gn, report)
+        if hasattr(cuda_gn, "gn_backward_sums"):
+            gn_backward_shapes(card, dev, cuda_gn)
+            if args.sweep and not args.root:
+                gn_backward_sweep(card, dev, cuda_gn)
+        return 0
+    if args.gn_backward_hash:
+        gn_backward_hashes(card, dev, cuda_gn)
         return 0
     if args.gn_hash:
         gn_hashes(card, dev, cuda_gn, device_ms)
@@ -187,6 +213,128 @@ def gn_backward(shape, dev, gen, cuda_gn, report) -> None:
                lambda: cuda_gn.gn_backward_sums(x, dy, stats, sc, bi, 1e-5, True))
         report(f"K2d gn_backward_dx {name}", 3 * tensor,
                lambda: cuda_gn.gn_backward_dx(x, dy, stats, sc, bi, sums, 1e-5, True))
+
+
+def k2r_k2d_inputs(dev, b: int, h: int, w: int, c: int, dtype, seed: int):
+    """Seeded x (3 N(0, 1) + 2), dy, float32 scale and bias at one shape."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(b, h, w, c, device=dev, generator=gen) * 3 + 2).to(dtype)
+    dy = torch.randn(b, h, w, c, device=dev, generator=gen).to(dtype)
+    scale = torch.rand(c, device=dev, generator=gen) + 0.5
+    bias = torch.randn(c, device=dev, generator=gen)
+    return x, dy, scale, bias
+
+
+def gn_backward_shapes(card, dev, cuda_gn) -> None:
+    """K2r and K2d alone (ReLU on, float32 parameters, G=32) at the
+    backbone's five shapes (B=8 bf16) and A2J-GN's (B=64 bf16; the 11x11
+    ones in float32 too), on the device, beside their byte bounds (K2r: x
+    and dy read; K2d: x and dy read, dx written) and
+    ``aten.native_group_norm_backward`` for dscale and dbias and for dx
+    (NCHW copies, its own sums, no ReLU). Each line names the port's
+    ``sums_plan`` where it has one."""
+    import torch
+    from chip_smoke import (A2J_GROUP_TRAIN_BATCH, A2J_GROUP_TRAIN_SHAPES, BACKBONE_GN_SHAPES,
+                            TRAIN_BATCH, device_ms, native_group_norm_backward)
+
+    eps = 1e-5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(TRAIN_BATCH, shape, torch.bfloat16, layers)
+             for shape, layers in BACKBONE_GN_SHAPES.items()]
+    cases += [(A2J_GROUP_TRAIN_BATCH, shape, dtype, layers)
+              for shape, layers in A2J_GROUP_TRAIN_SHAPES.items()
+              for dtype in ((torch.bfloat16, torch.float32) if shape[:2] == (11, 11)
+                            else (torch.bfloat16,))]
+    for b, (h, w, c, g), dtype, layers in cases:
+        kind = "f32" if dtype == torch.float32 else "bf16"
+        name = f"B={b} {h}x{w}x{c} G={g} {kind}, f32 params, ReLU ({layers} layers)"
+        x, dy, scale, bias = k2r_k2d_inputs(dev, b, h, w, c, dtype, 2)
+        stats = cuda_gn.gn_group_stats(x, g)
+        tensor = x.numel() * x.element_size()
+        try:
+            sums, _ = cuda_gn.gn_backward_sums(x, dy, stats, scale, bias, eps, True)
+        except ValueError as err:
+            print(f"[{card}] K2r/K2d {name}: refused ({err})", flush=True)
+            continue
+        r_ms = device_ms(lambda: cuda_gn.gn_backward_sums(x, dy, stats, scale, bias, eps, True))
+        d_ms = device_ms(lambda: cuda_gn.gn_backward_dx(x, dy, stats, scale, bias, sums, eps,
+                                                        True))
+        lib_r = device_ms(native_group_norm_backward(x, dy, scale, bias, g,
+                                                     [False, True, True], eps))
+        lib_d = device_ms(native_group_norm_backward(x, dy, scale, bias, g,
+                                                     [True, False, False], eps))
+        r_bound = 2 * tensor / HBM_BYTES_PER_S * 1e3
+        d_bound = 3 * tensor / HBM_BYTES_PER_S * 1e3
+        plan = (f", plan {tuple(cuda_gn.sums_plan(b, h * w, c, x.element_size(), sms))}"
+                if hasattr(cuda_gn, "sums_plan") else "")
+        print(f"[{card}] K2r/K2d {name}: K2r {r_ms:.4f} ms on the device (bound {r_bound:.4f}, "
+              f"{r_bound / r_ms:.0%}), K2d {d_ms:.4f} (bound {d_bound:.4f}, "
+              f"{d_bound / d_ms:.0%}); native_group_norm_backward dscale+dbias {lib_r:.4f}, dx "
+              f"{lib_d:.4f}{plan}", flush=True)
+        del x, dy, stats, sums
+
+
+def gn_backward_sweep(card, dev, cuda_gn) -> None:
+    """K2r's device time (bf16, ReLU, float32 parameters) over its plan's
+    ``SUMS_BLOCKS_PER_SM`` and ``SUMS_IMAGE_FOLD`` at A2J-GN's 11x11 shapes
+    (B=64), the backbone's 25x34x512 (B=8) and P3."""
+    from chip_smoke import A2J_GROUP_TRAIN_BATCH, GN_TRAIN_SHAPE, TRAIN_BATCH, device_ms
+    import torch
+
+    kept = cuda_gn.SUMS_BLOCKS_PER_SM, cuda_gn.SUMS_IMAGE_FOLD
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = [(A2J_GROUP_TRAIN_BATCH, 11, 11, c) for c in (256, 1024, 2048)]
+    shapes += [(TRAIN_BATCH, 25, 34, 512), GN_TRAIN_SHAPE]
+    try:
+        for b, h, w, c in shapes:
+            x, dy, scale, bias = k2r_k2d_inputs(dev, b, h, w, c, torch.bfloat16, 2)
+            stats = cuda_gn.gn_group_stats(x, 32)
+            for per_sm in (1, 2, 3, 4):
+                for fold in ((4, 8, 16) if b > 8 else (8,)):
+                    cuda_gn.SUMS_BLOCKS_PER_SM, cuda_gn.SUMS_IMAGE_FOLD = per_sm, fold
+                    plan = cuda_gn.sums_plan(b, h * w, c, 2, sms)
+                    ms = device_ms(lambda: cuda_gn.gn_backward_sums(x, dy, stats, scale, bias,
+                                                                    1e-5, True), iters=40)
+                    print(f"[{card}] sweep K2r B={b} {h}x{w}x{c} bf16 SUMS_BLOCKS_PER_SM="
+                          f"{per_sm} SUMS_IMAGE_FOLD={fold} {tuple(plan)}: device {ms:.4f} ms",
+                          flush=True)
+            del x, dy, stats
+    finally:
+        cuda_gn.SUMS_BLOCKS_PER_SM, cuda_gn.SUMS_IMAGE_FOLD = kept
+
+
+def gn_backward_hashes(card, dev, cuda_gn) -> None:
+    """SHA-256 of K2r's (sums, dparams), of K2d's dx on them and of K2d's
+    dx on the plain sums (ReLU on, float32 parameters, eps 1e-5) at P3 and
+    the backbone's shapes, float32 and bf16, G=32, on inputs from a
+    generator seeded per shape; then one hash over all of them."""
+    import hashlib
+
+    import torch
+    from chip_smoke import BACKBONE_GN_SHAPES, GN_TRAIN_SHAPE, SEED, TRAIN_BATCH, output_hash
+
+    shapes = [GN_TRAIN_SHAPE] + [(TRAIN_BATCH, h, w, c) for h, w, c, _ in BACKBONE_GN_SHAPES]
+    every = hashlib.sha256()
+    for b, h, w, c in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy, scale, bias = k2r_k2d_inputs(dev, b, h, w, c, dtype, SEED)
+            stats = cuda_gn.gn_group_stats(x, 32)
+            sums, dparams = cuda_gn.gn_backward_sums(x, dy, stats, scale, bias, 1e-5, True)
+            plain, _ = cuda_gn.gn_backward_sums_reference(x, dy, stats, scale, bias, 1e-5, True)
+            digests = (output_hash(sums, dparams),
+                       output_hash(cuda_gn.gn_backward_dx(x, dy, stats, scale, bias, sums, 1e-5,
+                                                          True)),
+                       output_hash(cuda_gn.gn_backward_dx(x, dy, stats, scale, bias, plain,
+                                                          1e-5, True)))
+            every.update("".join(digests).encode())
+            print(f"[{card}] K2r/K2d B={b} {h}x{w}x{c} G=32 {dtype}: K2r {digests[0][:16]}, K2d "
+                  f"on K2r's sums {digests[1][:16]}, K2d on the plain sums {digests[2][:16]}",
+                  flush=True)
+            del x, dy, stats, sums, dparams, plain
+    print(f"[{card}] K2r/K2d output hash over the {len(shapes)} shapes x 2 types: "
+          f"{every.hexdigest()}", flush=True)
 
 
 def gn_hashes(card, dev, cuda_gn, device_ms) -> None:

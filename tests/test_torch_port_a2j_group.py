@@ -1,5 +1,6 @@
-"""A2J with GroupNorm (``A2JSystem(norm="group")``) in the port, and K2s and
-K2a at the wide groups it needs, on the CPU.
+"""A2J with GroupNorm (``A2JSystem(norm="group")``) in the port, and the
+GroupNorm kernels (K2s, K2a forward; K2r, K2d backward) at the wide groups
+it needs, on the CPU.
 
 A2J's GroupNorm(32) runs at C/G = 2 to 64: layer3's 1024-channel outputs
 have 32-channel groups, layer4's 2048-channel outputs 64-channel groups, and
@@ -8,10 +9,14 @@ The kernels run only on a card (``chip_smoke.py``'s ``[a2j_group]`` holds
 them against their plain versions there). Here: the plans and the Python
 transcription of K2s's walk at those widths against the plain versions and
 the JAX package's ``gn_group_stats``/``pallas_group_norm`` in interpret
-mode; the width checks of the forward and backward kernels; and the whole
-module at full channel widths against JAX's ``A2JSystem(norm="group")``,
-with weights from the port's seeded init carried to flax by the port's
-converter and JAX's apply jitted. Everything runs on one torch thread.
+mode (K2r's is held in ``test_torch_port_gn_backward.py``); the width
+checks of the four kernels; and the whole module at full channel widths
+against JAX's ``A2JSystem(norm="group")``, with weights from the port's
+seeded init carried to flax by the port's converter and JAX's functions
+jitted: the heads, the decode, and the gradient of ``a2j_loss`` with
+respect to every parameter and the crops against ``jax.grad``, the port's
+backward through the four ops 65 times each. Everything runs on one torch
+thread.
 """
 
 import jax
@@ -30,7 +35,9 @@ from handnet_tpu_torch.convert.from_flax import (a2j_state_dict_from_flax,
 from handnet_tpu_torch.models import a2j as pa2j
 from handnet_tpu_torch.nn.resnet import GroupNorm
 from handnet_tpu_torch.ops import cuda_gn
-from torch_port_fixtures import assert_close, leaves_equal
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from torch_port_fixtures import assert_close, fast_compile, leaves_equal
 
 H100_SMS = 132
 # the wide layers' maps at 176^2 crops (stride 16) are 11 x 11
@@ -54,25 +61,34 @@ def _x(shape, seed, dtype="float32", loc=2.0, scale=3.0):
 @pytest.mark.parametrize("channels,itemsize", [(1024, 4), (2048, 4), (1024, 2), (2048, 2)])
 @pytest.mark.parametrize("batch", [1, 8, 64, 128])
 def test_wide_row_plans_cover_hw(channels, itemsize, batch):
-    """K2s's and K2a's plans take rows of 1024 and 2048 channels: a float32
-    row of 2048 is 512 chunks, one pixel row a block of 512 threads; every
-    other row stays within 256 threads. K2r's and K2d's plans (256 chunks at
-    most) refuse the 512-chunk row."""
+    """The four kernels' plans take rows of 1024 and 2048 channels: a
+    float32 row of 2048 is 512 chunks, one pixel row a block of 512
+    threads; every other row stays within 256 threads. K2r's plan
+    (``sums_plan``) keeps the grid within one wave of
+    ``SUMS_BLOCKS_PER_SM`` 256-thread blocks per SM, a 512-thread block
+    counting for two."""
     hw = 121
     cp = channels * itemsize // 16
-    for unroll, target in ((cuda_gn.STATS_UNROLL, cuda_gn.STATS_BLOCKS_PER_SM),
-                           (cuda_gn.APPLY_UNROLL, cuda_gn.APPLY_BLOCKS_PER_SM)):
-        plan = cuda_gn.row_plan(batch, hw, channels, itemsize, H100_SMS, unroll, target,
-                                cuda_gn._MAX_ROW_CHUNKS)
+    plans = [(cuda_gn.row_plan(batch, hw, channels, itemsize, H100_SMS, unroll, target,
+                               cuda_gn._MAX_ROW_CHUNKS), unroll, False)
+             for unroll, target in ((cuda_gn.STATS_UNROLL, cuda_gn.STATS_BLOCKS_PER_SM),
+                                    (cuda_gn.APPLY_UNROLL, cuda_gn.APPLY_BLOCKS_PER_SM),
+                                    (cuda_gn.DX_UNROLL, cuda_gn.DX_BLOCKS_PER_SM))]
+    plans.append((cuda_gn.sums_plan(batch, hw, channels, itemsize, H100_SMS),
+                  cuda_gn.SUMS_UNROLL, True))
+    for plan, unroll, one_wave in plans:
         assert plan.cp == cp and plan.rows == max(1, 256 // cp)
         assert plan.rows * plan.cp <= (512 if cp > 256 else 256)
         assert (plan.splits - 1) * plan.per_split < hw <= plan.splits * plan.per_split
         assert plan.per_split % (plan.rows * unroll) == 0
-        assert batch * plan.splits >= H100_SMS or plan.per_split == plan.rows * unroll
-    if cp > 256:
-        with pytest.raises(ValueError, match="at most 4096"):
-            cuda_gn.row_plan(batch, hw, channels, itemsize, H100_SMS, cuda_gn.SUMS_UNROLL,
-                             cuda_gn.SUMS_BLOCKS_PER_SM)
+        if one_wave:
+            wave = cuda_gn.SUMS_BLOCKS_PER_SM * H100_SMS * 256 // (plan.rows * plan.cp)
+            assert batch * plan.splits <= max(batch, wave)
+            assert plan.splits == min(max(1, wave // batch), -(-hw // (plan.rows * unroll)))
+        else:
+            assert batch * plan.splits >= H100_SMS or plan.per_split == plan.rows * unroll
+    with pytest.raises(ValueError, match="at most 8192"):
+        cuda_gn.sums_plan(batch, hw, 4096, 4, H100_SMS)   # 1024 chunks
 
 
 # (B, H, W), C, dtype, the batch the plan is made for. 11 x 11 is the wide
@@ -141,22 +157,28 @@ def test_wide_group_norm_matches_pallas(channels, groups, dtype, tol):
 
 @pytest.mark.parametrize("channels", [1024, 2048])
 def test_width_checks(channels):
-    """The forward kernels' check takes C/G = 32 and 64; the backward's (K2r,
-    K2d, not widened) raises ``ValueError`` naming the width, where the launch
-    would otherwise fail with a bare CUDA error. A width no kernel has (128)
-    is refused by both."""
-    k = channels // 32
+    """The four kernels' checks take C/G = 32 and 64, the forward's and the
+    backward's (K2r, K2d) alike. A width no kernel has (128) is refused by
+    all of them with ``ValueError`` naming the width, where the launch
+    would otherwise fail with a bare CUDA error."""
     x = torch.zeros(2, 3, 3, channels)
     stats = torch.zeros(2, 2, 32)
     scale, bias = torch.ones(channels), torch.zeros(channels)
     cuda_gn._check_nhwc("gn_group_stats", x, 32)
     assert cuda_gn._check_params("gn_apply", x, stats, scale, bias) == 32
     for name in ("gn_backward_sums", "gn_backward_dx"):
-        with pytest.raises(ValueError, match=f"{name}: C={channels}, G=32: C/G={k} is not"):
-            cuda_gn._check_backward(name, x, x, stats, scale, bias,
-                                    stats if name == "gn_backward_dx" else None)
+        assert cuda_gn._check_backward(name, x, x, stats, scale, bias,
+                                       stats if name == "gn_backward_dx" else None) == 32
+    wide = torch.zeros(1, 1, 1, 4096)
+    wide_stats, ones, zeros = torch.zeros(1, 2, 32), torch.ones(4096), torch.zeros(4096)
     with pytest.raises(ValueError, match="C/G=128"):
-        cuda_gn._check_nhwc("gn_group_stats", torch.zeros(1, 1, 1, 4096), 32)
+        cuda_gn._check_nhwc("gn_group_stats", wide, 32)
+    with pytest.raises(ValueError, match="gn_apply: C=4096, G=32: C/G=128"):
+        cuda_gn._check_params("gn_apply", wide, wide_stats, ones, zeros)
+    for name in ("gn_backward_sums", "gn_backward_dx"):
+        with pytest.raises(ValueError, match=f"{name}: C=4096, G=32: C/G=128 is not"):
+            cuda_gn._check_backward(name, wide, wide, wide_stats, ones, zeros,
+                                    wide_stats if name == "gn_backward_dx" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +277,100 @@ def test_group_a2j_weights_round_trip(group_a2j):
     assert all(torch.equal(back[k], sd[k]) for k in sd)
     pa2j.A2JSystem(pconfig.A2JConfig(crop_h=CROP, crop_w=CROP), norm="group").load_state_dict(
         back, strict=True)
+
+
+# The gradient of cls + 3 reg (``A2JSystem.losses``, ``a2j_loss`` in float32)
+# with respect to every parameter and the crops, against ``jax.grad`` through
+# JAX's module (jitted, backend optimization off): float32 on both sides,
+# each tensor to GRAD_TOL of its largest |value| (measured: 1.1e-5 at most
+# over the 213 parameter tensors, 6.4e-6 for the crops; flax's fast
+# variance and the port's two-pass statistics, and the backward's sums in
+# another order, 65 norms deep). The loss to LOSS_TOL relative.
+GRAD_TOL = 1e-4
+LOSS_TOL = 1e-5
+
+
+class _OpLog(TorchDispatchMode):
+    """How often each ``handnet_torch`` op reaches the dispatcher."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "handnet_torch":
+            name = func.__name__.split(".")[0]
+            self.ops[name] = self.ops.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture(scope="module")
+def group_a2j_grad(group_a2j):
+    """The port's loss and gradients (train mode, grad on: the forward
+    through K2s's and K2a's ops, the backward through K2r's and K2d's; on
+    the CPU their plain versions) on the module's crops and seeded targets,
+    the parameters' gradients as flax trees (the port's converter), and
+    JAX's ``value_and_grad`` of the same loss."""
+    model, variables, x = group_a2j["model"], group_a2j["variables"], group_a2j["x"]
+    rng = np.random.default_rng(SEED + 1)
+    gt = np.concatenate([rng.uniform(0, CROP, size=(BATCH, 21, 2)),
+                         rng.uniform(0.3, 1.2, size=(BATCH, 21, 1))], -1).astype(np.float32)
+    system = ja2j.A2JSystem(jconfig.A2JConfig(crop_h=CROP, crop_w=CROP), norm="group")
+
+    def jloss(params, crops):
+        heads = system.apply({"params": params}, crops, train=True)
+        cls, reg = ja2j.a2j_loss(heads, jnp.asarray(gt), system.anchors,
+                                 system.cfg.spatial_factor)
+        return cls + 3.0 * reg
+
+    args = (variables["params"], jnp.asarray(x))
+    loss, (want, want_x) = fast_compile(jax.value_and_grad(jloss, argnums=(0, 1)),
+                                        *args)(*args)
+    names, params = zip(*model.named_parameters())
+    crops = torch.from_numpy(x).requires_grad_()
+    model.train()
+    try:
+        with _OpLog() as log:
+            total = model.losses(model(crops), torch.from_numpy(gt))["total_loss"]
+            *grads, grad_x = torch.autograd.grad(total, [*params, crops])
+    finally:
+        model.eval()
+    got = a2j_variables_from_state_dict(dict(zip(names, grads)))["params"]
+    return {"loss": total.item(), "want_loss": float(loss), "grads": got, "want": want,
+            "grad_x": grad_x, "want_x": np.asarray(want_x), "ops": log.ops}
+
+
+@pytest.mark.parametrize("part", ["backbone", "classification", "regression", "depth"])
+def test_group_a2j_gradient_matches_jax(group_a2j_grad, part):
+    got, want = group_a2j_grad["grads"][part], group_a2j_grad["want"][part]
+    got_leaves = jax.tree_util.tree_leaves_with_path(got)
+    want_leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        w = np.asarray(w)
+        assert tuple(np.shape(g)) == w.shape
+        assert_close(g, w, rtol=0, atol=GRAD_TOL * float(np.abs(w).max()),
+                     err_msg=f"{part}{jax.tree_util.keystr(path)}")
+
+
+def test_group_a2j_crop_gradient_and_loss_match_jax(group_a2j_grad):
+    assert abs(group_a2j_grad["loss"] - group_a2j_grad["want_loss"]) <= LOSS_TOL * abs(
+        group_a2j_grad["want_loss"])
+    want = group_a2j_grad["want_x"]
+    got = group_a2j_grad["grad_x"]
+    assert tuple(got.shape) == want.shape == (BATCH, CROP, CROP, 1)
+    assert_close(got, want, rtol=0, atol=GRAD_TOL * float(np.abs(want).max()))
+
+
+def test_group_a2j_backward_runs_the_four_ops(group_a2j_grad):
+    """One forward and backward of the loss: each of the 65 GroupNorms
+    through ``gn_group_stats`` and ``gn_apply`` forward and
+    ``gn_backward_sums`` and ``gn_backward_dx`` backward (the crops and the
+    weights require grad, so every norm's dx is wanted), no plain gradient
+    registered on the forward ops in their place, and no decode (the loss
+    takes the einsums)."""
+    assert group_a2j_grad["ops"] == {"gn_group_stats": 65, "gn_apply": 65,
+                                     "gn_backward_sums": 65, "gn_backward_dx": 65}
 
 
 @pytest.mark.parametrize("quant", [True, "static"])

@@ -107,7 +107,12 @@ def test_plain_backward_matches_flax_and_registered_gradient(shape, relu, param_
 
 
 # (B, H, W, C), dtype, ReLU, the batch the plan is made for. HW = 300 leaves
-# a ragged last split; C/G = 2, 4, 8 and 16; one split and many.
+# a ragged last split; C/G = 2, 4, 8 and 16; one split and many. Then A2J-GN's
+# widths at its 11x11 maps: C/G 64 (a float32 2048-channel row is 512
+# chunks, one row a block) and 32, plans for B = 1, 8 and 64; B = 64 folds
+# its images in 8 runs of 8 and then the runs, B = 17 in runs of 8, 8 and 1
+# with a ragged last split (9 x 7 = 63 pixels); and the GroupNorm
+# backbone's 25x34x512.
 _SPLIT_CASES = [
     ((2, 15, 20, 256), "bfloat16", True, 8),
     ((2, 15, 20, 256), "float32", False, 1),
@@ -116,13 +121,18 @@ _SPLIT_CASES = [
     ((2, 30, 40, 128), "float32", True, 8),
     ((2, 9, 7, 512), "bfloat16", False, 2),
     ((3, 9, 7, 512), "float32", True, 1),
+    ((2, 11, 11, 2048), "float32", True, 1),
+    ((2, 11, 11, 2048), "bfloat16", False, 8),
+    ((2, 11, 11, 1024), "float32", True, 64),
+    ((64, 11, 11, 1024), "bfloat16", True, 64),
+    ((17, 9, 7, 2048), "float32", True, 64),
+    ((2, 25, 34, 512), "bfloat16", True, 8),
 ]
 
 
 def _plan(shape, dtype, plan_batch):
     itemsize = torch.empty((), dtype=getattr(torch, dtype)).element_size()
-    return cuda_gn.row_plan(plan_batch, shape[1] * shape[2], shape[3], itemsize, H100_SMS,
-                            cuda_gn.SUMS_UNROLL, cuda_gn.SUMS_BLOCKS_PER_SM)
+    return cuda_gn.sums_plan(plan_batch, shape[1] * shape[2], shape[3], itemsize, H100_SMS)
 
 
 # Tolerance 1e-5 of each output's scale, the card's: float32 sums of up to
@@ -134,8 +144,13 @@ def test_backward_split_emulation_matches_plain(shape, dtype, relu, plan_batch):
     tx, tdy = torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt)
     tsc, tbi = torch.from_numpy(scale), torch.from_numpy(bias)
     plan = _plan(shape, dtype, plan_batch)
-    if shape[1] * shape[2] == 300 and plan_batch < 128:
-        assert plan.splits > 1 and 300 % plan.per_split   # a ragged last split
+    hw = shape[1] * shape[2]
+    if hw in (300, 63) and plan_batch < 128:
+        assert plan.splits > 1 and hw % plan.per_split    # a ragged last split
+    if shape[3] * tx.element_size() == 8192:
+        assert plan.cp == 512 and plan.rows == 1          # one 512-chunk row a block
+    # the images' runs: one (B <= 8) or several, the last one short for B = 17
+    assert -(-shape[0] // cuda_gn.SUMS_IMAGE_FOLD) == {64: 8, 17: 3}.get(shape[0], 1)
     stats = cuda_gn.gn_group_stats_reference(tx, 32)
     got = cuda_gn.gn_backward_split_emulation(tx, tdy, stats, tsc, tbi, EPS, relu, plan)
     want = cuda_gn.gn_backward_sums_reference(tx, tdy, stats, tsc, tbi, EPS, relu)
